@@ -22,6 +22,22 @@
 //     bytes), so neighbouring threads read neighbouring addresses of a row.
 //     An exact copy, bit for bit.
 //
+// K3  scatter_rows: out[b, n, :] = sum of rows[b, e, :] over every edge e
+//     (no mask) whose id[b, e] == n; the ids are in any order. The transpose
+//     of K2, so the backward of every row gather. Replaces the Pallas kernels
+//     caster_dta_tpu/ops/pallas_segment.py::_scatter_fullN_kernel and
+//     ::_segment_kernel_dense (one-hot MXU matmuls against the edge chunks,
+//     bf16 in one exact pass, f32 in a 3-pass mantissa split). Here the sum
+//     is bound by memory bytes, as K1's is. Design: one block per (graph,
+//     tile of K3_ROWS node rows, tile of K3_COLS features). The block streams
+//     the graph's ids in chunks of K3_THREADS; per chunk it compacts, in edge
+//     order (warp ballot and popc), the edges whose id falls in its row tile
+//     into shared memory, and all threads stage those edges' values (widened
+//     to f32) in shared memory together. K3_GROUPS threads own each row's
+//     features; they add their row's staged values into f32 registers, in
+//     edge order, and write each output once. Deterministic, no atomics; an
+//     empty row comes out 0. The ids are re-read once per row tile (from L2).
+//
 // Plain C interface, loaded with ctypes (caster_dta_torch/ops/cuda_segment.py).
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError() after its launch.
@@ -36,6 +52,11 @@ constexpr int K1_ROWS = 32;      // destination rows per block
 constexpr int K1_THREADS = 256;
 constexpr int K2_THREADS = 256;
 constexpr int K2_MAX_BLOCKS = 132 * 32;  // grid-stride beyond this
+constexpr int K3_ROWS = 32;      // node rows per block
+constexpr int K3_GROUPS = 8;     // threads per node row
+constexpr int K3_THREADS = K3_ROWS * K3_GROUPS;  // 256, also the edge chunk
+constexpr int K3_COLS = 32;      // features per block (32 KB of f32 stage)
+constexpr int K3_PER_THREAD = K3_COLS / K3_GROUPS;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -95,6 +116,95 @@ gather_rows_kernel(const V* __restrict__ table, const int* __restrict__ idx, V* 
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(K3_THREADS)
+scatter_rows_kernel(const T* __restrict__ rows, const int* __restrict__ ids,
+                    float* __restrict__ out, int E, int N, int F) {
+  __shared__ int warp_count[K3_THREADS / 32];
+  __shared__ int list_e[K3_THREADS];
+  __shared__ int list_r[K3_THREADS];
+  __shared__ float stage[K3_THREADS * K3_COLS];
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.x * K3_ROWS;
+  const int c0 = blockIdx.z * K3_COLS;
+  const int n_rows = min(K3_ROWS, N - n0);
+  const int n_cols = min(K3_COLS, F - c0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // K3_GROUPS threads per row; thread g of a row owns its columns g, g + K3_GROUPS, ...
+  const int my_row = threadIdx.x / K3_GROUPS;
+  const int group = threadIdx.x % K3_GROUPS;
+  const int* ids_b = ids + (int64_t)b * E;
+  const T* rows_b = rows + (int64_t)b * E * F + c0;
+
+  float acc[K3_PER_THREAD];
+#pragma unroll
+  for (int q = 0; q < K3_PER_THREAD; ++q) acc[q] = 0.f;
+
+  int id_next = (int)threadIdx.x < E ? ids_b[threadIdx.x] : 0;
+  for (int e0 = 0; e0 < E; e0 += K3_THREADS) {
+    const int e = e0 + threadIdx.x;
+    const int id = id_next;
+    if (e + K3_THREADS < E) id_next = ids_b[e + K3_THREADS];  // the next chunk's, early
+    bool hit = false;
+    int r = 0;
+    if (e < E) {
+      // an id outside [0, N) stops the kernel, as the plain version raises
+      if (id < 0 || id >= N) __trap();
+      r = id - n0;
+      hit = r >= 0 && r < n_rows;
+    }
+    // compact the chunk's edges of this row tile, in edge order
+    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) warp_count[warp] = __popc(ballot);
+    __syncthreads();
+    int base = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < K3_THREADS / 32; ++w) {
+      const int c = warp_count[w];
+      base += w < warp ? c : 0;
+      total += c;
+    }
+    if (hit) {
+      const int slot = base + __popc(ballot & ((1u << lane) - 1u));
+      list_e[slot] = e;
+      list_r[slot] = r;
+    }
+    __syncthreads();
+    // stage the listed edges' values of this column tile, widened to f32:
+    // every thread loads, so a row with many edges costs one pass, not one
+    // memory round trip per edge
+    const int n_vals = total * n_cols;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n_vals; i += K3_THREADS) {
+      const int j = i / n_cols;
+      const int c = i - j * n_cols;
+      stage[j * K3_COLS + c] = to_f32(rows_b[(int64_t)list_e[j] * F + c]);
+    }
+    __syncthreads();
+    // each thread adds its row's staged values in edge order
+    for (int j = 0; j < total; ++j) {
+      if (list_r[j] == my_row) {
+#pragma unroll
+        for (int q = 0; q < K3_PER_THREAD; ++q) {
+          const int col = group + q * K3_GROUPS;
+          if (col < n_cols) acc[q] += stage[j * K3_COLS + col];
+        }
+      }
+    }
+    __syncthreads();  // the lists and the stage are rewritten by the next chunk
+  }
+
+  if (my_row < n_rows) {
+    float* out_r = out + ((int64_t)b * N + n0 + my_row) * F + c0;
+#pragma unroll
+    for (int q = 0; q < K3_PER_THREAD; ++q) {
+      const int col = group + q * K3_GROUPS;
+      if (col < n_cols) out_r[col] = acc[q];
+    }
+  }
+}
+
 template <typename V>
 void launch_gather(const void* table, const void* idx, void* out, int B, int E, int N,
                    int row_bytes, cudaStream_t stream) {
@@ -142,6 +252,24 @@ int k2_gather_rows(const void* table, const void* idx, void* out, int B, int E, 
     case 4: launch_gather<uint32_t>(table, idx, out, B, E, N, row_bytes, s); break;
     case 2: launch_gather<uint16_t>(table, idx, out, B, E, N, row_bytes, s); break;
     default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// rows [B, E, F] f32 (rows_bf16 == 0) or bf16 (rows_bf16 != 0), ids [B, E]
+// int32 in [0, N) in any order, out [B, N, F] f32. All contiguous.
+int k3_scatter_rows(const void* rows, const void* ids, void* out, int B, int E, int N, int F,
+                    int rows_bf16, void* stream) {
+  const dim3 grid((N + K3_ROWS - 1) / K3_ROWS, B, (F + K3_COLS - 1) / K3_COLS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows_bf16) {
+    scatter_rows_kernel<__nv_bfloat16><<<grid, K3_THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(rows), static_cast<const int*>(ids),
+        static_cast<float*>(out), E, N, F);
+  } else {
+    scatter_rows_kernel<float><<<grid, K3_THREADS, 0, s>>>(
+        static_cast<const float*>(rows), static_cast<const int*>(ids),
+        static_cast<float*>(out), E, N, F);
   }
   return (int)cudaGetLastError();
 }

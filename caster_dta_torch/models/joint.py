@@ -17,7 +17,7 @@ from caster_dta_torch.models.common import masked_pool
 from caster_dta_torch.models.molecule import make_molecule_gnn
 from caster_dta_torch.models.protein import make_protein_gnn
 from caster_dta_torch.nn.attention import MultiheadAttention
-from caster_dta_torch.nn.common import Dense, apply_act, dropout, select_activation
+from caster_dta_torch.nn.common import Dense, LayerNorm, apply_act, dropout, select_activation
 
 
 class _Tower(nn.Module):
@@ -41,16 +41,16 @@ class CrossAttentionModule(nn.Module):
         d1, d2 = embed_dim_1, embed_dim_2
         self.include_residual_stream = include_residual_stream
         self.feedforward_dropout = feedforward_dropout
-        self.preattn_norm1 = nn.LayerNorm(d1, eps=1e-5)
-        self.preattn_norm2 = nn.LayerNorm(d2, eps=1e-5)
+        self.preattn_norm1 = LayerNorm(d1, eps=1e-5)
+        self.preattn_norm2 = LayerNorm(d2, eps=1e-5)
         self.embed1_to_2 = MultiheadAttention(d1, n_attention_heads, kdim=d2, vdim=d2,
                                               dropout=attn_dropout, generator=g)
         self.embed2_to_1 = MultiheadAttention(d2, n_attention_heads, kdim=d1, vdim=d1,
                                               dropout=attn_dropout, generator=g)
         if include_residual_stream:
             s = dim_feedforward_scale
-            self.ff_norm1 = nn.LayerNorm(d1, eps=1e-5)
-            self.ff_norm2 = nn.LayerNorm(d2, eps=1e-5)
+            self.ff_norm1 = LayerNorm(d1, eps=1e-5)
+            self.ff_norm2 = LayerNorm(d2, eps=1e-5)
             # ReLU and dropout sit at 1 and 2 so the linears keep the
             # reference's names ff*.0 and ff*.3; forward applies them itself
             self.ff1 = nn.Sequential(Dense(d1, d1 * s, generator=g), nn.ReLU(), nn.Identity(),
@@ -126,14 +126,14 @@ class JointGNN(nn.Module):
             for _ in range(num_cross_attn_layers))
         self.include_post_pool_layernorm = include_post_pool_layernorm
         if include_post_pool_layernorm:
-            self.protein_post_pool_norm = nn.LayerNorm(d1, eps=1e-5)
-            self.molecule_post_pool_norm = nn.LayerNorm(d2, eps=1e-5)
+            self.protein_post_pool_norm = LayerNorm(d1, eps=1e-5)
+            self.molecule_post_pool_norm = LayerNorm(d2, eps=1e-5)
         self.protein_lins, dp = lins(protein_lin_depth, d1)
         self.molecule_lins, dm = lins(molecule_lin_depth, d2)
         self.pm_embed_lin = Dense(dp + dm, pairwise_embedding_dim, generator=g)
         self.out_fc_layers, do = lins(out_lin_depth, pairwise_embedding_dim, out_lin_factor)
         if out_lin_norm_type == "layer":
-            self.out_fc_norms = nn.ModuleList(nn.LayerNorm(lin.out_features, eps=1e-5)
+            self.out_fc_norms = nn.ModuleList(LayerNorm(lin.out_features, eps=1e-5)
                                               for lin in self.out_fc_layers)
         self.output_layer = Dense(do, 1, generator=g)
 

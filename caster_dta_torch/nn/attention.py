@@ -1,6 +1,7 @@
 """Multi-head attention with torch.nn.MultiheadAttention's parameters and the
 JAX package's numerics (counterpart of caster_dta_tpu/nn/attention.py):
-masked logits are set to -1e9 (not -inf), the softmax runs in f32, and the
+masked logits are set to -1e9 (not -inf), the logits are taken in the input
+dtype, the softmax runs in f32 and its weights are cast to v's dtype, and the
 returned weights are averaged over heads. The blockwise Pallas branch
 (``use_pallas``) is not on the served path and is not ported."""
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from caster_dta_torch.nn.common import Dense, dropout
+from caster_dta_torch.nn.common import Dense, dropout, linear
 
 _NEG = -1e9
 
@@ -62,11 +63,13 @@ class MultiheadAttention(nn.Module):
         lk = key.shape[1]
         wq, wk, wv = self._weights()
         bq, bk, bv = self.in_proj_bias.chunk(3)
-        q = torch.nn.functional.linear(query, wq, bq).reshape(b, lq, h, hd).transpose(1, 2)
-        k = torch.nn.functional.linear(key, wk, bk).reshape(b, lk, h, hd).transpose(1, 2)
-        v = torch.nn.functional.linear(value, wv, bv).reshape(b, lk, h, hd).transpose(1, 2)
+        q = linear(query, wq, bq).reshape(b, lq, h, hd).transpose(1, 2)
+        k = linear(key, wk, bk).reshape(b, lk, h, hd).transpose(1, 2)
+        v = linear(value, wv, bv).reshape(b, lk, h, hd).transpose(1, 2)
 
-        logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(hd)
+        # logits in the input dtype, scaled by sqrt(hd) rounded to that dtype
+        scale = torch.tensor(math.sqrt(hd), dtype=q.dtype).item()
+        logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / scale
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :], _NEG)
         weights = torch.softmax(logits.to(torch.float32), dim=-1).to(v.dtype)

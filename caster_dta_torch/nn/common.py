@@ -1,10 +1,23 @@
 """Shared NN helpers (counterpart of caster_dta_tpu/nn/common.py): the
-activation names, a torch-style ``Dense``, PyG-style ``MLP`` and dropout with
-an explicit generator."""
+activation names, the mixed-precision policy, a torch-style ``Dense``,
+PyG-style ``MLP``, a flax-style ``LayerNorm`` and dropout with an explicit
+generator.
+
+Mixed precision follows the JAX package's policy, not ``torch.autocast``:
+inside ``compute_dtype(torch.bfloat16)`` every ``Dense`` computes
+``x.to(dt) @ W.to(dt)`` and adds ``bias.to(dt)``, its output stays in ``dt``,
+and parameters stay f32. Everything downstream keeps the dtype PyTorch's type
+promotion gives it until an explicit cast, as in JAX; ``LayerNorm`` computes
+in f32 and returns f32, as flax's does for a bf16 input with f32 params. The
+setting is scoped to the ``with`` block (``Trainer`` enters it around its
+steps), so it never outlives the code that set it.
+"""
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +52,33 @@ def apply_act(act: Optional[Callable], x: torch.Tensor) -> torch.Tensor:
     return x if act is None else act(x)
 
 
+_COMPUTE_DTYPE: contextvars.ContextVar[Optional[torch.dtype]] = contextvars.ContextVar(
+    "caster_dta_torch_compute_dtype", default=None)
+
+
+def get_compute_dtype() -> Optional[torch.dtype]:
+    """The matmul compute dtype in force (None: follow the input dtype)."""
+    return _COMPUTE_DTYPE.get()
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype: Optional[torch.dtype]) -> Iterator[None]:
+    """Set the matmul compute dtype for the ``with`` block only."""
+    token = _COMPUTE_DTYPE.set(dtype)
+    try:
+        yield
+    finally:
+        _COMPUTE_DTYPE.reset(token)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ weight.T + bias`` under the policy: in the compute dtype when one
+    is set, else in x's dtype (counterpart of caster_dta_tpu Dense.__call__)."""
+    dt = get_compute_dtype() or x.dtype
+    return F.linear(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout drawn from ``generator``; identity unless training."""
@@ -71,7 +111,16 @@ class Dense(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return linear(x, self.weight, self.bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm computed and returned in the promoted type of the input
+    and the parameters, as flax's LayerNorm: f32 for a bf16 input and f32
+    parameters; an f32 input is unchanged."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(torch.promote_types(x.dtype, self.weight.dtype)))
 
 
 class MLP(nn.Module):

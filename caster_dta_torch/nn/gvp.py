@@ -17,7 +17,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from caster_dta_torch.nn.common import Dense, apply_act, dropout, select_activation
+from caster_dta_torch.nn.common import (Dense, LayerNorm, apply_act, dropout, get_compute_dtype,
+                                       select_activation)
 from caster_dta_torch.ops import segment
 
 SV = Tuple[torch.Tensor, torch.Tensor]
@@ -103,7 +104,7 @@ class GVPLayerNorm(nn.Module):
 
     def __init__(self, dims: Dims):
         super().__init__()
-        self.scalar_norm = nn.LayerNorm(dims[0], eps=1e-5)
+        self.scalar_norm = LayerNorm(dims[0], eps=1e-5)
 
     def forward(self, x: SV) -> SV:
         s, v = x
@@ -158,6 +159,13 @@ class GVPConv(nn.Module):
 
     def forward(self, x: SV, edge_src, edge_dst, edge_mask, edge_attr: SV) -> SV:
         s, v = x
+        cd = get_compute_dtype()
+        if cd is not None:
+            # cast once BEFORE the endpoint gather (caster_dta_tpu/nn/gvp.py
+            # GVPConv): the first op the features meet is a Dense in cd anyway,
+            # and K2 gathers (K3 scatters) half the bytes
+            s, v = s.to(cd), v.to(cd)
+            edge_attr = (edge_attr[0].to(cd), edge_attr[1].to(cd))
         nv_in = v.shape[-2]
         e = edge_src.shape[1]
         # one merged-(s, v) row gather for both endpoints: [B, 2E, ns + 3nv]

@@ -1,5 +1,6 @@
-"""Wrappers of the hand-written CUDA kernels K1 (sorted segment-sum) and K2
-(row gather) in ``csrc/segment.cu``, with their plain PyTorch versions.
+"""Wrappers of the hand-written CUDA kernels K1 (sorted segment-sum), K2
+(row gather) and K3 (unsorted scatter-add, K2's transpose) in
+``csrc/segment.cu``, with their plain PyTorch versions.
 
 A wrapper takes the plain version only for a tensor on the CPU. For a CUDA
 tensor it checks device, dtype, shape and contiguity, allocates its output
@@ -8,9 +9,9 @@ synchronising, and raises when anything is off: there is no fallback. Each
 launch adds one to ``LAUNCHES[name]``, so a run can show which kernels carried
 it.
 
-This slice serves under ``torch.no_grad()``; the kernels have no backward yet
-(K3, the gather's transpose, and K1's VJP come with training). A CUDA input
-that requires grad is refused, so no silently wrong gradient can exist.
+The wrappers are not differentiable themselves: ops/segment.py wraps them in
+autograd Functions whose backward passes are these same kernels (K1's VJP is a
+K2 gather, K2's is a K3 scatter).
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from caster_dta_torch.ops import build
 
 K1 = "k1_segment_sum_sorted"
 K2 = "k2_gather_rows"
-LAUNCHES = {K1: 0, K2: 0}
+K3 = "k3_scatter_rows"
+LAUNCHES = {K1: 0, K2: 0, K3: 0}
 
 _built: build.Built | None = None
 
@@ -42,6 +44,8 @@ def load_library() -> build.Built:
         built.lib.k1_segment_sum_sorted.restype = i
         built.lib.k2_gather_rows.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
         built.lib.k2_gather_rows.restype = i
+        built.lib.k3_scatter_rows.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+        built.lib.k3_scatter_rows.restype = i
         _built = built
     return _built
 
@@ -53,9 +57,6 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: needs contiguous tensors")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(f"{name}: the CUDA kernel has no backward yet; "
-                               "call it under torch.no_grad()")
     if torch.cuda.get_device_capability(dev) != (9, 0):
         raise RuntimeError(f"{name}: built for sm_90a, but {dev} is "
                            f"{torch.cuda.get_device_name(dev)}")
@@ -172,4 +173,58 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                  b, e, n, row_bytes, vec, stream)
     _raise_on(err, K2)
     LAUNCHES[K2] += 1
+    return out
+
+
+# ---------------------------------------------------------------- K3
+
+def scatter_rows_plain(rows: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Plain version of K3: ``index_add_`` of every row of rows [B, E, F] into
+    [B, N, F] f32 by the global row ``b * N + id``."""
+    b, e, f = rows.shape
+    flat = rows.to(torch.float32).reshape(b * e, f)
+    gids = (ids.long() + num_segments * torch.arange(b, device=ids.device)[:, None]).reshape(-1)
+    out = torch.zeros(b * num_segments, f, dtype=torch.float32, device=rows.device)
+    return out.index_add_(0, gids, flat).reshape(b, num_segments, f)
+
+
+def scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """K3: out[b, n, :] = sum of rows[b, e, :] over the edges e with
+    ids[b, e] == n. rows [B, E, F] float32 or bfloat16, ids [B, E] int32 in
+    [0, N) in any order, no mask (every row counts). The sum is taken in f32,
+    in edge order; the output is [B, N, F] f32. Any N.
+
+    An id outside [0, N) raises IndexError on the CPU and stops the kernel on
+    the card, as K2 does.
+
+    Replaces caster_dta_tpu/ops/pallas_segment.py::_scatter_fullN_kernel and
+    ::_segment_kernel_dense (via unsorted_segment_sum_rows). Bound by memory
+    bytes on the H100."""
+    if rows.device.type == "cpu":
+        if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= num_segments):
+            raise IndexError(f"{K3}: id outside [0, {num_segments})")
+        return scatter_rows_plain(rows, ids, num_segments)
+    if rows.device.type != "cuda":
+        raise ValueError(f"{K3}: unsupported device {rows.device}")
+    if rows.dim() != 3 or ids.shape != rows.shape[:2]:
+        raise ValueError(f"{K3}: shapes rows {tuple(rows.shape)}, ids {tuple(ids.shape)}")
+    if rows.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{K3}: rows must be float32 or bfloat16, not {rows.dtype}")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"{K3}: ids must be int32, not {ids.dtype}")
+    _check_cuda(K3, rows, ids)
+    b, e, f = rows.shape
+    if b > 65535:
+        raise ValueError(f"{K3}: {b} graphs exceed the grid's 65535")
+    out = torch.empty(b, num_segments, f, dtype=torch.float32, device=rows.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library().lib
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.k3_scatter_rows(rows.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                                  b, e, num_segments, f, int(rows.dtype == torch.bfloat16),
+                                  stream)
+    _raise_on(err, K3)
+    LAUNCHES[K3] += 1
     return out

@@ -1,17 +1,22 @@
-"""Read the JAX package's checkpoints without msgpack or flax (counterpart of
-load_params and get_best_model in caster_dta_tpu/train/checkpoints.py).
+"""Read and write the JAX package's checkpoints without msgpack or flax, and
+write a run's artifacts (counterpart of caster_dta_tpu/train/checkpoints.py).
 
 Flax writes params with ``flax.serialization.to_bytes``: a msgpack map of
 module names down to array leaves. Each array is msgpack ext type 1 whose
 payload is itself a msgpack array ``[shape, dtype_name, raw_bytes]``, C order,
 little-endian; ext type 3 is a numpy scalar in the same encoding. The reader
-below covers the msgpack subset that such a file uses: maps, arrays, str,
-bin, int, float, nil, bool and ext.
+and the writer below cover the msgpack subset that such a file uses: maps,
+arrays, str, bin, int, float, nil, bool and ext. The writer picks the
+smallest encoding of each value, as the msgpack package does, so a param tree
+comes out as the bytes ``flax.serialization.to_bytes`` gives.
 """
 from __future__ import annotations
 
+import json
 import os
 import struct
+import sys
+from typing import Optional
 
 import numpy as np
 
@@ -114,6 +119,96 @@ def unpackb(data: bytes):
     return out
 
 
+class _Writer:
+    def __init__(self):
+        self.parts: list[bytes] = []
+
+    def _sized(self, n: int, small: int | None, codes: tuple) -> None:
+        """Header of a sized value: ``small | n`` when a fix form fits, else
+        the 8/16/32-bit length form of ``codes`` (None where absent)."""
+        if small is not None and n < {0x80: 16, 0x90: 16, 0xA0: 32}[small]:
+            self.parts.append(bytes([small | n]))
+            return
+        for code, fmt in zip(codes, (">B", ">H", ">I")):
+            if code is not None and n < 1 << (8 * struct.calcsize(fmt)):
+                self.parts.append(bytes([code]) + struct.pack(fmt, n))
+                return
+        raise ValueError(f"msgpack value of length {n} is too long")
+
+    def _int(self, v: int) -> None:
+        if 0 <= v < 0x80 or -32 <= v < 0:
+            self.parts.append(struct.pack(">b" if v < 0 else ">B", v))
+            return
+        forms = (((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if v >= 0 else
+                 ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q")))
+        for code, fmt in forms:
+            try:
+                self.parts.append(bytes([code]) + struct.pack(fmt, v))
+                return
+            except struct.error:
+                continue
+        raise ValueError(f"integer {v} does not fit msgpack")
+
+    def _ext(self, code: int, payload: bytes) -> None:
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(payload) in fixext:
+            self.parts.append(bytes([fixext[len(payload)]]))
+        else:
+            self._sized(len(payload), None, (0xC7, 0xC8, 0xC9))
+        self.parts.append(struct.pack(">b", code) + payload)
+
+    def write(self, v) -> None:
+        if v is None or isinstance(v, bool):
+            self.parts.append(bytes([{None: 0xC0, False: 0xC2, True: 0xC3}[v]]))
+        elif isinstance(v, (np.ndarray, np.generic)):
+            a = np.asarray(v)
+            if a.dtype.byteorder == ">":
+                a = a.astype(a.dtype.newbyteorder("<"))
+            sub = _Writer()
+            sub.write([list(a.shape), a.dtype.name, a.tobytes("C")])
+            self._ext(_EXT_NPSCALAR if isinstance(v, np.generic) else _EXT_NDARRAY,
+                      b"".join(sub.parts))
+        elif isinstance(v, int):
+            self._int(v)
+        elif isinstance(v, float):
+            self.parts.append(b"\xcb" + struct.pack(">d", v))
+        elif isinstance(v, str):
+            raw = v.encode()
+            self._sized(len(raw), 0xA0, (0xD9, 0xDA, 0xDB))
+            self.parts.append(raw)
+        elif isinstance(v, bytes):
+            self._sized(len(v), None, (0xC4, 0xC5, 0xC6))
+            self.parts.append(v)
+        elif isinstance(v, (list, tuple)):
+            self._sized(len(v), 0x90, (None, 0xDC, 0xDD))
+            for x in v:
+                self.write(x)
+        elif isinstance(v, dict):
+            self._sized(len(v), 0x80, (None, 0xDE, 0xDF))
+            for k, x in v.items():
+                self.write(str(k))
+                self.write(x)
+        else:
+            raise TypeError(f"cannot write {type(v).__name__} to msgpack")
+
+
+def packb(obj) -> bytes:
+    """Encode nested dicts/lists of numpy arrays, str, bytes, numbers, bool
+    and None as msgpack with flax's ndarray ext."""
+    w = _Writer()
+    w.write(obj)
+    return b"".join(w.parts)
+
+
+def save_params(params: dict, path: str) -> None:
+    """Write a JAX-format param tree (for example ``to_jax_params(model)``)
+    as a flax ``.msgpack`` checkpoint, atomically."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(packb(params))
+    os.replace(tmp, path)
+
+
 def load_params(path: str) -> dict:
     """A flax ``.msgpack`` checkpoint -> nested dicts of numpy arrays."""
     with open(path, "rb") as f:
@@ -135,3 +230,58 @@ def get_best_model(checkpoint_path: str, use_best: str = "val") -> str:
     if os.path.isfile(checkpoint_path):
         return checkpoint_path
     raise FileNotFoundError(f"invalid checkpoint path {checkpoint_path}")
+
+
+def best_checkpoint_name(kind: str, dataset_name: str, loss: float, epoch: int) -> str:
+    """bestvalmodel_{ds}_val{loss}_epoch{e:05d}.msgpack and its train and
+    final siblings (the reference's train_model.py:672,681,707)."""
+    if kind == "val":
+        return f"bestvalmodel_{dataset_name}_val{loss:.4f}_epoch{epoch:>05d}.msgpack"
+    if kind == "train":
+        return f"besttrainmodel_{dataset_name}_train{loss:.4f}_epoch{epoch:>05d}.msgpack"
+    if kind == "final":
+        return f"finalmodel_{dataset_name}_val{loss:.4f}_epoch{epoch:>05d}.msgpack"
+    raise ValueError(kind)
+
+
+def save_run_artifacts(output_folder: str, dataset_kwargs: dict,
+                       rescale_params: Optional[dict], protein_gnn_kwargs: dict,
+                       molecule_gnn_kwargs: dict, joint_gnn_kwargs: dict,
+                       model_summary: Optional[str] = None) -> None:
+    """The reference's artifact set, with its JSON schemas: train_command.txt,
+    dataset_kwargs.json, dataset_rescale_params.json, model_kwargs.json and
+    an optional model_summary.txt."""
+    os.makedirs(output_folder, exist_ok=True)
+    with open(os.path.join(output_folder, "train_command.txt"), "w") as f:
+        f.write(sys.executable + " " + " ".join(sys.argv))
+    with open(os.path.join(output_folder, "dataset_kwargs.json"), "w") as f:
+        json.dump(dataset_kwargs, f, indent=4)
+    if rescale_params is not None:
+        with open(os.path.join(output_folder, "dataset_rescale_params.json"), "w") as f:
+            json.dump(rescale_params, f, indent=4)
+    with open(os.path.join(output_folder, "model_kwargs.json"), "w") as f:
+        json.dump({"protein_gnn_kwargs": protein_gnn_kwargs,
+                   "molecule_gnn_kwargs": molecule_gnn_kwargs,
+                   "joint_gnn_kwargs": joint_gnn_kwargs}, f, indent=4)
+    if model_summary is not None:
+        with open(os.path.join(output_folder, "model_summary.txt"), "w") as f:
+            f.write(model_summary)
+
+
+def param_summary(params: dict) -> str:
+    """Per-leaf table of a JAX-format param tree, with jax's key-path names."""
+    lines, total = [], 0
+
+    def walk(tree, path):
+        nonlocal total
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{path}['{k}']")
+                continue
+            n = int(np.prod(v.shape)) if v.shape else 1
+            total += n
+            lines.append(f"{path}['{k}']".ljust(80) + f" {str(v.shape):20s} {n:>10d}")
+
+    walk(params, "")
+    lines.append(f"{'TOTAL':80s} {'':20s} {total:>10d}")
+    return "\n".join(lines)

@@ -1,20 +1,24 @@
 """Port parity: the segment ops and batch containers of caster_dta_torch
 against caster_dta_tpu on the same numpy inputs.
 
-On the CPU the port's K1 (sorted segment-sum) and K2 (row gather) wrappers
-take their plain PyTorch versions; they are held here against the JAX
-package's XLA path and its Pallas kernels in interpret mode
-(``segment.USE_PALLAS = True``). The CUDA kernels themselves are held
-against these plain versions on the card (tests/test_torch_kernels.py and
-chip_smoke.py). f32 sums in another order: rtol/atol 1e-5.
+On the CPU the port's K1 (sorted segment-sum), K2 (row gather) and K3
+(unsorted scatter-add) wrappers take their plain PyTorch versions; they are
+held here against the JAX package's XLA path and its Pallas kernels in
+interpret mode (``segment.USE_PALLAS = True``), forward and gradient. The
+CUDA kernels themselves are held against these plain versions on the card
+(tests/test_torch_kernels.py and chip_smoke.py). f32 sums in another order:
+rtol/atol 1e-5; bf16 gradients rounded once from f32 sums taken in another
+order: within one bf16 ulp (rtol/atol 2**-7).
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
 import __graft_entry__ as graft
 from caster_dta_tpu.data import graphs as jgraphs
+from caster_dta_tpu.ops import pallas_segment
 from caster_dta_tpu.ops import segment as jseg
 from caster_dta_torch.data import graphs as tgraphs
 from caster_dta_torch.data.batching import synthetic_pair_batch
@@ -139,7 +143,81 @@ def test_launch_counters_untouched_on_cpu(rng):
     msgs, dst, mask = _padded_case(rng, 2, 20, 30, 40, 4)
     tseg.segment_sum(*map(torch.from_numpy, (msgs, dst, mask)), 20)
     tseg.gather_nodes(torch.from_numpy(msgs), torch.from_numpy(dst))
-    assert cuda_segment.LAUNCHES == {cuda_segment.K1: 0, cuda_segment.K2: 0}
+    cuda_segment.scatter_rows(torch.from_numpy(msgs), torch.from_numpy(dst), 20)
+    assert cuda_segment.LAUNCHES == {cuda_segment.K1: 0, cuda_segment.K2: 0, cuda_segment.K3: 0}
+
+
+F32_TOL = dict(rtol=RTOL, atol=ATOL)
+BF16_GRAD_TOL = 2 ** -7
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,e_real,e_pad,f", [(2, 70, 150, 200, 12), (3, 33, 40, 64, 5),
+                                                (1, 4200, 300, 320, 3)])
+def test_segment_grads_match_jax(rng, monkeypatch, dtype, b, n, e_real, e_pad, f):
+    """Gradients of gather_nodes (backward K3) and segment_sum (backward K2)
+    against jax.grad with the JAX package's Pallas VJPs: empty rows, masked
+    padding edges at N-1 and, in the last case, N above its 4096 split."""
+    monkeypatch.setattr(jseg, "USE_PALLAS", True)
+    msgs, dst, mask = _padded_case(rng, b, n, e_real, e_pad, f, empty_stride=3)
+    table = rng.normal(size=(b, n, f)).astype(np.float32)
+    src = rng.integers(0, n // 2, (b, e_pad)).astype(np.int32)   # the upper rows stay ungathered
+    idx = np.concatenate([src, dst], axis=1)
+    w_g = rng.normal(size=(b, 2 * e_pad, f)).astype(np.float32)
+    w_s = rng.normal(size=(b, n, f)).astype(np.float32)
+
+    def jax_loss(t, m):
+        g = jseg.gather_nodes(t, jnp.asarray(idx))
+        s = jseg.segment_sum(m, jnp.asarray(dst), jnp.asarray(mask), n)
+        return (jnp.sum(g.astype(jnp.float32) * w_g)
+                + jnp.sum(s.astype(jnp.float32) * w_s))
+
+    jdt = jnp.dtype(dtype)
+    want_t, want_m = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(table).astype(jdt),
+                                                        jnp.asarray(msgs).astype(jdt))
+    tdt = getattr(torch, dtype)
+    t = torch.from_numpy(table).to(tdt).requires_grad_()
+    m = torch.from_numpy(msgs).to(tdt).requires_grad_()
+    g = tseg.gather_nodes(t, torch.from_numpy(idx))
+    s = tseg.segment_sum(m, torch.from_numpy(dst), torch.from_numpy(mask), n)
+    loss = (g.float() * torch.from_numpy(w_g)).sum() + (s.float() * torch.from_numpy(w_s)).sum()
+    got_t, got_m = torch.autograd.grad(loss, (t, m))
+    assert got_t.dtype == got_m.dtype == tdt
+    tol = F32_TOL if dtype == "float32" else dict(rtol=BF16_GRAD_TOL, atol=BF16_GRAD_TOL)
+    for got, want in ((got_t, want_t), (got_m, want_m)):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                                   **tol)
+    assert torch.all(got_m[torch.from_numpy(~mask)] == 0)       # masked edges
+    gathered = np.zeros((b, n), bool)
+    for bi in range(b):
+        gathered[bi, idx[bi]] = True
+    assert torch.all(got_t[torch.from_numpy(~gathered)] == 0)   # rows never gathered
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,e,n,f", [(2, 300, 70, 28), (3, 64, 9, 5), (1, 700, 300, 51)])
+def test_scatter_rows_plain_matches_pallas(rng, dtype, b, e, n, f):
+    """K3's plain version against the TPU kernels (unsorted_segment_sum_rows,
+    interpret mode): unsorted ids, repeated ids, rows with no id."""
+    rows = rng.normal(size=(b, e, f)).astype(np.float32)
+    ids = rng.integers(0, max(n // 2, 1), (b, e)).astype(np.int32)
+    ids[:, : e // 4] = 1                                     # one row takes many
+    jrows = jnp.asarray(rows).astype(jnp.dtype(dtype))
+    want = pallas_segment.unsorted_segment_sum_rows(jrows, jnp.asarray(ids), n)
+    got = cuda_segment.scatter_rows(torch.from_numpy(rows).to(getattr(torch, dtype)),
+                                    torch.from_numpy(ids), n)
+    assert got.dtype == torch.float32 and got.shape == (b, n, f)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    assert torch.all(got[:, n // 2:] == 0)
+
+
+@pytest.mark.parametrize("bad", [-1, 9], ids=["negative", "N"])
+def test_scatter_rows_rejects_out_of_range_id(bad):
+    rows = torch.zeros(2, 5, 4)
+    ids = torch.zeros(2, 5, dtype=torch.int32)
+    ids[1, 2] = bad
+    with pytest.raises(IndexError, match="outside"):
+        cuda_segment.scatter_rows(rows, ids, 9)
 
 
 def _raw_graph(rng, n, e, nv):
