@@ -19,6 +19,7 @@ from caster_dta_torch.data.batching import PairBatch
 from caster_dta_torch.device import resolve_device
 from caster_dta_torch.interop.from_jax import load_jax_params
 from caster_dta_torch.models.joint import JointGNN, make_joint_gnn
+from caster_dta_torch.nn.common import f32_precision
 from caster_dta_torch.train import checkpoints
 
 
@@ -35,10 +36,6 @@ def load_run(run_dir: str, device: str | torch.device = "cuda") -> LoadedRun:
     """Build the model of ``run_dir`` on ``device`` with its best-val
     checkpoint, in eval mode."""
     device = resolve_device(device)
-    # Serving is f32 end to end: no TF32 in matmuls or convolutions, so the
-    # card's scores stay comparable with the CPU's and the JAX package's.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     with open(os.path.join(run_dir, "model_kwargs.json")) as f:
         model_kwargs = json.load(f)
     with open(os.path.join(run_dir, "dataset_rescale_params.json")) as f:
@@ -72,7 +69,11 @@ def unscale_target(values: torch.Tensor, rescale: dict) -> torch.Tensor:
 def predict(run: LoadedRun, batch: PairBatch):
     """-> (affinities [B] unscaled, (residues->atoms [B, R, A],
     atoms->residues [B, A, R]) attention of the first cross-attention
-    layer). The outputs stay on the run's device; nothing synchronises."""
+    layer). The outputs stay on the run's device; nothing synchronises.
+    Serving is f32 end to end: the forward runs under ``f32_precision``, so
+    the card's scores stay comparable with the CPU's and the JAX package's,
+    and the process's TF32 settings are as they were afterwards."""
     batch = batch.to(run.device)
-    score, attn = run.model(batch.protein, batch.molecule)
+    with f32_precision():
+        score, attn = run.model(batch.protein, batch.molecule)
     return unscale_target(score[:, 0], run.rescale), attn[0]

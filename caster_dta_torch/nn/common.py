@@ -11,6 +11,11 @@ promotion gives it until an explicit cast, as in JAX; ``LayerNorm`` computes
 in f32 and returns f32, as flax's does for a bf16 input with f32 params. The
 setting is scoped to the ``with`` block (``Trainer`` enters it around its
 steps), so it never outlives the code that set it.
+
+``f32_precision`` is the matching scope for f32 math on the card: IEEE f32
+matmuls and convolutions (no TF32) inside the block, the process's own
+settings again after it. ``predict`` and every ``Trainer`` step and eval
+enter it.
 """
 from __future__ import annotations
 
@@ -69,6 +74,25 @@ def compute_dtype(dtype: Optional[torch.dtype]) -> Iterator[None]:
         yield
     finally:
         _COMPUTE_DTYPE.reset(token)
+
+
+@contextlib.contextmanager
+def f32_precision() -> Iterator[None]:
+    """IEEE f32 in cuBLAS matmuls and cuDNN convolutions for the ``with``
+    block only: TF32 off on entry, the previous settings restored on exit.
+    It uses PyTorch's ``fp32_precision`` settings, which read the legacy
+    ``allow_tf32`` flags too and whose save and restore leave either API
+    readable. ``TORCH_ALLOW_TF32_CUBLAS_OVERRIDE=1`` in the environment makes
+    cuBLAS take TF32 whatever a process sets, so this cannot turn it off:
+    leave that variable unset (chip_smoke.py removes it before torch is
+    imported)."""
+    matmul, conv = torch.backends.cuda.matmul, torch.backends.cudnn.conv
+    saved = (matmul.fp32_precision, conv.fp32_precision)
+    matmul.fp32_precision = conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        matmul.fp32_precision, conv.fp32_precision = saved
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,

@@ -7,22 +7,45 @@ sorted segment-sum (ops/segment.py: kernels K2 and K1 on the card).
 
 Parameter names follow the reference state dict (``message_func.{j}``,
 ``norm.{0,1}``, ``ff_func.{j}``), so ``caster_dta_tpu.interop.torch_import``
-maps them to the JAX tree. The fused-message, remat and autoregressive
-branches of the JAX module are not ported.
+maps them to the JAX tree. Inside ``with fused_message():``, GVPConv runs the
+JAX module's fused branch instead: a layout pin of the node table (K6), the
+merged gather (K2), the whole message MLP in one kernel (K5, ops/
+gvp_message.py) and the aggregation (K1), with the same parameters. The
+remat and autoregressive branches of the JAX module are not ported.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import contextvars
+from typing import Iterator, Optional, Tuple
 
 import torch
 from torch import nn
 
 from caster_dta_torch.nn.common import (Dense, LayerNorm, apply_act, dropout, get_compute_dtype,
                                        select_activation)
-from caster_dta_torch.ops import segment
+from caster_dta_torch.ops import gvp_message, segment
 
 SV = Tuple[torch.Tensor, torch.Tensor]
 Dims = Tuple[int, int]
+
+_FUSED_MESSAGE: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "caster_dta_torch_fused_message", default=False)
+
+# the JAX gate's bound on the merged endpoint gather, 2 E (ns + 3nv) f32 bytes
+FUSED_GATHER_BYTES = 4_000_000
+
+
+@contextlib.contextmanager
+def fused_message(enabled: bool = True) -> Iterator[None]:
+    """GVPConv's fused message path for the ``with`` block only, wherever
+    its gate admits it (the JAX package's ``USE_FUSED_MESSAGE = True``). Off
+    outside any such block, as JAX's default."""
+    token = _FUSED_MESSAGE.set(bool(enabled))
+    try:
+        yield
+    finally:
+        _FUSED_MESSAGE.reset(token)
 
 
 def tuple_sum(*args: SV) -> SV:
@@ -144,6 +167,7 @@ class GVPConv(nn.Module):
                  vector_gate: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.out_dims, self.aggr = tuple(out_dims), aggr
+        self.activations, self.vector_gate = tuple(activations), vector_gate
         si, vi = in_dims
         se, ve = edge_dims
         msg_in = (2 * si + se, 2 * vi + ve)
@@ -157,25 +181,48 @@ class GVPConv(nn.Module):
             GVP(dims[i], dims[i + 1], activations=acts[i], vector_gate=vector_gate,
                 generator=generator) for i in range(n_layers))
 
+    def fused_ok(self, x: SV, edge_src: torch.Tensor, edge_attr: SV) -> bool:
+        """The JAX gate of the fused message path (caster_dta_tpu/nn/gvp.py
+        GVPConv), condition for condition."""
+        s, v = x
+        nv_in, e = v.shape[-2], edge_src.shape[1]
+        return bool(self.vector_gate and nv_in > 0 and self.out_dims[1] > 0
+                    and edge_attr[1].shape[-2] > 0
+                    and all(a in ("relu", "sigmoid", None) for a in self.activations)
+                    and 2 * e * (s.shape[-1] + 3 * nv_in) * 4 <= FUSED_GATHER_BYTES
+                    and _FUSED_MESSAGE.get())
+
     def forward(self, x: SV, edge_src, edge_dst, edge_mask, edge_attr: SV) -> SV:
         s, v = x
+        fused = self.fused_ok(x, edge_src, edge_attr)
         cd = get_compute_dtype()
-        if cd is not None:
+        if cd is not None and not fused:
             # cast once BEFORE the endpoint gather (caster_dta_tpu/nn/gvp.py
             # GVPConv): the first op the features meet is a Dense in cd anyway,
-            # and K2 gathers (K3 scatters) half the bytes
+            # and K2 gathers (K3 scatters) half the bytes. Not on the fused
+            # path: there the node table and edge attributes keep the dtypes
+            # the layers before them return, and K5 rounds its operands.
             s, v = s.to(cd), v.to(cd)
             edge_attr = (edge_attr[0].to(cd), edge_attr[1].to(cd))
         nv_in = v.shape[-2]
         e = edge_src.shape[1]
+        sv = merge_sv(s, v)
+        if fused:
+            sv = gvp_message.layout_pin(sv)                            # K6
         # one merged-(s, v) row gather for both endpoints: [B, 2E, ns + 3nv]
-        both = segment.gather_nodes(merge_sv(s, v), torch.cat([edge_src, edge_dst], dim=1))
-        s_j, v_j = split_sv(both[:, :e], nv_in)
-        s_i, v_i = split_sv(both[:, e:], nv_in)
-        msg = tuple_cat((s_j, v_j), edge_attr, (s_i, v_i))
-        for layer in self.message_func:
-            msg = layer(msg)
-        out = segment.aggregate(merge_sv(*msg), edge_dst, edge_mask, s.shape[1], self.aggr)
+        both = segment.gather_nodes(sv, torch.cat([edge_src, edge_dst], dim=1))
+        if fused:
+            merged = gvp_message.fused_message_mlp(                     # K5
+                both, edge_attr[0], edge_attr[1], self.message_func, ns=s.shape[-1], nv=nv_in,
+                activations=self.activations)
+        else:
+            s_j, v_j = split_sv(both[:, :e], nv_in)
+            s_i, v_i = split_sv(both[:, e:], nv_in)
+            msg = tuple_cat((s_j, v_j), edge_attr, (s_i, v_i))
+            for layer in self.message_func:
+                msg = layer(msg)
+            merged = merge_sv(*msg)
+        out = segment.aggregate(merged, edge_dst, edge_mask, s.shape[1], self.aggr)
         return split_sv(out, self.out_dims[1])
 
 

@@ -30,7 +30,7 @@ import torch
 from caster_dta_torch.data.batching import BucketedLoader, PairBatch
 from caster_dta_torch.device import resolve_device
 from caster_dta_torch.interop.from_jax import load_jax_params, to_jax_params
-from caster_dta_torch.nn.common import compute_dtype
+from caster_dta_torch.nn.common import compute_dtype, f32_precision
 from caster_dta_torch.train import checkpoints, metrics as metrics_mod
 from caster_dta_torch.train.optim import (BATCH_SCHEDULERS, make_optimizer, make_scheduler,
                                           set_learning_rate)
@@ -40,12 +40,12 @@ _COMPUTE_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloa
 
 # field: (the value that means "off", the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "save_state_every": (0, "Queue 1 item 8 (train_state checkpoints and resume)"),
-    "resume": (False, "Queue 1 item 8 (train_state checkpoints and resume)"),
-    "device_data_budget": (None, "Queue 1 item 14 (device-resident data)"),
-    "scan_steps": (False, "Queue 1 item 14 (device-resident data, scan over steps)"),
-    "n_dp": (None, "Queue 1 item 15 (multi-device)"),
-    "gp": (None, "Queue 1 item 15 (multi-device)"),
+    "save_state_every": (0, "Queue 1 item 4 (train-state checkpoints and resume)"),
+    "resume": (False, "Queue 1 item 4 (train-state checkpoints and resume)"),
+    "device_data_budget": (None, "Queue 1 item 2 (the device-resident store)"),
+    "scan_steps": (False, "Queue 1 item 2 (scan_steps as a CUDA graph of the step)"),
+    "n_dp": (None, "Queue 1 item 11 (multi-device)"),
+    "gp": (None, "Queue 1 item 11 (multi-device)"),
 }
 
 
@@ -165,7 +165,7 @@ class Trainer:
     def loss(self, batch: PairBatch):
         """(masked loss, pred [B] f32) of a batch on the device, with the
         model in its current mode and the trainer's compute dtype."""
-        with compute_dtype(self.dtype):
+        with f32_precision(), compute_dtype(self.dtype):
             pred, _ = self.model(batch.protein, batch.molecule, return_attention=False,
                                  generator=self.generator)
         pred = pred[:, 0].to(torch.float32)
@@ -180,9 +180,10 @@ class Trainer:
         batch = batch.to(self.device)
         if not self.model.training:
             self.model.train()
-        loss, pred = self.loss(batch)
-        grads = torch.autograd.grad(loss, self.params)
-        self._apply(list(grads), self.config.lr if lr is None else lr)
+        with f32_precision():
+            loss, pred = self.loss(batch)
+            grads = torch.autograd.grad(loss, self.params)
+            self._apply(list(grads), self.config.lr if lr is None else lr)
         return loss.detach(), pred.detach()
 
     def _apply(self, grads: list, lr: float) -> None:
@@ -214,7 +215,7 @@ class Trainer:
         batch = batch.to(self.device)
         if self.model.training:
             self.model.eval()
-        with compute_dtype(self.dtype):
+        with f32_precision(), compute_dtype(self.dtype):
             pred, _ = self.model(batch.protein, batch.molecule, return_attention=False)
         return pred[:, 0].to(torch.float32)
 

@@ -7,17 +7,28 @@ H100 and check them.
 Phases, each printed before it starts and after it ends with its wall time:
 
 1. device: needs CUDA; prints the card and ``nvidia-smi``'s name and power limit.
-2. build: builds ``caster_dta_torch/csrc/segment.cu`` with nvcc for sm_90a and
-   prints ptxas's register and shared-memory lines.
+2. build: builds ``caster_dta_torch/csrc/segment.cu`` and
+   ``caster_dta_torch/csrc/gvp_message.cu`` with nvcc for sm_90a, both at once,
+   and prints ptxas's register and shared-memory lines.
 3. kernels: K1 (sorted segment-sum) and K2 (row gather) on the card, at the
    shapes of the served model, against their plain PyTorch versions on the
-   same inputs: K2 must be bit-exact, K1 within K1_RTOL/K1_ATOL.
+   same inputs: K2 must be bit-exact, K1 within K1_RTOL/K1_ATOL. K5 (the
+   fused GVP message MLP, forward and backward, with the trained model's
+   message weights) and K6 (copy-cast) against theirs at the flagship and
+   Davis shapes, f32 and with the bf16 step's dtypes, within K5_TOL; K6 bit
+   for bit. Edge cases: E off the tiles, one layer, a fused conv whose edges
+   are all masked (its output and every gradient exactly 0), and a second run
+   of K5 that must give the first run's bits.
 4. serve: loads the trained ``runs/davis_seed9`` model onto the card, answers
    seeded synthetic requests at two buckets, checks that the K1 and K2 launch
    counts rose by the expected launches per forward, that the affinities are
    finite and that they match the port's CPU run, times each request (batch
    copy and forward apart, CUDA events) and profiles the forward's kernels
    (torch.profiler): device time per forward, idle share, time by group.
+   serve-fused: the same with the fused message path on
+   (``with caster_dta_torch.nn.gvp.fused_message():``): launches per forward
+   (K6 and K5 fwd once per GVP conv), card against the port's CPU run with
+   the switch on, and against the unfused card answers within AFFINITY_ATOL.
 5. k3: K3 (unsorted scatter-add, the gathers' backward) against its plain
    version on the CPU (same edge order) at the merged src||dst backward of the flagship and Davis buckets
    and the molecule widths, f32 and bf16, and on edge cases (repeated ids,
@@ -34,26 +45,34 @@ Phases, each printed before it starts and after it ends with its wall time:
    steps (it must fall); one f32 step's gradients (TF32 off, dropout off)
    card against CPU within STEP_GRAD_RTOL of each gradient's largest entry
    plus STEP_GRAD_ATOL of the largest over all.
+   train-fused: the same with the fused message path on (TRAIN_STEPS_FUSED
+   steps; K5 fwd and bwd per GVP conv, K6 twice per GVP conv), its numbers
+   printed beside the unfused step's.
 8. fit: two epochs of ``fit`` on a seeded synthetic dataset of FIT_PAIRS
    pairs in two buckets near the flagship sizes, checkpoints and run
    artifacts in a temporary directory, then ``load_run`` serves the best-val
    checkpoint on the card.
 9. times: each kernel, its plain version and the one PyTorch call that
    computes the same function, replayed from CUDA graphs and timed with CUDA
-   events, beside the least time the card could take (bytes over 3.35 TB/s).
+   events, beside the least time the card could take (the larger of bytes
+   over 3.35 TB/s and operations over the peak rate of their type). No single
+   PyTorch call computes K5; its reference point is the device time of the
+   port's unfused message chain (the GVP modules) at the same shapes, summed
+   over its kernels by torch.profiler.
 
 Every CPU reference that a card result is held against is computed twice
 and taken only when the two runs give the same bits (``cpu_reference``).
 
 Any failure raises and the script exits non-zero. On success the line before
 the last is ``{"kernels": [...]}``, whose launch counts are those of the
-training phases, and the last is ``{"ok": true, "device": {...}}``. Without
+training phases (train, fit, train-fused), and the last is ``{"ok": true, "device": {...}}``. Without
 CUDA it exits 1 and prints no result.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+from concurrent.futures import ThreadPoolExecutor
 import math
 import os
 import statistics
@@ -70,9 +89,11 @@ FLAGSHIP = dict(b=32, n_p=512, e_p=4096, n_m=64, e_m=256)
 DAVIS = dict(b=128, n_p=768, e_p=4096, n_m=64, e_m=256)
 N_REQUESTS_FLAGSHIP = 4
 
-# H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the tensor cores
+# H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the tensor cores,
+# dense bf16 rate of the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 # K1 sums in edge order in f32; the plain index_add_ on the card sums the same
 # terms in atomic order. A row holds at most a few dozen N(0, 1) terms, so the
@@ -104,12 +125,25 @@ GRAD_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2 ** -7
 # ~1e-9 on either device, which no relative bound can hold.
 STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-4, 1e-8
 TRAIN_STEPS = 20
+TRAIN_STEPS_FUSED = 20
 FIT_PAIRS = 320
+# K5 against its plain version on the card: f32 sums the same products in
+# another order (outputs and input gradients within 1e-5 + 1e-5 x the
+# tensor's largest entry, weight gradients, sums over every edge, within
+# 2e-4 of theirs, as the JAX package's fused-vs-module test); where bf16 is
+# the compute dtype or the tensor's own, a sum that lands on another side of
+# a rounding boundary moves one bf16 ulp and later layers carry it on, so
+# 2e-2 of the tensor's largest entry.
+K5_TOL = {"f32": 1e-5, "weight": 2e-4, "bf16": 2e-2}
 
 K1_REPLACES = "caster_dta_tpu/ops/pallas_segment.py:131"   # _segment_kernel_t
 K2_REPLACES = "caster_dta_tpu/ops/pallas_segment.py:540"   # _onehot_gather_kernel
 K3_REPLACES = "caster_dta_tpu/ops/pallas_segment.py:268"   # _scatter_fullN_kernel
+K5F_REPLACES = "caster_dta_tpu/ops/pallas_gvp_message.py:267"   # _fwd_kernel
+K5B_REPLACES = "caster_dta_tpu/ops/pallas_gvp_message.py:284"   # _bwd_kernel
+K6_REPLACES = "caster_dta_tpu/ops/pallas_gvp_message.py:217"    # _cast_kernel
 SOURCE = "caster_dta_torch/csrc/segment.cu"
+GVP_SOURCE = "caster_dta_torch/csrc/gvp_message.cu"
 
 
 @contextlib.contextmanager
@@ -169,7 +203,9 @@ def event_times_ms(torch, fn, reps: int = 20, warmup: int = 3) -> list:
 
 
 KERNEL_GROUPS = (("K1 segment-sum", "segment_sum_sorted"), ("K2 gather", "gather_rows"),
-                 ("K3 scatter", "scatter_rows"), ("matmul", "gemm"),
+                 ("K3 scatter", "scatter_rows"), ("K5 fwd", "message_fwd"),
+                 ("K5 bwd", "message_bwd"), ("K5 bwd sum", "reduce_rows"),
+                 ("K6 copy-cast", "cast_copy"), ("K6 copy-cast", "copy16"), ("matmul", "gemm"),
                  ("layernorm", "layer_norm"), ("concat", "CatArray"), ("softmax", "softmax"),
                  ("optimizer", "multi_tensor_apply"), ("reduction", "reduce_kernel"),
                  ("copy", "Memcpy"))
@@ -285,6 +321,84 @@ def k3_edge_cases(torch, gen, dev="cuda"):
     return out
 
 
+def k5_close(torch, got, want, bf16: bool, weight: bool, what: str) -> float:
+    """max |got - want|, raising beyond K5_TOL (see there)."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0.0
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if bf16:
+        tol = K5_TOL["bf16"] * scale
+    elif weight:
+        tol = K5_TOL["weight"] * scale
+    else:
+        tol = K5_TOL["f32"] * (1.0 + scale)
+    if not err <= tol:
+        raise AssertionError(f"{what}: max|d| {err:.3e} > {tol:.3e} (max|want| {scale:.3e})")
+    return err
+
+
+# the dtypes of K5's inputs (both, es, ev) and products: f32 serving, and the
+# bf16 training step (the conv receives s and es f32, v and ev bf16, and the
+# merged node table promotes to f32)
+K5_DTYPES = {"f32": ("float32", "float32", "float32", "float32"),
+             "bf16 step": ("float32", "float32", "bfloat16", "bfloat16")}
+
+
+def k5_inputs(torch, gen, b: int, e: int, kind: str, f: int = 28, se: int = 32, ve: int = 1):
+    """Random K5 inputs on the card: both [B, 2E, F], es, ev, dout."""
+    dt = [getattr(torch, d) for d in K5_DTYPES[kind]]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    return (randn(b, 2 * e, f).to(dt[0]), randn(b, e, se).to(dt[1]),
+            randn(b, e, 3 * ve).to(dt[2]), randn(b, e, f).to(dt[0]))
+
+
+def k5_check(torch, cgm, what, inputs, weights, spec, max_err):
+    """K5 fwd and bwd on the card against their plain versions on the card,
+    same inputs; a second run must give the same bits."""
+    both, es, ev, dout = inputs
+    bf16 = spec.compute_dtype == torch.bfloat16
+    runs = []
+    for _ in range(2):
+        runs.append((cgm.message_fwd(both, es, ev, weights, spec),
+                     cgm.message_bwd(both, es, ev, weights, dout, spec)))
+    torch.cuda.synchronize()
+    (out, grads), (out2, grads2) = runs
+    flat, flat2 = [out, *grads[:3], *grads[3]], [out2, *grads2[:3], *grads2[3]]
+    if not all(torch.equal(a, b) for a, b in zip(flat, flat2)):
+        raise AssertionError(f"K5 {what}: two runs gave different bits")
+    want_out = cgm.message_fwd_plain(both, es, ev, weights, spec)
+    want = cgm.message_bwd_plain(both, es, ev, weights, dout, spec)
+    err_f = k5_close(torch, out, want_out, bf16 or out.dtype == torch.bfloat16, False,
+                     f"K5 fwd {what}")
+    err_i = max(k5_close(torch, g, w, bf16 or g.dtype == torch.bfloat16, False,
+                         f"K5 bwd {what} {name}")
+                for name, g, w in zip(("d both", "d es", "d ev"), grads[:3], want[:3]))
+    err_w = max(k5_close(torch, g, w, bf16, True, f"K5 bwd {what} weight {i}")
+                for i, (g, w) in enumerate(zip(grads[3], want[3])))
+    max_err["K5 fwd"] = max(max_err["K5 fwd"], err_f)
+    max_err["K5 bwd"] = max(max_err["K5 bwd"], err_i, err_w)
+    print(f"K5 {what}: both {tuple(both.shape)} {str(both.dtype)[6:]}, ev {str(ev.dtype)[6:]}, "
+          f"compute {str(spec.compute_dtype)[6:]}: fwd max|d| {err_f:.3e}, bwd input grads "
+          f"{err_i:.3e}, weight grads {err_w:.3e}; a second run gave the same bits")
+
+
+def k5_flops(dims, si: int, vi: int) -> int:
+    """Operations of K5 fwd per edge: 2 per multiply-add of the products
+    (vh, spre, vraw, z) of every layer; the elementwise work is left out."""
+    macs = 0
+    for h, so, vo in dims:
+        macs += 3 * h * vi + so * (si + h) + 3 * vo * h + vo * so
+        si, vi = so, vo
+    return 2 * macs
+
+
 def _tensors(x):
     if isinstance(x, dict):
         x = list(x.values())
@@ -337,15 +451,18 @@ def main() -> int:
                                                 synthetic_pair_batch, synthetic_pair_dataset)
     from caster_dta_torch.inference.serve import load_run, predict
     from caster_dta_torch.models.joint import make_joint_gnn
+    from caster_dta_torch.nn import gvp
+    from caster_dta_torch.nn.common import compute_dtype
+    from caster_dta_torch.ops import cuda_gvp_message as cgm
     from caster_dta_torch.ops import cuda_segment as cs
     from caster_dta_torch.ops import segment
     from caster_dta_torch.train import checkpoints
     from caster_dta_torch.train.loop import Trainer, TrainConfig, fit, split_dataset
 
     with phase("device"):
-        kind = torch.cuda.get_device_name(0)
+        device_name = torch.cuda.get_device_name(0)
         smi = nvidia_smi()
-        print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}; "
+        print(f"torch {torch.__version__} cuda {torch.version.cuda} device {device_name}; "
               f"{torch.cuda.device_count()} visible")
         print(f"nvidia-smi: {smi}")
         print(f"f32 matmuls: precision {torch.get_float32_matmul_precision()}, TF32 in "
@@ -354,19 +471,30 @@ def main() -> int:
               f"{overridden or 'nothing'}; CPU threads {torch.get_num_threads()}")
 
     with phase("build"):
-        built = cs.load_library()
-        for line in built.log.splitlines():
-            if "ptxas" in line and ("registers" in line or "Compiling entry" in line):
-                print(line)
-        print(f"built {os.path.relpath(built.path, HERE)} in {built.seconds:.2f} s "
-              f"({'cached' if built.seconds == 0 else 'nvcc'})")
+        # one nvcc per source, both started together
+        with ThreadPoolExecutor(2) as pool:
+            builds = list(pool.map(lambda module: module.load_library(), (cs, cgm)))
+        for built in builds:
+            for line in built.log.splitlines():
+                if "ptxas" in line and ("registers" in line or "Compiling entry" in line
+                                        or "spill" in line):
+                    print(line)
+            print(f"built {os.path.relpath(built.path, HERE)} in {built.seconds:.2f} s "
+                  f"({'cached' if built.seconds == 0 else 'nvcc'})")
+
+    def reset_launches():
+        cs.reset_launches()
+        cgm.reset_launches()
+
+    def launches_now() -> dict:
+        return {**cs.LAUNCHES, **cgm.LAUNCHES}
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     requests = [(f"flagship #{i}", synthetic_pair_batch(**FLAGSHIP, seed=i))
                 for i in range(N_REQUESTS_FLAGSHIP)]
     requests.append(("davis", synthetic_pair_batch(**DAVIS, seed=N_REQUESTS_FLAGSHIP)))
-    max_err = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    max_err = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K5 fwd": 0.0, "K5 bwd": 0.0, "K6": 0.0}
 
     with phase("kernels"), torch.no_grad():
         for label, batch in (requests[0], requests[-1]):
@@ -415,38 +543,92 @@ def main() -> int:
         print(f"K1 max_abs_err {max_err['K1']:.3e} (rtol {K1_RTOL}, atol {K1_ATOL}); "
               f"K2 max_abs_err {max_err['K2']:.1e} (bit-exact)")
 
-    with phase("serve"):
-        run = load_run(RUN_DIR, device="cuda")
-        print(f"loaded {os.path.relpath(run.param_file, HERE)}")
-        model = run.model
-        n_convs = (len(model.protein_gnn.gnn_model.conv_list)
-                   + len(model.molecule_gnn.gnn_model.conv_list))
-        # aggr 'sum': one K1 and one K2 per conv; no backward, so no K3
-        per_forward = {cs.K1: n_convs, cs.K2: n_convs, cs.K3: 0}
+        # K5 with the trained model's message weights (both GVP convs have the
+        # same widths; the first conv's weights), K6 on the node table
+        trained = load_run(RUN_DIR, device="cuda").model
+        p_convs = [layer.conv for layer in trained.protein_gnn.gnn_model.conv_list]
+        weights = [w.detach() for w in cgm.layer_weights(p_convs[0].message_func)]
+        acts = p_convs[0].activations
+        for label, batch in (requests[0], requests[-1]):
+            b, e = batch.protein.batch_size, batch.protein.e_pad
+            for kind in K5_DTYPES:
+                spec = cgm.MessageSpec(16, 4, acts[0], acts[1],
+                                       getattr(torch, K5_DTYPES[kind][3]))
+                k5_check(torch, cgm, f"{label} {kind}", k5_inputs(torch, gen, b, e, kind),
+                         weights, spec, max_err)
+            table = torch.randn(b, batch.protein.n_pad, 28, generator=gen, device="cuda")
+            for src, dst in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                             (torch.bfloat16, torch.float32)):
+                x = table.to(src)
+                if not torch.equal(cgm.cast_copy(x, dst), cgm.cast_copy_plain(x, dst)):
+                    raise AssertionError(f"K6 {label} {src} -> {dst}: not bit-exact")
+            torch.cuda.synchronize()
+            print(f"K6 {label}: table {tuple(table.shape)} f32->f32, f32->bf16, bf16->f32 "
+                  f"bit-exact")
+        for kind in K5_DTYPES:
+            spec = cgm.MessageSpec(16, 4, acts[0], acts[1], getattr(torch, K5_DTYPES[kind][3]))
+            k5_check(torch, cgm, f"edge case E=1000 (off the tiles) B=3 {kind}",
+                     k5_inputs(torch, gen, 3, 1000, kind), weights, spec, max_err)
+            one = gvp.GVPConv((16, 4), (16, 4), (32, 1), n_layers=1, activations=acts,
+                              vector_gate=True, generator=torch.Generator().manual_seed(1))
+            k5_check(torch, cgm, f"edge case one layer B=2 E=77 {kind}",
+                     k5_inputs(torch, gen, 2, 77, kind),
+                     [w.detach().cuda() for w in cgm.layer_weights(one.message_func)],
+                     spec, max_err)
+        # a fused conv whose edges are all masked: K5 still runs on every
+        # edge, and K1 drops them all, so the output and every gradient are 0
+        p = requests[0][1].protein.to("cuda")
+        n, e = p.n_pad, p.e_pad
+        x = [torch.randn(p.batch_size, n, 16, generator=gen, device="cuda"),
+             torch.randn(p.batch_size, n, 4, 3, generator=gen, device="cuda"),
+             torch.randn(p.batch_size, e, 32, generator=gen, device="cuda"),
+             torch.randn(p.batch_size, e, 1, 3, generator=gen, device="cuda")]
+        x = [t.requires_grad_() for t in x]
+        reset_launches()
+        with torch.enable_grad(), gvp.fused_message():
+            out_s, out_v = p_convs[0]((x[0], x[1]), p.edge_src, p.edge_dst,
+                                      torch.zeros_like(p.edge_mask), (x[2], x[3]))
+            grads = torch.autograd.grad(out_s.sum() + out_v.sum(),
+                                        x + list(p_convs[0].parameters()))
+        torch.cuda.synchronize()
+        if cgm.LAUNCHES[cgm.K5F] != 1 or cgm.LAUNCHES[cgm.K5B] != 1:
+            raise AssertionError(f"all-masked fused conv: launches {launches_now()}")
+        if not (torch.all(out_s == 0) and torch.all(out_v == 0)
+                and all(torch.all(g == 0) for g in grads)):
+            raise AssertionError("all-masked fused conv: an output or a gradient is not 0")
+        print(f"edge case all edges masked: fused conv output and {len(grads)} gradients "
+              f"exactly 0")
+        print(f"K5 fwd max_abs_err {max_err['K5 fwd']:.3e}, K5 bwd max_abs_err "
+              f"{max_err['K5 bwd']:.3e} (tolerances {K5_TOL}); K6 bit-exact")
+
+    def serve_path(tag: str, run, run_cpu, per_forward: dict) -> list:
+        """Answer every request on the card with the launches per forward
+        that the code gives, hold each answer against the port's CPU run,
+        time and profile the forward at both buckets -> the card answers."""
         answers = []
-        cs.reset_launches()
+        reset_launches()
         for label, batch in requests:
             answers.append(predict(run, batch))
         torch.cuda.synchronize()
-        launches = dict(cs.LAUNCHES)
+        launches = launches_now()
         want = {k: v * len(requests) for k, v in per_forward.items()}
-        print(f"launches over {len(requests)} requests: {launches} (expected {want})")
+        print(f"{tag}launches over {len(requests)} requests: {launches} (expected {want})")
         if launches != want:
-            raise AssertionError(f"launch counts {launches} != expected {want}")
+            raise AssertionError(f"{tag}launch counts {launches} != expected {want}")
 
-        run_cpu = load_run(RUN_DIR, device="cpu")
         worst = {"affinity": 0.0, "attention": 0.0}
         disagree = []
         for (label, batch), (aff, attn) in zip(requests, answers):
             aff = aff.cpu()
             if aff.shape != (batch.protein.batch_size,) or not torch.isfinite(aff).all():
                 raise AssertionError(f"{label}: affinities {tuple(aff.shape)} not finite")
-            aff_cpu, attn_cpu = cpu_reference(torch, lambda: predict(run_cpu, batch), label)
+            aff_cpu, attn_cpu = cpu_reference(torch, lambda: predict(run_cpu, batch),
+                                              f"{tag}{label}")
             d_aff = (aff - aff_cpu).abs().max().item()
             d_att = max((a.cpu() - c).abs().max().item() for a, c in zip(attn, attn_cpu))
             worst["affinity"] = max(worst["affinity"], d_aff)
             worst["attention"] = max(worst["attention"], d_att)
-            print(f"{label} {batch.bucket}: B={len(aff)} affinity range "
+            print(f"{tag}{label} {batch.bucket}: B={len(aff)} affinity range "
                   f"[{aff.min().item():.4f}, {aff.max().item():.4f}] finite; vs CPU "
                   f"max|d affinity| {d_aff:.3e}, max|d attention| {d_att:.3e}")
             if d_aff > AFFINITY_ATOL or d_att > ATTENTION_ATOL:
@@ -458,9 +640,9 @@ def main() -> int:
                                 f"{(again - aff).abs().max().item():.3e}")
         if disagree:
             print("card and CPU disagree:\n  " + "\n  ".join(disagree), file=sys.stderr)
-            raise AssertionError(f"{len(disagree)} of {len(requests)} requests: card and CPU "
-                                 f"disagree beyond {AFFINITY_ATOL} / {ATTENTION_ATOL}")
-        print(f"card vs CPU over all requests: max|d affinity| {worst['affinity']:.3e} "
+            raise AssertionError(f"{tag}{len(disagree)} of {len(requests)} requests: card and "
+                                 f"CPU disagree beyond {AFFINITY_ATOL} / {ATTENTION_ATOL}")
+        print(f"{tag}card vs CPU over all requests: max|d affinity| {worst['affinity']:.3e} "
               f"(atol {AFFINITY_ATOL}), max|d attention| {worst['attention']:.3e} "
               f"(atol {ATTENTION_ATOL})")
 
@@ -469,7 +651,7 @@ def main() -> int:
             request = event_times_ms(torch, lambda: predict(run, batch))
             copy = event_times_ms(torch, lambda: batch.to("cuda"))
             forward = event_times_ms(torch, lambda: predict(run, on_card))
-            print(f"request latency {label} {batch.bucket} B={batch.protein.batch_size}: "
+            print(f"{tag}request latency {label} {batch.bucket} B={batch.protein.batch_size}: "
                   f"median {statistics.median(request):.3f} ms (min {request[0]:.3f}, max "
                   f"{request[-1]:.3f}) over {len(request)}; of which batch copy to the card "
                   f"median {statistics.median(copy):.3f} ms and forward on a card-resident "
@@ -477,13 +659,43 @@ def main() -> int:
             per_kernel, n_kernels = profile_forward(torch, lambda: predict(run, on_card))
             busy = sum(per_kernel.values())
             if busy == 0:
-                print(f"device time {label}: not measured (the profiler saw no kernel)")
+                print(f"{tag}device time {label}: not measured (the profiler saw no kernel)")
                 continue
-            print(f"device time {label}: {busy:.3f} ms in {n_kernels:.0f} kernels per forward, "
-                  f"device idle {1 - busy / statistics.median(forward):.1%} of the forward "
-                  f"(torch.profiler)")
-            print(f"device time by group {label}: " + ", ".join(
+            print(f"{tag}device time {label}: {busy:.3f} ms in {n_kernels:.0f} kernels per "
+                  f"forward, device idle {1 - busy / statistics.median(forward):.1%} of the "
+                  f"forward (torch.profiler)")
+            print(f"{tag}device time by group {label}: " + ", ".join(
                 f"{g} {ms:.3f} ms ({ms / busy:.1%})" for g, ms in kernel_groups(per_kernel).items()))
+        return answers
+
+    with phase("serve"):
+        run = load_run(RUN_DIR, device="cuda")
+        print(f"loaded {os.path.relpath(run.param_file, HERE)}")
+        model = run.model
+        n_p = len(model.protein_gnn.gnn_model.conv_list)
+        n_m = len(model.molecule_gnn.gnn_model.conv_list)
+        run_cpu = load_run(RUN_DIR, device="cpu")
+        # aggr 'sum': one K1 and one K2 per conv; no backward, so no K3; the
+        # fused message path is off, so no K5 or K6
+        per_forward = {cs.K1: n_p + n_m, cs.K2: n_p + n_m, cs.K3: 0,
+                       cgm.K5F: 0, cgm.K5B: 0, cgm.K6: 0}
+        answers = serve_path("", run, run_cpu, per_forward)
+
+    with phase("serve-fused"):
+        # each GVP conv pins its node table (K6) and runs its message MLP in
+        # K5 fwd; the gathers and aggregations stay as they were
+        per_forward_fused = {**per_forward, cgm.K5F: n_p, cgm.K6: n_p}
+        with gvp.fused_message():
+            fused_answers = serve_path("fused ", run, run_cpu, per_forward_fused)
+        worst = 0.0
+        for (label, batch), (aff, _), (aff_fused, _) in zip(requests, answers, fused_answers):
+            d = (aff_fused - aff).abs().max().item()
+            worst = max(worst, d)
+            if d > AFFINITY_ATOL:
+                raise AssertionError(f"{label}: fused and unfused card answers differ by "
+                                     f"{d:.3e} > {AFFINITY_ATOL} pKd")
+        print(f"fused vs unfused on the card (f32) over all requests: max|d affinity| "
+              f"{worst:.3e} (atol {AFFINITY_ATOL})")
 
     with phase("k3"), torch.no_grad():
         for label, batch in (requests[0], requests[-1]):
@@ -542,61 +754,63 @@ def main() -> int:
             if not torch.all(card[1][~p.edge_mask] == 0):
                 raise AssertionError("segment_sum backward: a masked edge got a gradient")
 
-    train_launches = {k: 0 for k in cs.LAUNCHES}
-    with phase("train"):
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        label, batch = requests[0]
-        on_card = batch.to("cuda")
+    train_launches = {k: 0 for k in launches_now()}
+    label, batch = requests[0]
+    on_card = batch.to("cuda")
+
+    def train_path(tag: str, per_step: dict, n_steps: int) -> dict:
+        """n_steps bf16 Adam steps (lr 1e-4) from the trained weights on the
+        flagship batch: launches per step as the code gives them, the eval
+        loss before and after (it must fall), step time, kernel time and
+        idle share -> those numbers."""
         model = load_run(RUN_DIR, device="cuda").model
-        p_tower, m_tower = model.protein_gnn.gnn_model, model.molecule_gnn.gnn_model
-        n_p, n_m = len(p_tower.conv_list), len(m_tower.conv_list)
-        # aggr 'sum': forward one K1 and one K2 per conv; backward one K2 per
-        # K1 (its VJP) and one K3 per gather whose table needs a gradient:
-        # every GVP conv's, and every GINE conv's after the first (the first
-        # gathers the input features)
-        per_step = {cs.K1: n_p + n_m, cs.K2: 2 * (n_p + n_m), cs.K3: n_p + n_m - 1}
         trainer = Trainer(model, TrainConfig(compute_dtype="bfloat16", optimizer="adam",
                                              lr=1e-4, seed=0), device="cuda")
         loss_before = trainer.eval_loss(on_card).item()
-        cs.reset_launches()
-        steps = event_times_ms(torch, lambda: trainer.train_step(on_card), reps=TRAIN_STEPS,
+        reset_launches()
+        steps = event_times_ms(torch, lambda: trainer.train_step(on_card), reps=n_steps,
                                warmup=0)
         torch.cuda.synchronize()
-        launches = dict(cs.LAUNCHES)
-        want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
-        print(f"launches over {TRAIN_STEPS} training steps: {launches} (expected {want}: "
+        launches = launches_now()
+        want = {k: v * n_steps for k, v in per_step.items()}
+        print(f"{tag}launches over {n_steps} training steps: {launches} (expected {want}: "
               f"{per_step} per step)")
         if launches != want:
-            raise AssertionError(f"launch counts {launches} != expected {want}")
+            raise AssertionError(f"{tag}launch counts {launches} != expected {want}")
+        for k, v in launches.items():
+            train_launches[k] += v
         loss_after = trainer.eval_loss(on_card).item()
-        print(f"eval-mode loss on the batch: {loss_before:.6f} before, {loss_after:.6f} after "
-              f"{TRAIN_STEPS} bf16 Adam steps")
+        print(f"{tag}eval-mode loss on the batch: {loss_before:.6f} before, {loss_after:.6f} "
+              f"after {n_steps} bf16 Adam steps")
         if not loss_after < loss_before:
-            raise AssertionError("the eval loss did not fall over the training steps")
+            raise AssertionError(f"{tag}the eval loss did not fall over the training steps")
         step_ms = statistics.median(steps)
         p_edges = int(batch.protein.edge_mask.sum())
         m_edges = int(batch.molecule.edge_mask.sum())
-        print(f"train step {label} {batch.bucket} B={batch.protein.batch_size} bf16 Adam: "
+        print(f"{tag}train step {label} {batch.bucket} B={batch.protein.batch_size} bf16 Adam: "
               f"median {step_ms:.3f} ms (min {steps[0]:.3f}, max {steps[-1]:.3f}) over "
               f"{len(steps)} steps (CUDA events); protein edges/s "
               f"{p_edges / step_ms * 1e3:.1f} ({p_edges} real protein edges per batch); "
               f"protein+molecule edges/s as bench.py counts them "
               f"{(p_edges + m_edges) / step_ms * 1e3:.1f}")
+        out = {"step median ms": step_ms, "kernel ms per step": None,
+               "kernels per step": None, "device idle": None}
         per_kernel, n_kernels = profile_forward(torch, lambda: trainer.train_step(on_card))
         busy = sum(per_kernel.values())
         if busy == 0:
-            print("train device time: not measured (the profiler saw no kernel)")
+            print(f"{tag}train device time: not measured (the profiler saw no kernel)")
         else:
-            print(f"train device time: {busy:.3f} ms in {n_kernels:.0f} kernels per step, "
+            print(f"{tag}train device time: {busy:.3f} ms in {n_kernels:.0f} kernels per step, "
                   f"device idle {1 - busy / step_ms:.1%} of the median step (torch.profiler)")
-            print("train device time by group: " + ", ".join(
+            print(f"{tag}train device time by group: " + ", ".join(
                 f"{g} {ms:.3f} ms ({ms / busy:.1%})" for g, ms in kernel_groups(per_kernel).items()))
-        for k, v in cs.LAUNCHES.items():
-            train_launches[k] += v
+            out.update({"kernel ms per step": busy, "kernels per step": n_kernels,
+                        "device idle": 1 - busy / step_ms})
+        return out
 
-        # one f32 step's gradients, card vs CPU, same weights and batch,
-        # dropout off (the two devices' generators differ)
+    def check_step_grads(tag: str) -> None:
+        """One f32 step's gradients, card vs CPU, same weights and batch,
+        dropout off (the two devices' generators differ)."""
         def step_grads(dev):
             m = load_run(RUN_DIR, device=dev).model          # eval mode: no dropout
             params = dict(m.named_parameters())
@@ -604,24 +818,48 @@ def main() -> int:
             return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
 
         grads = {"cuda": step_grads("cuda"),
-                 "cpu": cpu_reference(torch, lambda: step_grads("cpu"), "f32 step gradients")}
+                 "cpu": cpu_reference(torch, lambda: step_grads("cpu"),
+                                      f"{tag}f32 step gradients")}
         top = max(g.abs().max().item() for g in grads["cpu"].values())
         worst, noise = 0.0, []
         for name, g_cpu in grads["cpu"].items():
             d = (grads["cuda"][name].cpu() - g_cpu).abs().max().item()
             scale = g_cpu.abs().max().item()
             if d > STEP_GRAD_RTOL * scale + STEP_GRAD_ATOL * top:
-                raise AssertionError(f"f32 gradient of {name}: card vs CPU max|d| {d:.3e} > "
-                                     f"{STEP_GRAD_RTOL} x max|g| {scale:.3e} + "
+                raise AssertionError(f"{tag}f32 gradient of {name}: card vs CPU max|d| {d:.3e} "
+                                     f"> {STEP_GRAD_RTOL} x max|g| {scale:.3e} + "
                                      f"{STEP_GRAD_ATOL} x {top:.3e}")
             if d > STEP_GRAD_RTOL * scale:
                 noise.append(f"{name} (max|g| {scale:.2e}, max|d| {d:.2e})")
             else:
                 worst = max(worst, d / scale if scale else 0.0)
-        print(f"f32 step gradients, card vs CPU (TF32 off, dropout off): {len(grads['cpu'])} "
-              f"parameters; largest entry {top:.4e}; worst max|d grad| / max|grad| "
-              f"{worst:.3e} (limit {STEP_GRAD_RTOL}) over {len(grads['cpu']) - len(noise)}; "
-              f"held by the absolute term ({STEP_GRAD_ATOL} x {top:.3e}): {noise or 'none'}")
+        print(f"{tag}f32 step gradients, card vs CPU (TF32 off, dropout off): "
+              f"{len(grads['cpu'])} parameters; largest entry {top:.4e}; worst max|d grad| / "
+              f"max|grad| {worst:.3e} (limit {STEP_GRAD_RTOL}) over "
+              f"{len(grads['cpu']) - len(noise)}; held by the absolute term "
+              f"({STEP_GRAD_ATOL} x {top:.3e}): {noise or 'none'}")
+
+    with phase("train"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # aggr 'sum': forward one K1 and one K2 per conv; backward one K2 per
+        # K1 (its VJP) and one K3 per gather whose table needs a gradient:
+        # every GVP conv's, and every GINE conv's after the first (the first
+        # gathers the input features)
+        per_step = {cs.K1: n_p + n_m, cs.K2: 2 * (n_p + n_m), cs.K3: n_p + n_m - 1,
+                    cgm.K5F: 0, cgm.K5B: 0, cgm.K6: 0}
+        unfused_train = train_path("", per_step, TRAIN_STEPS)
+        check_step_grads("")
+
+    with phase("train-fused"):
+        # each GVP conv: K6 pins the node table and K5 fwd runs the message
+        # MLP; backward K5 bwd, and K6 copies the node table's cotangent back
+        per_step_fused = {**per_step, cgm.K5F: n_p, cgm.K5B: n_p, cgm.K6: 2 * n_p}
+        with gvp.fused_message():
+            fused_train = train_path("fused ", per_step_fused, TRAIN_STEPS_FUSED)
+            check_step_grads("fused ")
+        print("train step, fused vs unfused message path: " + "; ".join(
+            f"{k} {fused_train[k]} vs {unfused_train[k]}" for k in unfused_train))
 
     with phase("fit"):
         # half the proteins 400-500 residues (the 512-node, 4096-edge bucket),
@@ -636,7 +874,7 @@ def main() -> int:
               f"{ {b: len(i) for b, i in sorted(buckets.items())} }")
         if len(buckets) < 2:
             raise AssertionError("the fit dataset should fill at least two buckets")
-        cs.reset_launches()
+        reset_launches()
         with tempfile.TemporaryDirectory() as out:
             checkpoints.save_run_artifacts(out, {"dataset": "synthetic", "n_pairs": FIT_PAIRS},
                                            dataset.rescale_params(), kw["protein_gnn_kwargs"],
@@ -654,7 +892,7 @@ def main() -> int:
             print(f"fit: 2 epochs in {fit_s:.2f} s, {res['throughput']['total_steps']} steps, "
                   f"history {[(h['train'], h['val']) for h in res['history']]}, test "
                   f"{res['test_metrics']}")
-            for k, v in cs.LAUNCHES.items():
+            for k, v in launches_now().items():
                 train_launches[k] += v
             names = sorted(os.listdir(out))
             print(f"fit wrote {names}")
@@ -669,7 +907,7 @@ def main() -> int:
         print(f"launches over the training phases: {train_launches}")
 
     with phase("times"), torch.no_grad():
-        rows = {}
+        rows, module_ms = {}, {}
         for label, batch in (requests[0], requests[-1]):
             cases = kernel_cases(torch, batch, gen)
             for name, table, idx in cases["K2"]:
@@ -684,7 +922,7 @@ def main() -> int:
                 # the table rows that idx references, each read once
                 n_rows = int(torch.unique(rows_g).numel())
                 nbytes = idx.numel() * 4 + n_rows * f * 4 + b * e * f * 4
-                rows[("K2", label, name)] = (ms, plain, lib, nbytes, 0)
+                rows[("K2", label, name)] = (ms, plain, lib, nbytes, 0, F32_OPS_PER_S)
             for name, msgs, dst, mask, n in cases["K1"]:
                 b, e, f = msgs.shape
                 out = torch.empty(b * n, f, device="cuda")
@@ -704,7 +942,7 @@ def main() -> int:
                 nbytes = (n_real * f * msgs.element_size() + dst.numel() * 4
                           + mask.numel() + b * n * f * 4)
                 ops = n_real * f
-                rows[("K1", label, name)] = (ms, plain, lib, nbytes, ops)
+                rows[("K1", label, name)] = (ms, plain, lib, nbytes, ops, F32_OPS_PER_S)
             for name, r32, ids, n in k3_cases(torch, batch, gen):
                 b, e, f = r32.shape
                 gids = (ids.long() + n * torch.arange(b, device="cuda")[:, None]).reshape(-1)
@@ -721,19 +959,86 @@ def main() -> int:
                     lib = graph_time_ms(torch, library)
                     # every row counts (no mask) and every output row is written
                     nbytes = r.numel() * r.element_size() + ids.numel() * 4 + b * n * f * 4
-                    rows[("K3", label, f"{name} {str(dtype)[6:]}")] = (ms, plain, lib, nbytes,
-                                                                       b * e * f)
-        for (k, label, name), (ms, plain, lib, nbytes, ops) in rows.items():
-            bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-            print(f"time {k} {label} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                  f"library {lib:.4f} ms, bound {bound:.4f} ms ({nbytes} bytes), "
+                    rows[("K3", label, f"{name} {str(dtype)[6:]}")] = (
+                        ms, plain, lib, nbytes, b * e * f, F32_OPS_PER_S)
+            # K5 at the served model's message widths with the trained
+            # weights; its reference point is the device time of the port's
+            # unfused message chain (the GVP modules) on the same tensors,
+            # summed over its kernels by the profiler (its backward uses
+            # autograd, which a CUDA graph here does not capture)
+            b, e, n = batch.protein.batch_size, batch.protein.e_pad, batch.protein.n_pad
+            layers = p_convs[0].message_func
+            n_w = sum(w.numel() for w in weights)
+            flops = k5_flops([(w.shape[0], s.shape[0], v.shape[0]) for w, s, v in
+                              zip(weights[0::6], weights[1::6], weights[3::6])], 2 * 16 + 32,
+                             2 * 4 + 1)
+            for kind in K5_DTYPES:
+                both, es, ev, dout = k5_inputs(torch, gen, b, e, kind)
+                cdt = getattr(torch, K5_DTYPES[kind][3])
+                spec = cgm.MessageSpec(16, 4, acts[0], acts[1], cdt)
+                rate = BF16_OPS_PER_S if cdt == torch.bfloat16 else F32_OPS_PER_S
+                in_bytes = sum(t.numel() * t.element_size() for t in (both, es, ev)) + 4 * n_w
+                out_bytes = b * e * 28 * both.element_size()
+                req = [t.detach().requires_grad_() for t in (both, es, ev)]
+
+                def chain(both, es, ev):
+                    s_j, v_j = gvp.split_sv(both[:, :e], 4)
+                    s_i, v_i = gvp.split_sv(both[:, e:], 4)
+                    msg = gvp.tuple_cat((s_j, v_j), (es, ev.reshape(b, e, 1, 3)), (s_i, v_i))
+                    for layer in layers:
+                        msg = layer(msg)
+                    return gvp.merge_sv(*msg)
+
+                def chain_fwd():
+                    with compute_dtype(cdt):
+                        return chain(both, es, ev)
+
+                def chain_bwd():
+                    with torch.enable_grad(), compute_dtype(cdt):
+                        return torch.autograd.grad(chain(*req), req + list(layers.parameters()),
+                                                   dout)
+
+                rows[("K5 fwd", label, kind)] = (
+                    graph_time_ms(torch, lambda: cgm.message_fwd(both, es, ev, weights, spec)),
+                    graph_time_ms(torch, lambda: cgm.message_fwd_plain(both, es, ev, weights,
+                                                                       spec)),
+                    None, in_bytes + out_bytes, b * e * flops, rate)
+                module_ms[("K5 fwd", label, kind)] = sum(
+                    profile_forward(torch, chain_fwd)[0].values())
+                # K5 bwd reads both, es, ev, the weights and dout and writes
+                # their gradients: 2 in_bytes + out_bytes. Each product of
+                # the forward becomes two (input and weight gradient); the
+                # forward that the kernel recomputes is its design's cost,
+                # not the function's, so it is not in the bound
+                rows[("K5 bwd", label, kind)] = (
+                    graph_time_ms(torch, lambda: cgm.message_bwd(both, es, ev, weights, dout,
+                                                                 spec)),
+                    graph_time_ms(torch, lambda: cgm.message_bwd_plain(both, es, ev, weights,
+                                                                       dout, spec)),
+                    None, 2 * in_bytes + out_bytes, 2 * b * e * flops, rate)
+                module_ms[("K5 bwd", label, kind)] = sum(
+                    profile_forward(torch, chain_bwd)[0].values())
+            # K6 on the node table, f32 -> f32 as the fused path pins it
+            table = torch.randn(b, n, 28, generator=gen, device="cuda")
+            rows[("K6", label, "node table f32")] = (
+                graph_time_ms(torch, lambda: cgm.cast_copy(table, torch.float32)),
+                graph_time_ms(torch, lambda: cgm.cast_copy_plain(table, torch.float32)),
+                graph_time_ms(torch, lambda: table.to(torch.float32, copy=True)),
+                2 * table.numel() * 4, 0, F32_OPS_PER_S)
+        for key, (ms, plain, lib, nbytes, ops, rate) in rows.items():
+            k, label, name = key
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / rate) * 1e3
+            ref = (f"library {lib:.4f} ms" if lib is not None else
+                   f"unfused module chain {module_ms[key]:.4f} ms of kernels (torch.profiler)")
+            print(f"time {k} {label} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, {ref}, "
+                  f"bound {bound:.4f} ms ({nbytes} bytes, {ops} operations), "
                   f"{bound / ms:.1%} of bound")
 
-    def entry(k, name, counter, replaces, shape):
-        ms, plain, lib, nbytes, ops = rows[(k, "flagship #0", shape)]
+    def entry(k, name, counter, replaces, shape, source=SOURCE):
+        ms, plain, lib, nbytes, ops, rate = rows[(k, "flagship #0", shape)]
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        op_ms = ops / F32_OPS_PER_S * 1e3
-        return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+        op_ms = ops / rate * 1e3
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": train_launches[counter], "max_abs_err": max_err[k],
                 "ms": ms, "plain_ms": plain, "bound_ms": max(byte_ms, op_ms),
                 "bound_by": "bytes" if byte_ms >= op_ms else "operations", "library_ms": lib}
@@ -743,17 +1048,24 @@ def main() -> int:
         entry("K2", "K2 row gather", cs.K2, K2_REPLACES, "protein merged gather"),
         entry("K3", "K3 unsorted scatter-add", cs.K3, K3_REPLACES,
               "protein merged backward bfloat16"),
+        entry("K5 fwd", "K5 fused GVP message MLP, forward", cgm.K5F, K5F_REPLACES, "f32",
+              GVP_SOURCE),
+        entry("K5 bwd", "K5 fused GVP message MLP, backward", cgm.K5B, K5B_REPLACES,
+              "bf16 step", GVP_SOURCE),
+        entry("K6", "K6 copy-cast (layout pin)", cgm.K6, K6_REPLACES, "node table f32",
+              GVP_SOURCE),
     ]
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel of the training path never launched: {train_launches}")
     for k in kernels:
-        if not all(math.isfinite(k[x]) for x in ("ms", "plain_ms", "bound_ms", "library_ms")):
+        if not all(math.isfinite(k[x]) for x in ("ms", "plain_ms", "bound_ms")) or not (
+                k["library_ms"] is None or math.isfinite(k["library_ms"])):
             raise AssertionError(f"non-finite time in {k}")
     print(f"CPU references: {CPU_REFERENCES['taken']} taken, each from two runs with the "
           f"same bits; {CPU_REFERENCES['third run']} needed a third run")
     print(nvidia_smi())   # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 

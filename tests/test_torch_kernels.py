@@ -1,7 +1,8 @@
-"""The CUDA kernels K1 (sorted segment-sum), K2 (row gather) and K3
-(unsorted scatter-add) of caster_dta_torch against their plain PyTorch
-versions, and the autograd Functions built on them against the same
-Functions on the CPU, on the card.
+"""The CUDA kernels K1 (sorted segment-sum), K2 (row gather), K3 (unsorted
+scatter-add), K5 (fused GVP message MLP, forward and backward) and K6
+(copy-cast) of caster_dta_torch against their plain PyTorch versions, and
+the autograd Functions built on them against the same Functions on the CPU,
+on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one. This file imports neither JAX nor the JAX package, so it runs on
@@ -16,6 +17,8 @@ import sys
 import pytest
 import torch
 
+from caster_dta_torch.nn import gvp
+from caster_dta_torch.ops import cuda_gvp_message as cgm
 from caster_dta_torch.ops import cuda_segment as cs
 from caster_dta_torch.ops import segment
 
@@ -187,3 +190,112 @@ def test_autograd_functions_match_the_cpu(cuda, dtype):
     for got, want in zip(g_card, g_cpu):
         torch.testing.assert_close(got.float(), want.float(), **GRAD_TOL[dtype])
     assert torch.all(g_card[1][:, -300:] == 0)  # masked edges get no gradient
+
+
+# K5 against its plain version on the card. f32: the same products summed in
+# another order (cuBLAS vs the kernel's fixed order), so outputs and input
+# gradients within 1e-5 and the weight gradients, sums over every edge,
+# within 2e-4 of their largest entry (as the JAX package's fused-vs-module
+# test). bf16 (the compute dtype or the tensor's own): a sum that lands on
+# another side of a bf16 rounding boundary moves that value by one bf16 ulp,
+# and the layers after it carry that on, so each tensor within 2e-2 of its
+# largest entry.
+def _k5_close(got, want, cdt, what, weight=False):
+    bf16 = torch.bfloat16 in (cdt, got.dtype)
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    if bf16:
+        tol = 2e-2 * scale
+    elif weight:
+        tol = 2e-4 * scale
+    else:
+        tol = 1e-5 + 1e-5 * scale
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    assert err <= tol, f"{what}: max|d| {err:.3e} > {tol:.3e} (max|want| {scale:.3e})"
+
+
+def _k5_case(dev, b, e, n_layers, acts, dtypes, seed=0, ns=16, nv=4, se=32, ve=1):
+    """The served model's message MLP widths by default: node (16, 4), edge
+    (32, 1), out (16, 4)."""
+    g = torch.Generator().manual_seed(seed)
+    conv = gvp.GVPConv((ns, nv), (ns, nv), (se, ve), n_layers=n_layers, activations=acts,
+                       vector_gate=True, generator=g)
+    weights = [w.detach().to(dev) for w in cgm.layer_weights(conv.message_func)]
+    both = torch.randn(b, 2 * e, ns + 3 * nv, generator=g).to(dev, dtypes[0])
+    es = torch.randn(b, e, se, generator=g).to(dev, dtypes[1])
+    ev = torch.randn(b, e, 3 * ve, generator=g).to(dev, dtypes[2])
+    dout = torch.randn(b, e, ns + 3 * nv, generator=g).to(dev, dtypes[0])
+    return both, es, ev, weights, dout
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("b,e,n_layers,acts,dtypes,cdt", [
+    (32, 4096, 3, ("relu", None), (F32, F32, F32), F32),      # flagship, f32 serving
+    (32, 4096, 3, ("relu", None), (F32, F32, BF16), BF16),    # flagship, the bf16 step's inputs
+    (128, 4096, 3, ("relu", None), (F32, F32, F32), F32),     # Davis bucket
+    (3, 1000, 3, ("sigmoid", "sigmoid"), (F32, F32, F32), F32),  # E off the tiles
+    (2, 77, 1, ("relu", None), (BF16, BF16, BF16), BF16),     # one layer, all bf16
+    (2, 130, 2, ("relu", "sigmoid"), (BF16, F32, BF16), F32),  # bf16 inputs, f32 products
+])
+def test_k5_matches_plain(cuda, b, e, n_layers, acts, dtypes, cdt):
+    both, es, ev, weights, dout = _k5_case(cuda, b, e, n_layers, acts, dtypes)
+    spec = cgm.MessageSpec(16, 4, acts[0], acts[1], cdt)
+    before = dict(cgm.LAUNCHES)
+    out = cgm.message_fwd(both, es, ev, weights, spec)
+    grads = cgm.message_bwd(both, es, ev, weights, dout, spec)
+    torch.cuda.synchronize()
+    assert {k: cgm.LAUNCHES[k] - before[k] for k in cgm.LAUNCHES} == {cgm.K5F: 1, cgm.K5B: 1,
+                                                                     cgm.K6: 0}
+    want_out = cgm.message_fwd_plain(both, es, ev, weights, spec)
+    want = cgm.message_bwd_plain(both, es, ev, weights, dout, spec)
+    assert out.dtype == both.dtype and out.shape == (b, e, 28)
+    _k5_close(out, want_out, cdt, "out")
+    for what, got, ref in zip(("d both", "d es", "d ev"), grads[:3], want[:3]):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        _k5_close(got, ref, cdt, what)
+    for i, (got, ref) in enumerate(zip(grads[3], want[3])):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        _k5_close(got, ref, cdt, f"weight {i}", weight=True)
+
+
+@pytest.mark.parametrize("cdt", [F32, BF16])
+def test_k5_gives_the_same_bits_twice(cuda, cdt):
+    both, es, ev, weights, dout = _k5_case(cuda, 32, 4096, 3, ("relu", None), (F32, F32, BF16))
+    spec = cgm.MessageSpec(16, 4, "relu", None, cdt)
+    runs = [(cgm.message_fwd(both, es, ev, weights, spec),
+             cgm.message_bwd(both, es, ev, weights, dout, spec)) for _ in range(2)]
+    (o1, g1), (o2, g2) = runs
+    assert torch.equal(o1, o2)
+    for a, b in zip(list(g1[:3]) + g1[3], list(g2[:3]) + g2[3]):
+        assert torch.equal(a, b)
+
+
+def test_k5_refuses_what_it_does_not_take(cuda):
+    both, es, ev, weights, dout = _k5_case(cuda, 2, 64, 3, ("relu", None), (F32, F32, F32))
+    spec = cgm.MessageSpec(16, 4, "relu", None, F32)
+    with pytest.raises(TypeError):
+        cgm.message_fwd(both.double(), es, ev, weights, spec)
+    with pytest.raises(ValueError):
+        cgm.message_fwd(both[:, :100].contiguous(), es, ev, weights, spec)
+    with pytest.raises(ValueError):
+        cgm.message_fwd(both, es, ev, weights[:-1], spec)
+    with pytest.raises(ValueError):
+        cgm.message_fwd(both, es, ev, weights, cgm.MessageSpec(16, 4, "gelu", None, F32))
+    # widths whose tile needs more than 227 KB of shared memory
+    big = _k5_case(cuda, 1, 8, 3, ("relu", None), (F32, F32, F32), ns=256, nv=64, se=8, ve=1)
+    with pytest.raises(ValueError, match="shared memory"):
+        cgm.message_bwd(*big[:4], big[4], cgm.MessageSpec(256, 64, "relu", None, F32))
+
+
+@pytest.mark.parametrize("src,dst", [(F32, F32), (F32, BF16), (BF16, F32), (BF16, BF16)])
+@pytest.mark.parametrize("shape", [(32, 512, 28), (3, 7, 5), (1, 1, 1)])
+def test_k6_is_an_exact_cast(cuda, src, dst, shape):
+    x = torch.randn(*shape, device=cuda).to(src)
+    before = cgm.LAUNCHES[cgm.K6]
+    y = cgm.cast_copy(x, dst)
+    torch.cuda.synchronize()
+    assert y.dtype == dst and y.data_ptr() != x.data_ptr()
+    assert torch.equal(y, cgm.cast_copy_plain(x, dst))
+    assert cgm.LAUNCHES[cgm.K6] == before + 1

@@ -5,10 +5,12 @@ pandas or Triton. Each case runs a fresh interpreter from the repo root with
 those names hidden behind a ``sys.meta_path`` finder whose loader refuses
 them (an import raises ImportError), imports every module of
 caster_dta_torch and chip_smoke, serves one tiny batch from runs/davis_seed9
-on the CPU, takes one bf16 training step from those weights and writes a
-checkpoint that the port reads back, and checks that none of the hidden
-names was loaded. A second case runs chip_smoke.py without a card: it must
-fail and print no result, since nothing falls back to the CPU.
+on the CPU, serves it again with the fused message path switched on
+(``caster_dta_torch.nn.gvp.fused_message``), takes one bf16 training step
+from those weights and writes a checkpoint that the port reads back, and
+checks that none of the hidden names was loaded. A second case runs
+chip_smoke.py without a card: it must fail and print no result, since
+nothing falls back to the CPU.
 """
 import os
 import subprocess
@@ -49,6 +51,11 @@ run = load_run("runs/davis_seed9", device="cpu")
 aff, (w_rd, w_da) = predict(run, synthetic_pair_batch(2, 24, 96, 8, 16, seed=0))
 assert aff.shape == (2,) and bool(torch.isfinite(aff).all()), aff
 assert w_rd.shape == (2, 24, 8) and w_da.shape == (2, 8, 24)
+
+from caster_dta_torch.nn import gvp
+with gvp.fused_message():
+    aff_fused, _ = predict(run, synthetic_pair_batch(2, 24, 96, 8, 16, seed=0))
+assert float((aff_fused - aff).abs().max()) < 1e-4, (aff_fused, aff)
 
 import os, tempfile
 from caster_dta_torch.train import checkpoints

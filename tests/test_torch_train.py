@@ -374,3 +374,29 @@ def test_fit_writes_checkpoints_that_jax_reads_and_load_run_serves(dataset, tmp_
         assert json.load(f)["joint_gnn_kwargs"] == jk
     aff, _ = serve.predict(run, batching.synthetic_pair_batch(*BUCKET, seed=4))
     assert aff.shape == (BUCKET[0],) and bool(torch.isfinite(aff).all())
+
+
+def test_f32_precision_is_scoped_to_predict_and_the_trainer():
+    """predict and every Trainer step and eval run with IEEE f32 matmuls and
+    convolutions (no TF32), and leave the process's settings as they were."""
+    matmul, conv = torch.backends.cuda.matmul, torch.backends.cudnn.conv
+    saved = (matmul.fp32_precision, conv.fp32_precision)
+    seen = []
+    model = _port_model()
+    model.register_forward_pre_hook(
+        lambda module, args: seen.append((matmul.fp32_precision, conv.fp32_precision)))
+    tb = batching.synthetic_pair_batch(*BUCKET, seed=1)
+    try:
+        matmul.fp32_precision = conv.fp32_precision = "tf32"
+        trainer = Trainer(model, TrainConfig(), device="cpu")
+        trainer.train_step(tb)
+        assert (matmul.fp32_precision, conv.fp32_precision) == ("tf32", "tf32")
+        trainer.eval_step(tb)
+        trainer.eval_loss(tb)
+        assert (matmul.fp32_precision, conv.fp32_precision) == ("tf32", "tf32")
+        run = serve.LoadedRun(model.eval(), KWARGS, {"scale_output": []}, "", torch.device("cpu"))
+        serve.predict(run, tb)
+        assert (matmul.fp32_precision, conv.fp32_precision) == ("tf32", "tf32")
+    finally:
+        matmul.fp32_precision, conv.fp32_precision = saved
+    assert seen == [("ieee", "ieee")] * 4
