@@ -38,12 +38,45 @@
 //     edge order, and write each output once. Deterministic, no atomics; an
 //     empty row comes out 0. The ids are re-read once per row tile (from L2).
 //
+// K7  gather_windowed: K2's function, out[b, e, :] = table[b, idx[b, e], :],
+//     an exact copy. Replaces the Pallas kernel caster_dta_tpu/ops/
+//     pallas_segment.py::_gather_window_kernel (per chunk of edges, one-hot MXU
+//     products against only the 128-row node windows that the chunk's indices
+//     span, from a scalar-prefetched window start and count). Bound by memory
+//     bytes, as K2 is. Design: one block per (graph, chunk of K7_EDGES
+//     edges). The block loads its chunk's indices, finds their span itself
+//     (min and max, no prefetch), then walks the span in windows of as many
+//     table rows as K7_WINDOW_BYTES of shared memory hold: each window's rows
+//     are one contiguous, coalesced read into shared memory, and every edge
+//     whose index falls in the window copies its row out of shared memory
+//     (16, 8, 4 or 2 bytes a thread, as K2). Sorted indices (dst) span a few
+//     rows a chunk and read each table row about once; unsorted ones span the
+//     table and read it whole per chunk. Not dispatched on any path, as in the
+//     JAX package, which measured it and kept the resident-table gather.
+//
+// K8  segment_sum_2d: out[b, n, :] = sum of msgs[b, e, :] over every edge e
+//     (no mask: the messages are already masked) whose dst[b, e] == n; dst
+//     sorted within each graph; f32 only. The row-major form of K1. Replaces
+//     the Pallas kernel caster_dta_tpu/ops/pallas_segment.py::_segment_kernel
+//     (one-hot MXU products over the edge chunks of a block of node rows, its
+//     edge range from a block-pointer table). Bound by memory bytes. Design,
+//     unlike K1's thread-per-output walk: one block per (graph, tile of
+//     K8_ROWS node rows, tile of K8_COLS features). The block finds its rows'
+//     edge ranges by binary search on the sorted dst, streams its edges in
+//     chunks of K8_CHUNK whose message columns it stages in shared memory
+//     with coalesced reads, and each thread adds its (row, column) entries'
+//     staged values, in edge order, into a shared f32 tile that is written
+//     once. A warp owns one row of the tile, so its lanes walk the same edges.
+//     Deterministic, no atomics; an empty row comes out 0, and the sums equal
+//     K1's bit for bit on the same masked rows (a masked row adds +0).
+//
 // Plain C interface, loaded with ctypes (caster_dta_torch/ops/cuda_segment.py).
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError() after its launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -57,6 +90,13 @@ constexpr int K3_GROUPS = 8;     // threads per node row
 constexpr int K3_THREADS = K3_ROWS * K3_GROUPS;  // 256, also the edge chunk
 constexpr int K3_COLS = 32;      // features per block (32 KB of f32 stage)
 constexpr int K3_PER_THREAD = K3_COLS / K3_GROUPS;
+constexpr int K7_EDGES = 256;    // edges per block
+constexpr int K7_THREADS = 256;
+constexpr int K7_WINDOW_BYTES = 32768;  // staged table rows per window
+constexpr int K8_ROWS = 8;       // node rows per block, one warp each
+constexpr int K8_COLS = 32;      // features per block, one lane each
+constexpr int K8_THREADS = K8_ROWS * K8_COLS;
+constexpr int K8_CHUNK = 224;    // edges staged per pass (28 KB)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -206,6 +246,102 @@ scatter_rows_kernel(const T* __restrict__ rows, const int* __restrict__ ids,
 }
 
 template <typename V>
+__global__ void __launch_bounds__(K7_THREADS)
+gather_windowed_kernel(const V* __restrict__ table, const int* __restrict__ idx,
+                       V* __restrict__ out, int E, int N, int vec_per_row, int window_rows) {
+  __shared__ int s_idx[K7_EDGES];
+  __shared__ int warp_lo[K7_THREADS / 32], warp_hi[K7_THREADS / 32];
+  __shared__ __align__(16) unsigned char s_window[K7_WINDOW_BYTES];
+  V* window = reinterpret_cast<V*>(s_window);
+  const int b = blockIdx.y;
+  const int e0 = blockIdx.x * K7_EDGES;
+  const int n_e = min(K7_EDGES, E - e0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int i = threadIdx.x; i < n_e; i += K7_THREADS) {
+    const int src = idx[(int64_t)b * E + e0 + i];
+    // an index outside [0, N) stops the kernel, as K2's does
+    if (src < 0 || src >= N) __trap();
+    s_idx[i] = src;
+    lo = min(lo, src);
+    hi = max(hi, src);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0) {
+    warp_lo[warp] = lo;
+    warp_hi[warp] = hi;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < K7_THREADS / 32; ++w) {
+    lo = min(lo, warp_lo[w]);
+    hi = max(hi, warp_hi[w]);
+  }
+
+  const V* table_b = table + (int64_t)b * N * vec_per_row;
+  V* out_c = out + ((int64_t)b * E + e0) * vec_per_row;
+  for (int w0 = lo; w0 <= hi; w0 += window_rows) {
+    const int n_rows = min(window_rows, hi + 1 - w0);
+    const V* rows = table_b + (int64_t)w0 * vec_per_row;
+    for (int i = threadIdx.x; i < n_rows * vec_per_row; i += K7_THREADS) window[i] = rows[i];
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_e * vec_per_row; i += K7_THREADS) {
+      const int e = i / vec_per_row;
+      const int r = s_idx[e] - w0;
+      if (r >= 0 && r < n_rows) out_c[i] = window[r * vec_per_row + (i - e * vec_per_row)];
+    }
+    __syncthreads();  // the next window overwrites this one
+  }
+}
+
+__global__ void __launch_bounds__(K8_THREADS)
+segment_sum_2d_kernel(const float* __restrict__ msgs, const int* __restrict__ dst,
+                      float* __restrict__ out, int E, int N, int F) {
+  __shared__ int row_ptr[K8_ROWS + 1];
+  __shared__ float stage[K8_CHUNK * K8_COLS];
+  __shared__ float tile[K8_ROWS * K8_COLS];
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.x * K8_ROWS;
+  const int c0 = blockIdx.z * K8_COLS;
+  const int n_rows = min(K8_ROWS, N - n0);
+  const int n_cols = min(K8_COLS, F - c0);
+  const int* dst_b = dst + (int64_t)b * E;
+  if (threadIdx.x <= n_rows) row_ptr[threadIdx.x] = lower_bound(dst_b, E, n0 + (int)threadIdx.x);
+  // thread (row r, column c) owns tile[r][c]: a warp is one row
+  const int r = threadIdx.x / K8_COLS;
+  const int c = threadIdx.x % K8_COLS;
+  tile[threadIdx.x] = 0.f;
+  __syncthreads();
+
+  const int lo = row_ptr[0], hi = row_ptr[n_rows];
+  const float* msgs_b = msgs + (int64_t)b * E * F + c0;
+  for (int e0 = lo; e0 < hi; e0 += K8_CHUNK) {
+    const int n_e = min(K8_CHUNK, hi - e0);
+    for (int i = threadIdx.x; i < n_e * n_cols; i += K8_THREADS) {
+      const int e = i / n_cols;
+      const int col = i - e * n_cols;
+      stage[e * K8_COLS + col] = msgs_b[(int64_t)(e0 + e) * F + col];
+    }
+    __syncthreads();
+    if (r < n_rows && c < n_cols) {
+      const int from = max(row_ptr[r], e0) - e0;
+      const int to = min(row_ptr[r + 1], e0 + n_e) - e0;
+      float acc = tile[threadIdx.x];
+      for (int e = from; e < to; ++e) acc += stage[e * K8_COLS + c];
+      tile[threadIdx.x] = acc;
+    }
+    __syncthreads();  // the next chunk overwrites the stage
+  }
+  if (r < n_rows && c < n_cols) out[((int64_t)b * N + n0 + r) * F + c0 + c] = tile[threadIdx.x];
+}
+
+template <typename V>
 void launch_gather(const void* table, const void* idx, void* out, int B, int E, int N,
                    int row_bytes, cudaStream_t stream) {
   const int vec_per_row = row_bytes / (int)sizeof(V);
@@ -216,6 +352,16 @@ void launch_gather(const void* table, const void* idx, void* out, int B, int E, 
   gather_rows_kernel<V><<<(unsigned)blocks, K2_THREADS, 0, stream>>>(
       static_cast<const V*>(table), static_cast<const int*>(idx), static_cast<V*>(out),
       n_rows, E, N, vec_per_row);
+}
+
+template <typename V>
+void launch_gather_windowed(const void* table, const void* idx, void* out, int B, int E, int N,
+                            int row_bytes, cudaStream_t stream) {
+  const int vec_per_row = row_bytes / (int)sizeof(V);
+  const dim3 grid((E + K7_EDGES - 1) / K7_EDGES, B);
+  gather_windowed_kernel<V><<<grid, K7_THREADS, 0, stream>>>(
+      static_cast<const V*>(table), static_cast<const int*>(idx), static_cast<V*>(out), E, N,
+      vec_per_row, K7_WINDOW_BYTES / row_bytes);
 }
 
 }  // namespace
@@ -271,6 +417,33 @@ int k3_scatter_rows(const void* rows, const void* ids, void* out, int B, int E, 
         static_cast<const float*>(rows), static_cast<const int*>(ids),
         static_cast<float*>(out), E, N, F);
   }
+  return (int)cudaGetLastError();
+}
+
+// table [B, N, row_bytes] (any 2- or 4-byte element type), idx [B, E] int32
+// in [0, N), out [B, E, row_bytes]; row_bytes <= K7_WINDOW_BYTES. vec_bytes as K2's.
+int k7_gather_windowed(const void* table, const void* idx, void* out, int B, int E, int N,
+                       int row_bytes, int vec_bytes, void* stream) {
+  if (row_bytes > K7_WINDOW_BYTES) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (vec_bytes) {
+    case 16: launch_gather_windowed<uint4>(table, idx, out, B, E, N, row_bytes, s); break;
+    case 8: launch_gather_windowed<uint2>(table, idx, out, B, E, N, row_bytes, s); break;
+    case 4: launch_gather_windowed<uint32_t>(table, idx, out, B, E, N, row_bytes, s); break;
+    case 2: launch_gather_windowed<uint16_t>(table, idx, out, B, E, N, row_bytes, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// msgs [B, E, F] f32 (masked already), dst [B, E] int32 sorted per graph,
+// out [B, N, F] f32. All contiguous.
+int k8_segment_sum_2d(const void* msgs, const void* dst, void* out, int B, int E, int N, int F,
+                      void* stream) {
+  const dim3 grid((N + K8_ROWS - 1) / K8_ROWS, B, (F + K8_COLS - 1) / K8_COLS);
+  segment_sum_2d_kernel<<<grid, K8_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(msgs), static_cast<const int*>(dst), static_cast<float*>(out),
+      E, N, F);
   return (int)cudaGetLastError();
 }
 

@@ -69,7 +69,9 @@ def unscale_target(values: torch.Tensor, rescale: dict) -> torch.Tensor:
 def predict(run: LoadedRun, batch: PairBatch):
     """-> (affinities [B] unscaled, (residues->atoms [B, R, A],
     atoms->residues [B, A, R]) attention of the first cross-attention
-    layer). The outputs stay on the run's device; nothing synchronises.
+    layer). With ``use_pallas`` set on the model's MultiheadAttention modules
+    (the blockwise K4 path), the attention comes back as (None, None). The
+    outputs stay on the run's device; nothing synchronises.
     Serving is f32 end to end: the forward runs under ``f32_precision``, so
     the card's scores stay comparable with the CPU's and the JAX package's,
     and the process's TF32 settings are as they were afterwards."""

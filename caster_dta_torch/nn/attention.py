@@ -2,8 +2,14 @@
 JAX package's numerics (counterpart of caster_dta_tpu/nn/attention.py):
 masked logits are set to -1e9 (not -inf), the logits are taken in the input
 dtype, the softmax runs in f32 and its weights are cast to v's dtype, and the
-returned weights are averaged over heads. The blockwise Pallas branch
-(``use_pallas``) is not on the served path and is not ported."""
+returned weights are averaged over heads.
+
+``use_pallas`` (the JAX field's name and default) takes the blockwise branch
+of JAX nn/attention.py:76-82 where dropout cannot act (dropout 0 or eval
+mode): after the projections, ops/attention.masked_mha (the CUDA kernel K4 on
+the card) computes the output without materialising the [B, H, Lq, Lk]
+logits, and the weights come back as None. It is forward only. The field
+adds no parameter, so checkpoints are the same with it on or off."""
 from __future__ import annotations
 
 import math
@@ -13,14 +19,16 @@ import torch
 from torch import nn
 
 from caster_dta_torch.nn.common import Dense, dropout, linear
+from caster_dta_torch.ops.attention import masked_mha
 
 _NEG = -1e9
 
 
 class MultiheadAttention(nn.Module):
     """batch_first MHA: query [B, Lq, E], key/value [B, Lk, kdim/vdim] ->
-    (out [B, Lq, E], weights [B, Lq, Lk] averaged over heads).
-    key_padding_mask marks padding keys True (torch convention).
+    (out [B, Lq, E], weights [B, Lq, Lk] averaged over heads; None on the
+    ``use_pallas`` branch). key_padding_mask marks padding keys True (torch
+    convention).
 
     Parameters as torch's: ``in_proj_weight`` [3E, E] when kdim == vdim == E,
     else ``q_proj_weight``/``k_proj_weight``/``v_proj_weight``; then
@@ -28,11 +36,12 @@ class MultiheadAttention(nn.Module):
 
     def __init__(self, embed_dim: int, num_heads: int, kdim: Optional[int] = None,
                  vdim: Optional[int] = None, dropout: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, use_pallas: bool = False):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
         self.embed_dim, self.num_heads, self.dropout = embed_dim, num_heads, dropout
+        self.use_pallas = use_pallas
         kdim, vdim = kdim or embed_dim, vdim or embed_dim
         self.packed = kdim == embed_dim and vdim == embed_dim
         e = embed_dim
@@ -66,6 +75,10 @@ class MultiheadAttention(nn.Module):
         q = linear(query, wq, bq).reshape(b, lq, h, hd).transpose(1, 2)
         k = linear(key, wk, bk).reshape(b, lk, h, hd).transpose(1, 2)
         v = linear(value, wv, bv).reshape(b, lk, h, hd).transpose(1, 2)
+
+        if self.use_pallas and (self.dropout == 0.0 or not self.training):
+            out = masked_mha(q, k, v, key_padding_mask)
+            return self.out_proj(out.transpose(1, 2).reshape(b, lq, e)), None
 
         # logits in the input dtype, scaled by sqrt(hd) rounded to that dtype
         scale = torch.tensor(math.sqrt(hd), dtype=q.dtype).item()

@@ -1,6 +1,7 @@
 """Wrappers of the hand-written CUDA kernels K1 (sorted segment-sum), K2
-(row gather) and K3 (unsorted scatter-add, K2's transpose) in
-``csrc/segment.cu``, with their plain PyTorch versions.
+(row gather), K3 (unsorted scatter-add, K2's transpose), K7 (windowed row
+gather) and K8 (row-major sorted segment-sum) in ``csrc/segment.cu``, with
+their plain PyTorch versions.
 
 A wrapper takes the plain version only for a tensor on the CPU. For a CUDA
 tensor it checks device, dtype, shape and contiguity, allocates its output
@@ -11,7 +12,8 @@ it.
 
 The wrappers are not differentiable themselves: ops/segment.py wraps them in
 autograd Functions whose backward passes are these same kernels (K1's VJP is a
-K2 gather, K2's is a K3 scatter).
+K2 gather, K2's is a K3 scatter). K7 and K8 compute K2's and K1's functions
+in another way and are dispatched on no path, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,7 +26,10 @@ from caster_dta_torch.ops import build
 K1 = "k1_segment_sum_sorted"
 K2 = "k2_gather_rows"
 K3 = "k3_scatter_rows"
-LAUNCHES = {K1: 0, K2: 0, K3: 0}
+K7 = "k7_gather_windowed"
+K8 = "k8_segment_sum_2d"
+LAUNCHES = {K1: 0, K2: 0, K3: 0, K7: 0, K8: 0}
+K7_WINDOW_BYTES = 32768     # a table row must fit one window of csrc/segment.cu's K7
 
 _built: build.Built | None = None
 
@@ -46,6 +51,10 @@ def load_library() -> build.Built:
         built.lib.k2_gather_rows.restype = i
         built.lib.k3_scatter_rows.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
         built.lib.k3_scatter_rows.restype = i
+        built.lib.k7_gather_windowed.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+        built.lib.k7_gather_windowed.restype = i
+        built.lib.k8_segment_sum_2d.argtypes = [vp, vp, vp, i, i, i, i, vp]
+        built.lib.k8_segment_sum_2d.restype = i
         _built = built
     return _built
 
@@ -127,11 +136,29 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.reshape(b * n, f).index_select(0, rows).reshape(b, idx.shape[1], f)
 
 
-def _vec_bytes(row_bytes: int, *ptrs: int) -> int:
+def _vec_bytes(name: str, row_bytes: int, *ptrs: int) -> int:
     for v in (16, 8, 4, 2):
         if row_bytes % v == 0 and all(p % v == 0 for p in ptrs):
             return v
-    raise ValueError(f"{K2}: row of {row_bytes} bytes has no 2-byte alignment")
+    raise ValueError(f"{name}: row of {row_bytes} bytes has no 2-byte alignment")
+
+
+def _check_gather(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
+    """The device, shape and dtype checks of K2 and K7 on a CUDA tensor."""
+    if table.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {table.device}")
+    if table.dim() != 3 or idx.dim() != 2 or idx.shape[0] != table.shape[0]:
+        raise ValueError(f"{name}: shapes table {tuple(table.shape)}, idx {tuple(idx.shape)}")
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: table must be float32 or bfloat16, not {table.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"{name}: idx must be int32, not {idx.dtype}")
+    _check_cuda(name, table, idx)
+
+
+def _check_index_on_cpu(name: str, idx: torch.Tensor, n: int) -> None:
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n):
+        raise IndexError(f"{name}: index outside [0, {n})")
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -145,18 +172,9 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Replaces caster_dta_tpu/ops/pallas_segment.py::_onehot_gather_kernel
     (via onehot_gather). Bound by memory bytes on the H100."""
     if table.device.type == "cpu":
-        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= table.shape[1]):
-            raise IndexError(f"{K2}: index outside [0, {table.shape[1]})")
+        _check_index_on_cpu(K2, idx, table.shape[1])
         return gather_rows_plain(table, idx)
-    if table.device.type != "cuda":
-        raise ValueError(f"{K2}: unsupported device {table.device}")
-    if table.dim() != 3 or idx.dim() != 2 or idx.shape[0] != table.shape[0]:
-        raise ValueError(f"{K2}: shapes table {tuple(table.shape)}, idx {tuple(idx.shape)}")
-    if table.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{K2}: table must be float32 or bfloat16, not {table.dtype}")
-    if idx.dtype != torch.int32:
-        raise TypeError(f"{K2}: idx must be int32, not {idx.dtype}")
-    _check_cuda(K2, table, idx)
+    _check_gather(K2, table, idx)
     b, n, f = table.shape
     e = idx.shape[1]
     out = torch.empty(b, e, f, dtype=table.dtype, device=table.device)
@@ -165,7 +183,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if n == 0:
         raise ValueError(f"{K2}: gather from an empty table")
     row_bytes = f * table.element_size()
-    vec = _vec_bytes(row_bytes, table.data_ptr(), out.data_ptr())
+    vec = _vec_bytes(K2, row_bytes, table.data_ptr(), out.data_ptr())
     lib = load_library().lib
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -227,4 +245,94 @@ def scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num_segments: int) -> to
                                   stream)
     _raise_on(err, K3)
     LAUNCHES[K3] += 1
+    return out
+
+
+# ---------------------------------------------------------------- K7
+
+# K7 computes K2's function: its plain version is K2's
+gather_windowed_plain = gather_rows_plain
+
+
+def gather_windowed(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K7: out[b, e, :] = table[b, idx[b, e], :], as K2, reading per chunk of
+    edges only the table rows that the chunk's indices span. table [B, N, F]
+    float32 or bfloat16 (a row of at most 32 KB), idx [B, E] int32 in [0, N),
+    in any order (sorted indices read the least). An exact copy.
+
+    An index outside [0, N) raises IndexError on the CPU and stops the kernel
+    on the card, as K2's does. Dispatched on no path (ops/segment.py keeps K2).
+
+    Replaces caster_dta_tpu/ops/pallas_segment.py::_gather_window_kernel
+    (via gather_windowed). Bound by memory bytes on the H100."""
+    if table.device.type == "cpu":
+        _check_index_on_cpu(K7, idx, table.shape[1])
+        return gather_windowed_plain(table, idx)
+    _check_gather(K7, table, idx)
+    b, n, f = table.shape
+    e = idx.shape[1]
+    if b > 65535:
+        raise ValueError(f"{K7}: {b} graphs exceed the grid's 65535")
+    row_bytes = f * table.element_size()
+    if row_bytes > K7_WINDOW_BYTES:
+        raise ValueError(f"{K7}: a row of {row_bytes} bytes exceeds the "
+                         f"{K7_WINDOW_BYTES}-byte window (table {tuple(table.shape)})")
+    out = torch.empty(b, e, f, dtype=table.dtype, device=table.device)
+    if out.numel() == 0:
+        return out
+    if n == 0:
+        raise ValueError(f"{K7}: gather from an empty table")
+    vec = _vec_bytes(K7, row_bytes, table.data_ptr(), out.data_ptr())
+    lib = load_library().lib
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.k7_gather_windowed(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                                     b, e, n, row_bytes, vec, stream)
+    _raise_on(err, K7)
+    LAUNCHES[K7] += 1
+    return out
+
+
+# ---------------------------------------------------------------- K8
+
+def segment_sum_2d_plain(msgs: torch.Tensor, dst: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """Plain version of K8: ``index_add_`` of every row of msgs [B, E, F] f32
+    into [B, N, F] by the global row ``b * N + dst``."""
+    return scatter_rows_plain(msgs, dst, num_nodes)
+
+
+def segment_sum_2d(msgs: torch.Tensor, dst: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """K8: out[b, n, :] = sum of msgs[b, e, :] over the edges e with
+    dst[b, e] == n. msgs [B, E, F] float32 only, already masked (every row
+    counts); dst [B, E] int32 in [0, N), sorted ascending within each graph.
+    The sum is taken in f32 in edge order; the output is [B, N, F] f32.
+
+    Dispatched on no path (ops/segment.py keeps K1, which takes the mask).
+
+    Replaces caster_dta_tpu/ops/pallas_segment.py::_segment_kernel (via
+    _pallas_segment_sum_2d). Bound by memory bytes on the H100."""
+    if msgs.dtype != torch.float32:
+        raise TypeError(f"{K8}: msgs must be float32, not {msgs.dtype}")
+    if msgs.device.type == "cpu":
+        return segment_sum_2d_plain(msgs, dst, num_nodes)
+    if msgs.device.type != "cuda":
+        raise ValueError(f"{K8}: unsupported device {msgs.device}")
+    if msgs.dim() != 3 or dst.shape != msgs.shape[:2]:
+        raise ValueError(f"{K8}: shapes msgs {tuple(msgs.shape)}, dst {tuple(dst.shape)}")
+    if dst.dtype != torch.int32:
+        raise TypeError(f"{K8}: dst must be int32, not {dst.dtype}")
+    _check_cuda(K8, msgs, dst)
+    b, e, f = msgs.shape
+    if b > 65535:
+        raise ValueError(f"{K8}: {b} graphs exceed the grid's 65535")
+    out = torch.empty(b, num_nodes, f, dtype=torch.float32, device=msgs.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library().lib
+    with torch.cuda.device(msgs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.k8_segment_sum_2d(msgs.data_ptr(), dst.data_ptr(), out.data_ptr(),
+                                    b, e, num_nodes, f, stream)
+    _raise_on(err, K8)
+    LAUNCHES[K8] += 1
     return out

@@ -7,9 +7,10 @@ H100 and check them.
 Phases, each printed before it starts and after it ends with its wall time:
 
 1. device: needs CUDA; prints the card and ``nvidia-smi``'s name and power limit.
-2. build: builds ``caster_dta_torch/csrc/segment.cu`` and
-   ``caster_dta_torch/csrc/gvp_message.cu`` with nvcc for sm_90a, both at once,
-   and prints ptxas's register and shared-memory lines.
+2. build: builds ``caster_dta_torch/csrc/segment.cu``,
+   ``caster_dta_torch/csrc/gvp_message.cu`` and
+   ``caster_dta_torch/csrc/attention.cu`` with nvcc for sm_90a, one nvcc per
+   source, all at once, and prints ptxas's register and shared-memory lines.
 3. kernels: K1 (sorted segment-sum) and K2 (row gather) on the card, at the
    shapes of the served model, against their plain PyTorch versions on the
    same inputs: K2 must be bit-exact, K1 within K1_RTOL/K1_ATOL. K5 (the
@@ -18,7 +19,17 @@ Phases, each printed before it starts and after it ends with its wall time:
    Davis shapes, f32 and with the bf16 step's dtypes, within K5_TOL; K6 bit
    for bit. Edge cases: E off the tiles, one layer, a fused conv whose edges
    are all masked (its output and every gradient exactly 0), and a second run
-   of K5 that must give the first run's bits.
+   of K5 that must give the first run's bits. K4 (blockwise masked attention)
+   at the cross-attention shapes of the flagship, Davis and large-protein
+   requests, both directions, with their masks, against its plain version
+   within K4_TOL and bit for bit on a second run; edge cases: a fully masked
+   graph (the mean of v), one key, 130 x 33, hd 8 and 32, no mask, bf16
+   inputs. K7 (windowed gather) against K2 and its plain version, exact, at
+   the flagship and Davis dst (sorted), src and shuffled indices, f32 and
+   bf16. K8 (row-major segment-sum) against its plain version within
+   K8_RTOL/K8_ATOL at the flagship and Davis protein aggregations, whether it
+   equals K1 bit for bit, and its refusal of bf16. K7 and K8 lie on no path:
+   their launch counts are those of this phase.
 4. serve: loads the trained ``runs/davis_seed9`` model onto the card, answers
    seeded synthetic requests at two buckets, checks that the K1 and K2 launch
    counts rose by the expected launches per forward, that the affinities are
@@ -29,6 +40,12 @@ Phases, each printed before it starts and after it ends with its wall time:
    (``with caster_dta_torch.nn.gvp.fused_message():``): launches per forward
    (K6 and K5 fwd once per GVP conv), card against the port's CPU run with
    the switch on, and against the unfused card answers within AFFINITY_ATOL.
+   serve-blockwise: the same with ``use_pallas`` set on the model's two
+   MultiheadAttention modules (the blockwise K4 path), over the same
+   requests and one large-protein request (LARGE): launches per forward (K4
+   twice, K1 and K2 as unfused), card against the port's CPU run, attention
+   (None, None), each answer against the dense card answer within
+   AFFINITY_ATOL, latency and device time by group at three buckets.
 5. k3: K3 (unsorted scatter-add, the gathers' backward) against its plain
    version on the CPU (same edge order) at the merged src||dst backward of the flagship and Davis buckets
    and the molecule widths, f32 and bf16, and on edge cases (repeated ids,
@@ -58,15 +75,22 @@ Phases, each printed before it starts and after it ends with its wall time:
    over 3.35 TB/s and operations over the peak rate of their type). No single
    PyTorch call computes K5; its reference point is the device time of the
    port's unfused message chain (the GVP modules) at the same shapes, summed
-   over its kernels by torch.profiler.
+   over its kernels by torch.profiler. K4 at each bucket and direction, beside
+   its plain version, ``scaled_dot_product_attention`` with an additive -1e9
+   mask (the library yardstick, which the port never calls) and the device
+   time of the port's dense attention core (einsum, mask, f32 softmax,
+   einsum); K7 at the flagship and Davis protein gathers beside K2 on the
+   same indices; K8 at the same buckets' protein aggregations.
 
 Every CPU reference that a card result is held against is computed twice
 and taken only when the two runs give the same bits (``cpu_reference``).
 
 Any failure raises and the script exits non-zero. On success the line before
-the last is ``{"kernels": [...]}``, whose launch counts are those of the
-training phases (train, fit, train-fused), and the last is ``{"ok": true, "device": {...}}``. Without
-CUDA it exits 1 and prints no result.
+the last is ``{"kernels": [...]}``, whose launch counts are each kernel's over
+the phases that run it: the training phases (train, fit, train-fused) for
+K1-K3, K5 and K6, serve-blockwise for K4, kernels for K7 and K8; and the last
+is ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
+result.
 """
 from __future__ import annotations
 
@@ -87,6 +111,9 @@ RUN_DIR = os.path.join(HERE, "runs", "davis_seed9")
 # segment-kernel measurements; both with drug-size molecules
 FLAGSHIP = dict(b=32, n_p=512, e_p=4096, n_m=64, e_m=256)
 DAVIS = dict(b=128, n_p=768, e_p=4096, n_m=64, e_m=256)
+# the top rung of the JAX package's protein ladder (caster_dta_tpu/data/
+# batching.py:93-94), the traffic the blockwise attention path serves
+LARGE = dict(b=4, n_p=4608, e_p=65536, n_m=128, e_m=1024)
 N_REQUESTS_FLAGSHIP = 4
 
 # H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the tensor cores,
@@ -135,6 +162,13 @@ FIT_PAIRS = 320
 # a rounding boundary moves one bf16 ulp and later layers carry it on, so
 # 2e-2 of the tensor's largest entry.
 K5_TOL = {"f32": 1e-5, "weight": 2e-4, "bf16": 2e-2}
+# K4 against its plain version on the card (rtol and atol): the same f32
+# products summed in another order and one exp per key against a dense
+# softmax; the JAX package's blockwise-vs-dense tests use the same 2e-5.
+K4_TOL = 2e-5
+# K8 sums in edge order in f32; the plain index_add_ on the card sums the
+# same terms in atomic order, as for K1.
+K8_RTOL, K8_ATOL = 1e-5, 1e-5
 
 K1_REPLACES = "caster_dta_tpu/ops/pallas_segment.py:131"   # _segment_kernel_t
 K2_REPLACES = "caster_dta_tpu/ops/pallas_segment.py:540"   # _onehot_gather_kernel
@@ -142,8 +176,12 @@ K3_REPLACES = "caster_dta_tpu/ops/pallas_segment.py:268"   # _scatter_fullN_kern
 K5F_REPLACES = "caster_dta_tpu/ops/pallas_gvp_message.py:267"   # _fwd_kernel
 K5B_REPLACES = "caster_dta_tpu/ops/pallas_gvp_message.py:284"   # _bwd_kernel
 K6_REPLACES = "caster_dta_tpu/ops/pallas_gvp_message.py:217"    # _cast_kernel
+K4_REPLACES = "caster_dta_tpu/ops/pallas_attention.py:41"       # _mha_kernel
+K7_REPLACES = "caster_dta_tpu/ops/pallas_segment.py:639"        # _gather_window_kernel
+K8_REPLACES = "caster_dta_tpu/ops/pallas_segment.py:72"         # _segment_kernel
 SOURCE = "caster_dta_torch/csrc/segment.cu"
 GVP_SOURCE = "caster_dta_torch/csrc/gvp_message.cu"
+ATTN_SOURCE = "caster_dta_torch/csrc/attention.cu"
 
 
 @contextlib.contextmanager
@@ -202,7 +240,8 @@ def event_times_ms(torch, fn, reps: int = 20, warmup: int = 3) -> list:
     return sorted(times)
 
 
-KERNEL_GROUPS = (("K1 segment-sum", "segment_sum_sorted"), ("K2 gather", "gather_rows"),
+KERNEL_GROUPS = (("K4 attention", "masked_mha"),
+                 ("K1 segment-sum", "segment_sum_sorted"), ("K2 gather", "gather_rows"),
                  ("K3 scatter", "scatter_rows"), ("K5 fwd", "message_fwd"),
                  ("K5 bwd", "message_bwd"), ("K5 bwd sum", "reduce_rows"),
                  ("K6 copy-cast", "cast_copy"), ("K6 copy-cast", "copy16"), ("matmul", "gemm"),
@@ -321,6 +360,61 @@ def k3_edge_cases(torch, gen, dev="cuda"):
     return out
 
 
+def k4_cases(torch, batch, gen, heads: int, hd: int, dev="cuda"):
+    """K4 inputs at a request's cross-attention shapes, [B, heads, L, hd]:
+    residues->atoms (the atoms are the keys, masked where the molecule pads)
+    and atoms->residues (the residues are the keys)."""
+    p, m = batch.protein.to(dev), batch.molecule.to(dev)
+
+    def randn(n):
+        return torch.randn(p.batch_size, heads, n, hd, generator=gen, device=dev)
+
+    return [("residues->atoms", randn(p.n_pad), randn(m.n_pad), randn(m.n_pad), ~m.node_mask),
+            ("atoms->residues", randn(m.n_pad), randn(p.n_pad), randn(p.n_pad), ~p.node_mask)]
+
+
+def k4_edge_cases(torch, gen, dev="cuda"):
+    """A fully masked graph, one key, Lq and Lk off any tile, hd 8 and 32, no
+    mask: (what, q, k, v, mask)."""
+    out = []
+    for what, (b, h, lq, lk, hd), kind in [
+            ("a fully masked graph", (2, 8, 50, 70, 16), "graph 0 masked"),
+            ("one key", (2, 8, 7, 1, 16), "padding"), ("130 x 33", (1, 2, 130, 33, 16), None),
+            ("hd 8", (2, 4, 60, 90, 8), "padding"), ("hd 32", (2, 4, 60, 90, 32), "padding"),
+            ("no mask", (4, 8, 96, 40, 16), None)]:
+        q, k, v = (torch.randn(b, h, n, hd, generator=gen, device=dev) for n in (lq, lk, lk))
+        mask = None
+        if kind is not None:
+            mask = torch.rand(b, lk, generator=gen, device=dev) < 0.3
+            if kind == "graph 0 masked":
+                mask[0] = True
+        out.append((f"{what} [{b}, {h}, {lq} x {lk}, {hd}]", q, k, v, mask))
+    return out
+
+
+def k4_work(torch, q, mask) -> tuple:
+    """(bytes, operations) that K4's function needs on these inputs: q and
+    the output whole, k and v only at the keys that count (the real ones, or
+    all Lk of a fully masked graph), the mask; 2 operations per multiply-add
+    of both products over those keys. The exps are not counted."""
+    b, h, lq, hd = q.shape
+    lk = mask.shape[1]
+    real = (~mask).sum(1)
+    keys = int(torch.where(real > 0, real, lk).sum().item())
+    nbytes = 2 * q.numel() * 4 + 2 * h * keys * hd * 4 + mask.numel()
+    return nbytes, 2 * 2 * h * lq * keys * hd
+
+
+def set_use_pallas(model, on: bool) -> None:
+    """Set ``use_pallas`` on every MultiheadAttention of a model: the
+    blockwise K4 path of a loaded run, as the JAX field on the same weights."""
+    from caster_dta_torch.nn.attention import MultiheadAttention
+
+    for module in model.modules():
+        if isinstance(module, MultiheadAttention):
+            module.use_pallas = on
+
+
 def k5_close(torch, got, want, bf16: bool, weight: bool, what: str) -> float:
     """max |got - want|, raising beyond K5_TOL (see there)."""
     got, want = got.float(), want.float()
@@ -400,6 +494,8 @@ def k5_flops(dims, si: int, vi: int) -> int:
 
 
 def _tensors(x):
+    if x is None:
+        return []
     if isinstance(x, dict):
         x = list(x.values())
     if isinstance(x, (list, tuple)):
@@ -453,6 +549,8 @@ def main() -> int:
     from caster_dta_torch.models.joint import make_joint_gnn
     from caster_dta_torch.nn import gvp
     from caster_dta_torch.nn.common import compute_dtype
+    from caster_dta_torch.ops import attention as attention_ops
+    from caster_dta_torch.ops import cuda_attention as ca
     from caster_dta_torch.ops import cuda_gvp_message as cgm
     from caster_dta_torch.ops import cuda_segment as cs
     from caster_dta_torch.ops import segment
@@ -471,9 +569,9 @@ def main() -> int:
               f"{overridden or 'nothing'}; CPU threads {torch.get_num_threads()}")
 
     with phase("build"):
-        # one nvcc per source, both started together
-        with ThreadPoolExecutor(2) as pool:
-            builds = list(pool.map(lambda module: module.load_library(), (cs, cgm)))
+        # one nvcc per source, all started together
+        with ThreadPoolExecutor(3) as pool:
+            builds = list(pool.map(lambda module: module.load_library(), (cs, cgm, ca)))
         for built in builds:
             for line in built.log.splitlines():
                 if "ptxas" in line and ("registers" in line or "Compiling entry" in line
@@ -485,16 +583,20 @@ def main() -> int:
     def reset_launches():
         cs.reset_launches()
         cgm.reset_launches()
+        ca.reset_launches()
 
     def launches_now() -> dict:
-        return {**cs.LAUNCHES, **cgm.LAUNCHES}
+        return {**cs.LAUNCHES, **cgm.LAUNCHES, **ca.LAUNCHES}
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     requests = [(f"flagship #{i}", synthetic_pair_batch(**FLAGSHIP, seed=i))
                 for i in range(N_REQUESTS_FLAGSHIP)]
     requests.append(("davis", synthetic_pair_batch(**DAVIS, seed=N_REQUESTS_FLAGSHIP)))
-    max_err = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K5 fwd": 0.0, "K5 bwd": 0.0, "K6": 0.0}
+    large = ("large protein", synthetic_pair_batch(**LARGE, seed=N_REQUESTS_FLAGSHIP + 1))
+    max_err = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K5 fwd": 0.0, "K5 bwd": 0.0,
+               "K6": 0.0, "K7": 0.0, "K8": 0.0}
+    phase_launches = {}   # K4, K7, K8: launches over the phases that run them
 
     with phase("kernels"), torch.no_grad():
         for label, batch in (requests[0], requests[-1]):
@@ -601,36 +703,124 @@ def main() -> int:
         print(f"K5 fwd max_abs_err {max_err['K5 fwd']:.3e}, K5 bwd max_abs_err "
               f"{max_err['K5 bwd']:.3e} (tolerances {K5_TOL}); K6 bit-exact")
 
-    def serve_path(tag: str, run, run_cpu, per_forward: dict) -> list:
-        """Answer every request on the card with the launches per forward
-        that the code gives, hold each answer against the port's CPU run,
-        time and profile the forward at both buckets -> the card answers."""
+        # K4 at the served model's cross-attention widths, with each
+        # request's masks, against its plain version; a second run must give
+        # the first run's bits
+        mha = trained.cross_attn_module.cross_attn_layers[0].embed1_to_2
+        heads, hd = mha.num_heads, mha.embed_dim // mha.num_heads
+
+        def k4_check(what, q, k, v, mask, cast=False):
+            run_k4 = attention_ops.masked_mha if cast else ca.masked_mha
+            got, again = run_k4(q, k, v, mask), run_k4(q, k, v, mask)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"K4 {what}: two runs gave different bits")
+            want = ca.masked_mha_plain(q, k, v, mask)
+            torch.testing.assert_close(got, want, rtol=K4_TOL, atol=K4_TOL)
+            err = (got - want).abs().max().item()
+            max_err["K4"] = max(max_err["K4"], err)
+            return got, err
+
+        for label, batch in (requests[0], requests[-1], large):
+            for name, q, k, v, mask in k4_cases(torch, batch, gen, heads, hd):
+                _, err = k4_check(f"{label} {name}", q, k, v, mask)
+                print(f"K4 {label} {name}: q {tuple(q.shape)} k {tuple(k.shape)}, "
+                      f"{int(mask.sum())} masked keys: max_abs_err {err:.3e}; a second run gave "
+                      f"the same bits")
+        for what, q, k, v, mask in k4_edge_cases(torch, gen):
+            got, err = k4_check(what, q, k, v, mask)
+            note = ""
+            if what.startswith("a fully masked graph"):
+                mean = v[0].mean(dim=1, keepdim=True).expand_as(got[0])
+                torch.testing.assert_close(got[0], mean, rtol=K4_TOL, atol=K4_TOL)
+                note = "; the masked graph's rows equal the mean of v"
+            print(f"K4 edge case {what}: max_abs_err {err:.3e}{note}")
+        q, k, v, mask = k4_cases(torch, requests[0][1], gen, heads, hd)[0][1:]
+        _, err = k4_check("bf16 inputs", *(t.to(torch.bfloat16) for t in (q, k, v)), mask,
+                          cast=True)
+        print(f"K4 bf16 inputs (cast to f32 by ops.attention.masked_mha): max_abs_err {err:.3e}")
+        print(f"K4 max_abs_err {max_err['K4']:.3e} (rtol, atol {K4_TOL})")
+
+        # K7 and K8 lie on no path: their launches are counted over this part
+        reset_launches()
+        for label, batch in (requests[0], requests[-1]):
+            p = batch.protein.to("cuda")
+            b, n, e = p.batch_size, p.n_pad, p.e_pad
+            table = torch.randn(b, n, 28, generator=gen, device="cuda")
+            order = torch.argsort(torch.rand(b, e, generator=gen, device="cuda"), dim=1)
+            shuffled = torch.gather(p.edge_dst, 1, order).contiguous()
+            for name, idx in (("dst (sorted)", p.edge_dst), ("src", p.edge_src),
+                              ("shuffled dst", shuffled)):
+                for dtype in (torch.float32, torch.bfloat16):
+                    t = table.to(dtype)
+                    got = cs.gather_windowed(t, idx)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got, cs.gather_rows(t, idx))
+                            and torch.equal(got, cs.gather_windowed_plain(t, idx))):
+                        raise AssertionError(f"K7 {label} {name} {dtype}: not equal to K2 and "
+                                             f"its plain version")
+                print(f"K7 {label} {name}: table {tuple(table.shape)} idx {tuple(idx.shape)} "
+                      f"equals K2 and its plain version bit for bit (f32, bf16)")
+            msgs = torch.randn(b, e, 28, generator=gen, device="cuda")
+            masked = torch.where(p.edge_mask[..., None], msgs, 0.0).contiguous()
+            got = cs.segment_sum_2d(masked, p.edge_dst, n)
+            torch.cuda.synchronize()
+            want = cs.segment_sum_2d_plain(masked, p.edge_dst, n)
+            torch.testing.assert_close(got, want, rtol=K8_RTOL, atol=K8_ATOL)
+            err = (got - want).abs().max().item()
+            max_err["K8"] = max(max_err["K8"], err)
+            same_k1 = torch.equal(got, cs.segment_sum_sorted(msgs, p.edge_dst, p.edge_mask, n))
+            print(f"K8 {label} protein aggregation: msgs {tuple(msgs.shape)} -> N={n} "
+                  f"max_abs_err {err:.3e}; equals K1 on the same masked rows bit for bit: "
+                  f"{same_k1}")
+        try:
+            cs.segment_sum_2d(masked.to(torch.bfloat16), p.edge_dst, n)
+        except TypeError as refusal:
+            print(f"K8 refuses bf16: {refusal}")
+        else:
+            raise AssertionError("K8 took bf16 messages")
+        phase_launches.update({cs.K7: cs.LAUNCHES[cs.K7], cs.K8: cs.LAUNCHES[cs.K8]})
+        print(f"K7 bit-exact; K8 max_abs_err {max_err['K8']:.3e} (rtol {K8_RTOL}, atol "
+              f"{K8_ATOL}); launches in this part {phase_launches}")
+
+    def serve_path(tag: str, run, run_cpu, per_forward: dict, reqs=requests,
+                   timed=(requests[0], requests[-1])) -> tuple:
+        """Answer every request of ``reqs`` on the card with the launches per
+        forward that the code gives, hold each answer against the port's CPU
+        run, time and profile the forward at the ``timed`` buckets -> (the
+        card answers, the launches of answering them)."""
         answers = []
         reset_launches()
-        for label, batch in requests:
+        for label, batch in reqs:
             answers.append(predict(run, batch))
         torch.cuda.synchronize()
         launches = launches_now()
-        want = {k: v * len(requests) for k, v in per_forward.items()}
-        print(f"{tag}launches over {len(requests)} requests: {launches} (expected {want})")
+        want = {k: v * len(reqs) for k, v in per_forward.items()}
+        print(f"{tag}launches over {len(reqs)} requests: {launches} (expected {want})")
         if launches != want:
             raise AssertionError(f"{tag}launch counts {launches} != expected {want}")
 
         worst = {"affinity": 0.0, "attention": 0.0}
         disagree = []
-        for (label, batch), (aff, attn) in zip(requests, answers):
+        for (label, batch), (aff, attn) in zip(reqs, answers):
             aff = aff.cpu()
             if aff.shape != (batch.protein.batch_size,) or not torch.isfinite(aff).all():
                 raise AssertionError(f"{label}: affinities {tuple(aff.shape)} not finite")
             aff_cpu, attn_cpu = cpu_reference(torch, lambda: predict(run_cpu, batch),
                                               f"{tag}{label}")
             d_aff = (aff - aff_cpu).abs().max().item()
-            d_att = max((a.cpu() - c).abs().max().item() for a, c in zip(attn, attn_cpu))
+            no_maps = [all(a is None for a in x) for x in (attn, attn_cpu)]
+            if no_maps[0] != no_maps[1]:
+                raise AssertionError(f"{tag}{label}: attention maps on one device only")
+            d_att = 0.0 if no_maps[0] else max((a.cpu() - c).abs().max().item()
+                                               for a, c in zip(attn, attn_cpu))
             worst["affinity"] = max(worst["affinity"], d_aff)
             worst["attention"] = max(worst["attention"], d_att)
+            maps = ("attention (None, None) on both devices" if no_maps[0]
+                    else f"max|d attention| {d_att:.3e}")
             print(f"{tag}{label} {batch.bucket}: B={len(aff)} affinity range "
                   f"[{aff.min().item():.4f}, {aff.max().item():.4f}] finite; vs CPU "
-                  f"max|d affinity| {d_aff:.3e}, max|d attention| {d_att:.3e}")
+                  f"max|d affinity| {d_aff:.3e}, {maps}")
             if d_aff > AFFINITY_ATOL or d_att > ATTENTION_ATOL:
                 # a second card answer to the same request tells a card that
                 # disagrees with itself from one that computes something else
@@ -640,13 +830,13 @@ def main() -> int:
                                 f"{(again - aff).abs().max().item():.3e}")
         if disagree:
             print("card and CPU disagree:\n  " + "\n  ".join(disagree), file=sys.stderr)
-            raise AssertionError(f"{tag}{len(disagree)} of {len(requests)} requests: card and "
+            raise AssertionError(f"{tag}{len(disagree)} of {len(reqs)} requests: card and "
                                  f"CPU disagree beyond {AFFINITY_ATOL} / {ATTENTION_ATOL}")
         print(f"{tag}card vs CPU over all requests: max|d affinity| {worst['affinity']:.3e} "
               f"(atol {AFFINITY_ATOL}), max|d attention| {worst['attention']:.3e} "
               f"(atol {ATTENTION_ATOL})")
 
-        for label, batch in (requests[0], requests[-1]):
+        for label, batch in timed:
             on_card = batch.to("cuda")
             request = event_times_ms(torch, lambda: predict(run, batch))
             copy = event_times_ms(torch, lambda: batch.to("cuda"))
@@ -666,7 +856,7 @@ def main() -> int:
                   f"forward (torch.profiler)")
             print(f"{tag}device time by group {label}: " + ", ".join(
                 f"{g} {ms:.3f} ms ({ms / busy:.1%})" for g, ms in kernel_groups(per_kernel).items()))
-        return answers
+        return answers, launches
 
     with phase("serve"):
         run = load_run(RUN_DIR, device="cuda")
@@ -677,16 +867,16 @@ def main() -> int:
         run_cpu = load_run(RUN_DIR, device="cpu")
         # aggr 'sum': one K1 and one K2 per conv; no backward, so no K3; the
         # fused message path is off, so no K5 or K6
-        per_forward = {cs.K1: n_p + n_m, cs.K2: n_p + n_m, cs.K3: 0,
-                       cgm.K5F: 0, cgm.K5B: 0, cgm.K6: 0}
-        answers = serve_path("", run, run_cpu, per_forward)
+        per_forward = {cs.K1: n_p + n_m, cs.K2: n_p + n_m, cs.K3: 0, cs.K7: 0, cs.K8: 0,
+                       cgm.K5F: 0, cgm.K5B: 0, cgm.K6: 0, ca.K4: 0}
+        answers, _ = serve_path("", run, run_cpu, per_forward)
 
     with phase("serve-fused"):
         # each GVP conv pins its node table (K6) and runs its message MLP in
         # K5 fwd; the gathers and aggregations stay as they were
         per_forward_fused = {**per_forward, cgm.K5F: n_p, cgm.K6: n_p}
         with gvp.fused_message():
-            fused_answers = serve_path("fused ", run, run_cpu, per_forward_fused)
+            fused_answers, _ = serve_path("fused ", run, run_cpu, per_forward_fused)
         worst = 0.0
         for (label, batch), (aff, _), (aff_fused, _) in zip(requests, answers, fused_answers):
             d = (aff_fused - aff).abs().max().item()
@@ -696,6 +886,34 @@ def main() -> int:
                                      f"{d:.3e} > {AFFINITY_ATOL} pKd")
         print(f"fused vs unfused on the card (f32) over all requests: max|d affinity| "
               f"{worst:.3e} (atol {AFFINITY_ATOL})")
+
+    with phase("serve-blockwise"):
+        # use_pallas on both MultiheadAttention modules: each cross-attention
+        # direction is one K4 launch; the towers run as unfused
+        n_attn = 2 * len(model.cross_attn_module.cross_attn_layers)
+        per_forward_blockwise = {**per_forward, ca.K4: n_attn}
+        # the dense card answer to the large request, before the switch
+        dense_large = predict(run, large[1])[0]
+        for r in (run, run_cpu):
+            set_use_pallas(r.model, True)
+        blockwise_answers, launches = serve_path(
+            "blockwise ", run, run_cpu, per_forward_blockwise, requests + [large],
+            (requests[0], requests[-1], large))
+        for r in (run, run_cpu):
+            set_use_pallas(r.model, False)
+        phase_launches[ca.K4] = launches[ca.K4]
+        worst = 0.0
+        for (label, _), (aff, attn), dense in zip(requests + [large], blockwise_answers,
+                                                 [a for a, _ in answers] + [dense_large]):
+            if not all(a is None for a in attn):
+                raise AssertionError(f"blockwise {label}: attention maps came back")
+            d = (aff - dense).abs().max().item()
+            worst = max(worst, d)
+            if d > AFFINITY_ATOL:
+                raise AssertionError(f"{label}: blockwise and dense card answers differ by "
+                                     f"{d:.3e} > {AFFINITY_ATOL} pKd")
+        print(f"blockwise vs dense on the card (f32) over all requests, the large one "
+              f"included: max|d affinity| {worst:.3e} (atol {AFFINITY_ATOL})")
 
     with phase("k3"), torch.no_grad():
         for label, batch in (requests[0], requests[-1]):
@@ -847,7 +1065,7 @@ def main() -> int:
         # every GVP conv's, and every GINE conv's after the first (the first
         # gathers the input features)
         per_step = {cs.K1: n_p + n_m, cs.K2: 2 * (n_p + n_m), cs.K3: n_p + n_m - 1,
-                    cgm.K5F: 0, cgm.K5B: 0, cgm.K6: 0}
+                    cs.K7: 0, cs.K8: 0, cgm.K5F: 0, cgm.K5B: 0, cgm.K6: 0, ca.K4: 0}
         unfused_train = train_path("", per_step, TRAIN_STEPS)
         check_step_grads("")
 
@@ -907,7 +1125,7 @@ def main() -> int:
         print(f"launches over the training phases: {train_launches}")
 
     with phase("times"), torch.no_grad():
-        rows, module_ms = {}, {}
+        rows, module_ms, extra = {}, {}, {}
         for label, batch in (requests[0], requests[-1]):
             cases = kernel_cases(torch, batch, gen)
             for name, table, idx in cases["K2"]:
@@ -1003,8 +1221,8 @@ def main() -> int:
                     graph_time_ms(torch, lambda: cgm.message_fwd_plain(both, es, ev, weights,
                                                                        spec)),
                     None, in_bytes + out_bytes, b * e * flops, rate)
-                module_ms[("K5 fwd", label, kind)] = sum(
-                    profile_forward(torch, chain_fwd)[0].values())
+                module_ms[("K5 fwd", label, kind)] = ("unfused module chain", sum(
+                    profile_forward(torch, chain_fwd)[0].values()))
                 # K5 bwd reads both, es, ev, the weights and dout and writes
                 # their gradients: 2 in_bytes + out_bytes. Each product of
                 # the forward becomes two (input and weight gradient); the
@@ -1016,8 +1234,8 @@ def main() -> int:
                     graph_time_ms(torch, lambda: cgm.message_bwd_plain(both, es, ev, weights,
                                                                        dout, spec)),
                     None, 2 * in_bytes + out_bytes, 2 * b * e * flops, rate)
-                module_ms[("K5 bwd", label, kind)] = sum(
-                    profile_forward(torch, chain_bwd)[0].values())
+                module_ms[("K5 bwd", label, kind)] = ("unfused module chain", sum(
+                    profile_forward(torch, chain_bwd)[0].values()))
             # K6 on the node table, f32 -> f32 as the fused path pins it
             table = torch.randn(b, n, 28, generator=gen, device="cuda")
             rows[("K6", label, "node table f32")] = (
@@ -1025,21 +1243,87 @@ def main() -> int:
                 graph_time_ms(torch, lambda: cgm.cast_copy_plain(table, torch.float32)),
                 graph_time_ms(torch, lambda: table.to(torch.float32, copy=True)),
                 2 * table.numel() * 4, 0, F32_OPS_PER_S)
+            # K7 at the protein gathers, beside K2 on the same indices
+            p = batch.protein.to("cuda")
+            flat = table.reshape(b * n, 28)
+            for name, idx in (("dst (sorted)", p.edge_dst), ("src", p.edge_src)):
+                rows_g = (idx.long() + n * torch.arange(b, device="cuda")[:, None]).reshape(-1)
+                out = torch.empty(b * e, 28, device="cuda")
+                rows[("K7", label, name)] = (
+                    graph_time_ms(torch, lambda: cs.gather_windowed(table, idx)),
+                    graph_time_ms(torch, lambda: cs.gather_windowed_plain(table, idx)),
+                    graph_time_ms(torch, lambda: torch.index_select(flat, 0, rows_g, out=out)),
+                    idx.numel() * 4 + int(torch.unique(rows_g).numel()) * 28 * 4 + b * e * 28 * 4,
+                    0, F32_OPS_PER_S)
+                extra[("K7", label, name)] = (
+                    f"K2 on the same indices "
+                    f"{graph_time_ms(torch, lambda: cs.gather_rows(table, idx)):.4f} ms")
+            # K8 at the protein aggregation, on masked messages
+            msgs = torch.randn(b, e, 28, generator=gen, device="cuda")
+            masked = torch.where(p.edge_mask[..., None], msgs, 0.0).contiguous()
+            rows_s = (p.edge_dst.long() + n * torch.arange(b, device="cuda")[:, None]).reshape(-1)
+            out = torch.empty(b * n, 28, device="cuda")
+
+            def library():
+                out.zero_()
+                out.index_add_(0, rows_s, masked.reshape(b * e, 28))
+
+            # every message row counts (no mask), dst whole, each output row once
+            rows[("K8", label, "protein aggregation")] = (
+                graph_time_ms(torch, lambda: cs.segment_sum_2d(masked, p.edge_dst, n)),
+                graph_time_ms(torch, lambda: cs.segment_sum_2d_plain(masked, p.edge_dst, n)),
+                graph_time_ms(torch, library),
+                masked.numel() * 4 + b * e * 4 + b * n * 28 * 4, b * e * 28, F32_OPS_PER_S)
+        # K4 at every bucket and direction; beside it the library call
+        # (scaled_dot_product_attention with an additive -1e9 mask, which the
+        # port never calls) and the port's dense attention core, the chain
+        # of nn/attention.MultiheadAttention's dense branch with dropout off
+        for label, batch in (requests[0], requests[-1], large):
+            for name, q, k, v, mask in k4_cases(torch, batch, gen, heads, hd):
+                additive = torch.zeros(mask.shape, device="cuda").masked_fill(
+                    mask, -1e9)[:, None, None, :]
+                root_hd = torch.tensor(math.sqrt(hd), dtype=q.dtype).item()
+
+                def dense_core():
+                    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / root_hd
+                    logits = logits.masked_fill(mask[:, None, None, :], -1e9)
+                    weights = torch.softmax(logits.to(torch.float32), dim=-1).to(v.dtype)
+                    return torch.einsum("bhqk,bhkd->bhqd", weights, v)
+
+                key = ("K4", label, name)
+                nbytes, ops = k4_work(torch, q, mask)
+                rows[key] = (
+                    graph_time_ms(torch, lambda: ca.masked_mha(q, k, v, mask)),
+                    graph_time_ms(torch, lambda: ca.masked_mha_plain(q, k, v, mask)),
+                    graph_time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, attn_mask=additive)),
+                    nbytes, ops, F32_OPS_PER_S)
+                module_ms[key] = ("dense attention core",
+                                  sum(profile_forward(torch, dense_core)[0].values()))
         for key, (ms, plain, lib, nbytes, ops, rate) in rows.items():
             k, label, name = key
             bound = max(nbytes / HBM_BYTES_PER_S, ops / rate) * 1e3
-            ref = (f"library {lib:.4f} ms" if lib is not None else
-                   f"unfused module chain {module_ms[key]:.4f} ms of kernels (torch.profiler)")
+            refs = [f"library {lib:.4f} ms"] if lib is not None else []
+            if key in module_ms:
+                what, chain_ms = module_ms[key]
+                refs.append(f"{what} {chain_ms:.4f} ms of kernels (torch.profiler)" if chain_ms
+                            else f"{what} not measured (the profiler saw no kernel)")
+            if key in extra:
+                refs.append(extra[key])
+            ref = ", ".join(refs)
             print(f"time {k} {label} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, {ref}, "
                   f"bound {bound:.4f} ms ({nbytes} bytes, {ops} operations), "
                   f"{bound / ms:.1%} of bound")
+
+    # each kernel's launches over the phases that run it
+    launches_over_phases = {**train_launches, **phase_launches}
 
     def entry(k, name, counter, replaces, shape, source=SOURCE):
         ms, plain, lib, nbytes, ops, rate = rows[(k, "flagship #0", shape)]
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         op_ms = ops / rate * 1e3
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": train_launches[counter], "max_abs_err": max_err[k],
+                "launches": launches_over_phases[counter], "max_abs_err": max_err[k],
                 "ms": ms, "plain_ms": plain, "bound_ms": max(byte_ms, op_ms),
                 "bound_by": "bytes" if byte_ms >= op_ms else "operations", "library_ms": lib}
 
@@ -1054,9 +1338,16 @@ def main() -> int:
               "bf16 step", GVP_SOURCE),
         entry("K6", "K6 copy-cast (layout pin)", cgm.K6, K6_REPLACES, "node table f32",
               GVP_SOURCE),
+        entry("K4", "K4 blockwise masked attention", ca.K4, K4_REPLACES, "residues->atoms",
+              ATTN_SOURCE),
+        entry("K7", "K7 windowed row gather", cs.K7, K7_REPLACES, "dst (sorted)"),
+        entry("K8", "K8 row-major sorted segment-sum", cs.K8, K8_REPLACES,
+              "protein aggregation"),
     ]
     if not all(k["launches"] > 0 for k in kernels):
-        raise AssertionError(f"a kernel of the training path never launched: {train_launches}")
+        raise AssertionError(f"a kernel never launched over the phases that run it "
+                             f"(training for K1-K3, K5, K6; serve-blockwise for K4; kernels "
+                             f"for K7, K8): {launches_over_phases}")
     for k in kernels:
         if not all(math.isfinite(k[x]) for x in ("ms", "plain_ms", "bound_ms")) or not (
                 k["library_ms"] is None or math.isfinite(k["library_ms"])):

@@ -1,6 +1,8 @@
 """The CUDA kernels K1 (sorted segment-sum), K2 (row gather), K3 (unsorted
-scatter-add), K5 (fused GVP message MLP, forward and backward) and K6
-(copy-cast) of caster_dta_torch against their plain PyTorch versions, and
+scatter-add), K4 (blockwise masked attention), K5 (fused GVP message MLP,
+forward and backward), K6 (copy-cast), K7 (windowed row gather) and K8
+(row-major segment-sum) of caster_dta_torch against their plain PyTorch
+versions, and
 the autograd Functions built on them against the same Functions on the CPU,
 on the card.
 
@@ -18,6 +20,8 @@ import pytest
 import torch
 
 from caster_dta_torch.nn import gvp
+from caster_dta_torch.ops import attention
+from caster_dta_torch.ops import cuda_attention as ca
 from caster_dta_torch.ops import cuda_gvp_message as cgm
 from caster_dta_torch.ops import cuda_segment as cs
 from caster_dta_torch.ops import segment
@@ -128,14 +132,16 @@ def test_k3_matches_plain(cuda, dtype, b, e, n, f, kind):
     assert cs.LAUNCHES[cs.K3] == before + (1 if b * n * f else 0)
 
 
-def test_k3_traps_on_an_id_out_of_range(cuda):
-    """The trap leaves the CUDA context unusable, so it runs in a child."""
+def _trap_in_child(call: str) -> None:
+    """Run ``call`` on t [1, 4, 3] and the index 5 of i [[0, 1, 5, 2]] in a
+    child process (a trap leaves the CUDA context unusable) and require the
+    launch failure to surface."""
     script = ("import sys, torch\n"
               "from caster_dta_torch.ops import cuda_segment as cs\n"
-              "rows = torch.ones(1, 4, 3, device='cuda')\n"
-              "ids = torch.tensor([[0, 1, 5, 2]], dtype=torch.int32, device='cuda')\n"
+              "t = torch.ones(1, 4, 3, device='cuda')\n"
+              "i = torch.tensor([[0, 1, 5, 2]], dtype=torch.int32, device='cuda')\n"
               "try:\n"
-              "    cs.scatter_rows(rows, ids, 4)\n"
+              f"    {call}\n"
               "    torch.cuda.synchronize()\n"
               "except RuntimeError as e:\n"
               "    print('trapped:', e)\n"
@@ -144,6 +150,10 @@ def test_k3_traps_on_an_id_out_of_range(cuda):
     r = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0 and "trapped" in r.stdout, r.stdout + r.stderr
+
+
+def test_k3_traps_on_an_id_out_of_range(cuda):
+    _trap_in_child("cs.scatter_rows(t, i, 4)")
     with pytest.raises(IndexError, match="outside"):
         cs.scatter_rows(torch.ones(1, 4, 3), torch.tensor([[0, 1, 5, 2]], dtype=torch.int32), 4)
 
@@ -185,7 +195,8 @@ def test_autograd_functions_match_the_cpu(cuda, dtype):
     before = dict(cs.LAUNCHES)
     g_card = grads(cuda)
     torch.cuda.synchronize()
-    assert {k: cs.LAUNCHES[k] - before[k] for k in cs.LAUNCHES} == {cs.K1: 1, cs.K2: 2, cs.K3: 1}
+    assert {k: cs.LAUNCHES[k] - before[k] for k in cs.LAUNCHES} == {cs.K1: 1, cs.K2: 2, cs.K3: 1,
+                                                                    cs.K7: 0, cs.K8: 0}
     g_cpu = grads("cpu")
     for got, want in zip(g_card, g_cpu):
         torch.testing.assert_close(got.float(), want.float(), **GRAD_TOL[dtype])
@@ -299,3 +310,161 @@ def test_k6_is_an_exact_cast(cuda, src, dst, shape):
     assert y.dtype == dst and y.data_ptr() != x.data_ptr()
     assert torch.equal(y, cgm.cast_copy_plain(x, dst))
     assert cgm.LAUNCHES[cgm.K6] == before + 1
+
+
+# K4 against its plain version on the card: the same f32 products summed in
+# another order, one exp per key against a dense softmax: within 2e-5, the
+# JAX tests' own tolerance.
+K4_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _k4_case(gen, b, h, lq, lk, hd, mask_kind, dev):
+    q, k, v = (torch.randn(b, h, n, hd, generator=gen, device=dev) for n in (lq, lk, lk))
+    if mask_kind is None:
+        return q, k, v, None
+    mask = torch.rand(b, lk, generator=gen, device=dev) < 0.3
+    if mask_kind == "a fully masked graph":
+        mask[0] = True
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("b,h,lq,lk,hd,mask_kind", [
+    (32, 8, 512, 64, 16, "padding"),        # flagship residues -> atoms
+    (32, 8, 64, 512, 16, "padding"),        # flagship atoms -> residues
+    (4, 8, 128, 4608, 16, "padding"),       # large protein, atoms -> residues
+    (4, 8, 4608, 128, 16, "padding"),       # large protein, residues -> atoms
+    (1, 2, 130, 33, 16, None),              # off any tile
+    (2, 2, 7, 1, 16, "padding"),            # one key
+    (2, 3, 50, 70, 8, "a fully masked graph"),
+    (2, 3, 50, 70, 32, "padding"),
+    (2, 2, 40, 300, 128, "padding"),        # the largest head dim
+    (1, 1, 1, 1, 5, None),
+])
+def test_k4_matches_plain(cuda, b, h, lq, lk, hd, mask_kind):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    q, k, v, mask = _k4_case(gen, b, h, lq, lk, hd, mask_kind, cuda)
+    before = ca.LAUNCHES[ca.K4]
+    got = ca.masked_mha(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES[ca.K4] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, h, lq, hd)
+    torch.testing.assert_close(got, ca.masked_mha_plain(q, k, v, mask), **K4_TOL)
+    if mask_kind == "a fully masked graph":
+        # uniform weights over every key: the mean of v
+        torch.testing.assert_close(got[0], v[0].mean(dim=1, keepdim=True).expand_as(got[0]),
+                                   **K4_TOL)
+
+
+def test_k4_takes_bf16_through_the_f32_cast(cuda):
+    """ops.attention.masked_mha casts bf16 (and strided) inputs to contiguous
+    f32, as the JAX masked_mha does, then launches K4."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    q, k, v, mask = _k4_case(gen, 4, 8, 96, 40, 16, "padding", cuda)
+    q, k, v = (t.to(torch.bfloat16).transpose(1, 2).contiguous().transpose(1, 2)
+               for t in (q, k, v))
+    before = ca.LAUNCHES[ca.K4]
+    with torch.no_grad():
+        got = attention.masked_mha(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES[ca.K4] == before + 1
+    torch.testing.assert_close(got, ca.masked_mha_plain(q.float(), k.float(), v.float(), mask),
+                               **K4_TOL)
+
+
+def test_k4_gives_the_same_bits_twice(cuda):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6)
+    for shape in ((32, 8, 512, 64, 16), (32, 8, 64, 512, 16), (4, 8, 128, 4608, 16)):
+        q, k, v, mask = _k4_case(gen, *shape, "padding", cuda)
+        assert torch.equal(ca.masked_mha(q, k, v, mask), ca.masked_mha(q, k, v, mask))
+
+
+def test_k4_refuses_what_it_does_not_take(cuda):
+    q = torch.randn(2, 2, 5, 16, device=cuda)
+    mask = torch.zeros(2, 5, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        ca.masked_mha(q.to(torch.bfloat16), q, q, mask)
+    with pytest.raises(ValueError):
+        ca.masked_mha(q.transpose(2, 3).contiguous().transpose(2, 3), q, q, mask)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.randn(1, 1, 3, 129, device=cuda)
+        ca.masked_mha(big, big, big)
+    with pytest.raises(ValueError):
+        ca.masked_mha(q, q, q, mask.int())
+    with pytest.raises(ValueError, match="no keys"):
+        ca.masked_mha(q, q[:, :, :0], q[:, :, :0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,e,f,order", [
+    (32, 512, 4096, 28, "sorted"),      # flagship dst
+    (32, 512, 4096, 28, "unsorted"),    # flagship src
+    (32, 64, 256, 51, "unsorted"),
+    (3, 5000, 700, 70, "sorted"),       # more rows than one window holds
+    (2, 9, 13, 1, "unsorted"),
+    (1, 3, 5, 8192, "unsorted"),        # a row of 32 KB in f32: one row a window
+])
+def test_k7_equals_k2(cuda, dtype, b, n, e, f, order):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    table = torch.randn(b, n, f, generator=gen, device=cuda).to(dtype)
+    idx = torch.randint(0, n, (b, e), generator=gen, device=cuda, dtype=torch.int32)
+    if order == "sorted":
+        idx = torch.sort(idx, dim=1).values.contiguous()
+    before = cs.LAUNCHES[cs.K7]
+    got = cs.gather_windowed(table, idx)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES[cs.K7] == before + 1
+    assert torch.equal(got, cs.gather_rows(table, idx))
+    assert torch.equal(got, cs.gather_windowed_plain(table, idx))
+
+
+def test_k7_refuses_what_it_does_not_take(cuda):
+    table = torch.randn(2, 5, 3, device=cuda)
+    idx = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        cs.gather_windowed(table, idx.long())
+    with pytest.raises(TypeError):
+        cs.gather_windowed(table.double(), idx)
+    with pytest.raises(ValueError):
+        cs.gather_windowed(table.transpose(1, 2), idx)
+    with pytest.raises(ValueError, match="window"):
+        cs.gather_windowed(torch.zeros(1, 2, 8193, device=cuda), idx[:1])
+
+
+def test_k7_traps_on_an_index_out_of_range(cuda):
+    _trap_in_child("cs.gather_windowed(t, i)")
+    with pytest.raises(IndexError, match="outside"):
+        cs.gather_windowed(torch.ones(1, 4, 3), torch.tensor([[0, 1, 5, 2]], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("b,n,e,f", [(32, 512, 4096, 28), (32, 64, 256, 51), (3, 77, 1000, 5),
+                                     (2, 130, 515, 70), (2, 40, 0, 9)])
+def test_k8_matches_plain(cuda, b, n, e, f):
+    """K8 against its plain version (index_add_ in atomic order on the card:
+    f32 sums in another order, 1e-5), and against K1 on the same masked rows
+    bit for bit (both add in edge order; a zeroed row adds +0)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(8)
+    msgs, dst, mask = _sorted_case(gen, b, n, e, f, cuda)
+    masked = torch.where(mask[..., None], msgs, 0.0).contiguous()
+    before = cs.LAUNCHES[cs.K8]
+    got = cs.segment_sum_2d(masked, dst, n)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES[cs.K8] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, n, f)
+    torch.testing.assert_close(got, cs.segment_sum_2d_plain(masked, dst, n), rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, cs.segment_sum_sorted(msgs, dst, mask, n))
+
+
+def test_k8_refuses_what_it_does_not_take(cuda):
+    msgs = torch.randn(2, 4, 3, device=cuda)
+    dst = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        cs.segment_sum_2d(msgs.to(torch.bfloat16), dst, 5)
+    with pytest.raises(TypeError):
+        cs.segment_sum_2d(msgs, dst.long(), 5)
+    with pytest.raises(ValueError):
+        cs.segment_sum_2d(msgs.transpose(0, 1), dst.t(), 5)

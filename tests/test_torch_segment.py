@@ -1,10 +1,12 @@
 """Port parity: the segment ops and batch containers of caster_dta_torch
 against caster_dta_tpu on the same numpy inputs.
 
-On the CPU the port's K1 (sorted segment-sum), K2 (row gather) and K3
-(unsorted scatter-add) wrappers take their plain PyTorch versions; they are
-held here against the JAX package's XLA path and its Pallas kernels in
-interpret mode (``segment.USE_PALLAS = True``), forward and gradient. The
+On the CPU the port's K1 (sorted segment-sum), K2 (row gather), K3
+(unsorted scatter-add), K7 (windowed gather) and K8 (row-major segment-sum)
+wrappers take their plain PyTorch versions; they are held here against the
+JAX package's XLA path and its Pallas kernels in interpret mode
+(``segment.USE_PALLAS = True``, ``gather_windowed``,
+``_pallas_segment_sum_2d``), forward and gradient. The
 CUDA kernels themselves are held against these plain versions on the card
 (tests/test_torch_kernels.py and chip_smoke.py). f32 sums in another order:
 rtol/atol 1e-5; bf16 gradients rounded once from f32 sums taken in another
@@ -144,7 +146,10 @@ def test_launch_counters_untouched_on_cpu(rng):
     tseg.segment_sum(*map(torch.from_numpy, (msgs, dst, mask)), 20)
     tseg.gather_nodes(torch.from_numpy(msgs), torch.from_numpy(dst))
     cuda_segment.scatter_rows(torch.from_numpy(msgs), torch.from_numpy(dst), 20)
-    assert cuda_segment.LAUNCHES == {cuda_segment.K1: 0, cuda_segment.K2: 0, cuda_segment.K3: 0}
+    cuda_segment.gather_windowed(torch.from_numpy(msgs), torch.from_numpy(dst))
+    cuda_segment.segment_sum_2d(torch.from_numpy(msgs), torch.from_numpy(dst), 20)
+    assert cuda_segment.LAUNCHES == {cuda_segment.K1: 0, cuda_segment.K2: 0, cuda_segment.K3: 0,
+                                     cuda_segment.K7: 0, cuda_segment.K8: 0}
 
 
 F32_TOL = dict(rtol=RTOL, atol=ATOL)
@@ -218,6 +223,60 @@ def test_scatter_rows_rejects_out_of_range_id(bad):
     ids[1, 2] = bad
     with pytest.raises(IndexError, match="outside"):
         cuda_segment.scatter_rows(rows, ids, 9)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+@pytest.mark.parametrize("b,n,e,f", [(3, 96, 200, 12), (2, 300, 515, 28)])
+def test_gather_windowed_plain_matches_pallas(rng, dtype, order, b, n, e, f):
+    """K7's plain version against the TPU kernel (gather_windowed, interpret
+    mode), bit for bit: sorted indices (dst), unsorted ones (src), and a
+    table over two of its 128-row windows."""
+    table = rng.normal(size=(b, n, f)).astype(np.float32)
+    idx = rng.integers(0, n, (b, e)).astype(np.int32)
+    if order == "sorted":
+        idx = np.sort(idx, axis=1)
+    jt = jnp.asarray(table).astype(jnp.dtype(dtype))
+    want = np.asarray(pallas_segment.gather_windowed(jt, jnp.asarray(idx)).astype(jnp.float32))
+    got = cuda_segment.gather_windowed(torch.from_numpy(table).to(getattr(torch, dtype)),
+                                       torch.from_numpy(idx))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, e, f)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("bad", [-1, 9], ids=["negative", "N"])
+def test_gather_windowed_rejects_out_of_range_index(bad):
+    table = torch.zeros(2, 9, 4)
+    idx = torch.zeros(2, 5, dtype=torch.int32)
+    idx[1, 4] = bad
+    with pytest.raises(IndexError, match="outside"):
+        cuda_segment.gather_windowed(table, idx)
+
+
+@pytest.mark.parametrize("b,n,e_real,e_pad,f", [(2, 70, 150, 200, 12), (1, 300, 515, 600, 28),
+                                                (2, 16, 0, 8, 3)])
+def test_segment_sum_2d_plain_matches_pallas(rng, b, n, e_real, e_pad, f):
+    """K8's plain version against the TPU kernel (_pallas_segment_sum_2d,
+    interpret mode) on masked messages: empty rows, padding edges at N-1
+    (zero messages), a row's edges across the kernel's 512-edge chunks.
+    f32 sums in another order: rtol/atol 1e-5."""
+    msgs, dst, mask = _padded_case(rng, b, n, e_real, e_pad, f, empty_stride=3)
+    msgs = np.where(mask[..., None], msgs, 0).astype(np.float32)
+    want = np.asarray(pallas_segment._pallas_segment_sum_2d(jnp.asarray(msgs),
+                                                             jnp.asarray(dst), n))
+    got = cuda_segment.segment_sum_2d(torch.from_numpy(msgs), torch.from_numpy(dst), n)
+    assert got.dtype == torch.float32 and got.shape == (b, n, f)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    # the same sums as K1's plain version over the unmasked messages
+    k1 = cuda_segment.segment_sum_sorted_plain(torch.from_numpy(msgs), torch.from_numpy(dst),
+                                               torch.from_numpy(mask), n)
+    assert torch.equal(got, k1)
+
+
+def test_segment_sum_2d_takes_f32_only():
+    msgs = torch.zeros(1, 4, 3, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_segment.segment_sum_2d(msgs, torch.zeros(1, 4, dtype=torch.int32), 2)
 
 
 def _raw_graph(rng, n, e, nv):

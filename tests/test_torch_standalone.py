@@ -6,7 +6,8 @@ those names hidden behind a ``sys.meta_path`` finder whose loader refuses
 them (an import raises ImportError), imports every module of
 caster_dta_torch and chip_smoke, serves one tiny batch from runs/davis_seed9
 on the CPU, serves it again with the fused message path switched on
-(``caster_dta_torch.nn.gvp.fused_message``), takes one bf16 training step
+(``caster_dta_torch.nn.gvp.fused_message``) and with the blockwise attention
+path (``use_pallas`` on both MultiheadAttention modules), takes one bf16 training step
 from those weights and writes a checkpoint that the port reads back, and
 checks that none of the hidden names was loaded. A second case runs
 chip_smoke.py without a card: it must fail and print no result, since
@@ -56,6 +57,16 @@ from caster_dta_torch.nn import gvp
 with gvp.fused_message():
     aff_fused, _ = predict(run, synthetic_pair_batch(2, 24, 96, 8, 16, seed=0))
 assert float((aff_fused - aff).abs().max()) < 1e-4, (aff_fused, aff)
+
+from caster_dta_torch.nn.attention import MultiheadAttention
+mhas = [m for m in run.model.modules() if isinstance(m, MultiheadAttention)]
+for m in mhas:
+    m.use_pallas = True
+aff_blockwise, attn_blockwise = predict(run, synthetic_pair_batch(2, 24, 96, 8, 16, seed=0))
+assert attn_blockwise == (None, None), attn_blockwise
+assert float((aff_blockwise - aff).abs().max()) < 1e-4, (aff_blockwise, aff)
+for m in mhas:
+    m.use_pallas = False
 
 import os, tempfile
 from caster_dta_torch.train import checkpoints
