@@ -30,6 +30,7 @@ K7 = "k7_gather_windowed"
 K8 = "k8_segment_sum_2d"
 LAUNCHES = {K1: 0, K2: 0, K3: 0, K7: 0, K8: 0}
 K7_WINDOW_BYTES = 32768     # a table row must fit one window of csrc/segment.cu's K7
+K3_LONG = 64                # csrc/segment.cu's K3: a row of more ids is summed by a block
 
 _built: build.Built | None = None
 
@@ -49,7 +50,11 @@ def load_library() -> build.Built:
         built.lib.k1_segment_sum_sorted.restype = i
         built.lib.k2_gather_rows.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
         built.lib.k2_gather_rows.restype = i
-        built.lib.k3_scatter_rows.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+        built.lib.k3_workspace_ints.argtypes = [i, i, i]
+        built.lib.k3_workspace_ints.restype = ctypes.c_int64
+        built.lib.k3_scatter_csr.argtypes = [vp, vp, i, i, i, vp]
+        built.lib.k3_scatter_csr.restype = i
+        built.lib.k3_scatter_rows.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
         built.lib.k3_scatter_rows.restype = i
         built.lib.k7_gather_windowed.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
         built.lib.k7_gather_windowed.restype = i
@@ -206,11 +211,68 @@ def scatter_rows_plain(rows: torch.Tensor, ids: torch.Tensor, num_segments: int)
     return out.index_add_(0, gids, flat).reshape(b, num_segments, f)
 
 
+def scatter_csr_plain(ids: torch.Tensor, num_segments: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3's first launch: the stable CSR of ids [B, E] by id.
+    -> (row_ptr [B, N+1], perm [B, E]), both int32: row n of graph b holds the
+    edges perm[b, row_ptr[b, n]:row_ptr[b, n+1]], in edge order."""
+    b, e = ids.shape
+    gids = (ids.long() + num_segments * torch.arange(b, device=ids.device)[:, None]).reshape(-1)
+    counts = torch.bincount(gids, minlength=b * num_segments).reshape(b, num_segments)
+    row_ptr = torch.zeros(b, num_segments + 1, dtype=torch.int64, device=ids.device)
+    row_ptr[:, 1:] = counts.cumsum(1)
+    perm = torch.sort(ids, dim=1, stable=True).indices
+    return row_ptr.to(torch.int32), perm.to(torch.int32)
+
+
+def _check_ids(ids: torch.Tensor, *others: torch.Tensor) -> None:
+    """The device, dtype and shape checks of K3's ids on a CUDA tensor."""
+    if ids.device.type != "cuda":
+        raise ValueError(f"{K3}: unsupported device {ids.device}")
+    if ids.dim() != 2:
+        raise ValueError(f"{K3}: ids must be [B, E], not {tuple(ids.shape)}")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"{K3}: ids must be int32, not {ids.dtype}")
+    _check_cuda(K3, ids, *others)
+    if ids.shape[0] > 65535:
+        raise ValueError(f"{K3}: {ids.shape[0]} graphs exceed the grid's 65535")
+
+
+def scatter_csr(ids: torch.Tensor, num_segments: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's first launch alone: the stable CSR of ids [B, E] int32 in [0, N)
+    by id -> (row_ptr [B, N+1], perm [B, E]) int32, equal to
+    ``scatter_csr_plain``'s. It exists to hold the build against its plain
+    version, so it does not count in ``LAUNCHES``; ``scatter_rows`` runs it
+    itself. An id outside [0, N) raises IndexError on the CPU and stops the
+    kernel on the card."""
+    if ids.device.type == "cpu":
+        _check_index_on_cpu(K3, ids, num_segments)
+        return scatter_csr_plain(ids, num_segments)
+    _check_ids(ids)
+    b, e = ids.shape
+    lib = load_library().lib
+    ws = torch.empty(lib.k3_workspace_ints(b, e, num_segments), dtype=torch.int32,
+                     device=ids.device)
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.k3_scatter_csr(ids.data_ptr(), ws.data_ptr(), b, e, num_segments, stream)
+    _raise_on(err, K3)
+    row_ptr = ws[:b * (num_segments + 1)].view(b, num_segments + 1)
+    perm = ws[b * (num_segments + 1):b * (num_segments + 1 + e)].view(b, e)
+    return row_ptr, perm
+
+
 def scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """K3: out[b, n, :] = sum of rows[b, e, :] over the edges e with
     ids[b, e] == n. rows [B, E, F] float32 or bfloat16, ids [B, E] int32 in
     [0, N) in any order, no mask (every row counts). The sum is taken in f32,
     in edge order; the output is [B, N, F] f32. Any N.
+
+    On the card, one launch where a graph's rows, ids and CSR fit one
+    block's shared memory (the molecule graphs), else two: the stable CSR of
+    the ids (``scatter_csr``), then the row sums over it, a warp per row of
+    at most ``K3_LONG`` ids and a block per longer row. Every row is summed
+    in edge order, so the result equals the plain version's on the CPU bit
+    for bit.
 
     An id outside [0, N) raises IndexError on the CPU and stops the kernel on
     the card, as K2 does.
@@ -219,8 +281,7 @@ def scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num_segments: int) -> to
     ::_segment_kernel_dense (via unsorted_segment_sum_rows). Bound by memory
     bytes on the H100."""
     if rows.device.type == "cpu":
-        if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= num_segments):
-            raise IndexError(f"{K3}: id outside [0, {num_segments})")
+        _check_index_on_cpu(K3, ids, num_segments)
         return scatter_rows_plain(rows, ids, num_segments)
     if rows.device.type != "cuda":
         raise ValueError(f"{K3}: unsupported device {rows.device}")
@@ -228,21 +289,19 @@ def scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num_segments: int) -> to
         raise ValueError(f"{K3}: shapes rows {tuple(rows.shape)}, ids {tuple(ids.shape)}")
     if rows.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{K3}: rows must be float32 or bfloat16, not {rows.dtype}")
-    if ids.dtype != torch.int32:
-        raise TypeError(f"{K3}: ids must be int32, not {ids.dtype}")
-    _check_cuda(K3, rows, ids)
+    _check_ids(ids, rows)
     b, e, f = rows.shape
-    if b > 65535:
-        raise ValueError(f"{K3}: {b} graphs exceed the grid's 65535")
     out = torch.empty(b, num_segments, f, dtype=torch.float32, device=rows.device)
     if out.numel() == 0:
         return out
     lib = load_library().lib
+    ws = torch.empty(lib.k3_workspace_ints(b, e, num_segments), dtype=torch.int32,
+                     device=rows.device)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.k3_scatter_rows(rows.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                                  b, e, num_segments, f, int(rows.dtype == torch.bfloat16),
-                                  stream)
+        err = lib.k3_scatter_rows(rows.data_ptr(), ids.data_ptr(), ws.data_ptr(),
+                                  out.data_ptr(), b, e, num_segments, f,
+                                  int(rows.dtype == torch.bfloat16), stream)
     _raise_on(err, K3)
     LAUNCHES[K3] += 1
     return out

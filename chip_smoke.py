@@ -47,10 +47,12 @@ Phases, each printed before it starts and after it ends with its wall time:
    (None, None), each answer against the dense card answer within
    AFFINITY_ATOL, latency and device time by group at three buckets.
 5. k3: K3 (unsorted scatter-add, the gathers' backward) against its plain
-   version on the CPU (same edge order) at the merged src||dst backward of the flagship and Davis buckets
-   and the molecule widths, f32 and bf16, and on edge cases (repeated ids,
-   all ids on one row, empty rows, E and N off any block, N = 6000), within
-   K3_RTOL/K3_ATOL.
+   version on the CPU (same edge order) at the merged src||dst backward of
+   the flagship, Davis and large-protein buckets and the molecule widths, f32
+   and bf16, and on edge cases (repeated ids, all ids on one row, empty rows,
+   E and N off any block, N = 6000), within K3_RTOL/K3_ATOL and bit for bit;
+   a second call must give the first call's bits, and K3's CSR launch alone
+   (``scatter_csr``) must give ``scatter_csr_plain``'s row_ptr and perm.
 6. autograd: gather_nodes and segment_sum (ops/segment.py) at the flagship
    shapes: their gradients on the card against the same Functions on the
    CPU, f32 and bf16, within GRAD_TOL.
@@ -69,7 +71,8 @@ Phases, each printed before it starts and after it ends with its wall time:
    pairs in two buckets near the flagship sizes, checkpoints and run
    artifacts in a temporary directory, then ``load_run`` serves the best-val
    checkpoint on the card.
-9. times: each kernel, its plain version and the one PyTorch call that
+9. times: each kernel (K3 also at the large protein's merged backward), its
+   plain version and the one PyTorch call that
    computes the same function, replayed from CUDA graphs and timed with CUDA
    events, beside the least time the card could take (the larger of bytes
    over 3.35 TB/s and operations over the peak rate of their type). No single
@@ -133,10 +136,11 @@ ATTENTION_ATOL = 1e-5
 F32_OVERRIDES = ("TORCH_ALLOW_TF32_CUBLAS_OVERRIDE", "ONEDNN_DEFAULT_FPMATH_MODE",
                  "DNNL_DEFAULT_FPMATH_MODE")
 
-# K3 sums in edge order in f32, as the plain version (index_add_) does on the
-# CPU; on the card index_add_ adds in atomic order, which moves the padding
-# rows (N-1 and 0 take ~1,400 terms each at the flagship bucket) by up to
-# ~1e-4. So K3 is held against the plain version on the CPU, same inputs.
+# K3 sums every row in edge order in f32, as the plain version (index_add_)
+# does on the CPU; on the card index_add_ adds in atomic order, which moves
+# the padding rows (0 and N-1 take ~700 ids each at the flagship bucket,
+# ~30,000 at the large protein) by up to ~1e-4. So K3 is held against the
+# plain version on the CPU, same inputs, within these and bit for bit.
 K3_RTOL, K3_ATOL = 1e-5, 1e-5
 # Autograd card vs CPU: f32 gradients are the same sums in another order;
 # bf16 gradients are rounded once from such f32 sums, so they may differ by
@@ -242,7 +246,8 @@ def event_times_ms(torch, fn, reps: int = 20, warmup: int = 3) -> list:
 
 KERNEL_GROUPS = (("K4 attention", "masked_mha"),
                  ("K1 segment-sum", "segment_sum_sorted"), ("K2 gather", "gather_rows"),
-                 ("K3 scatter", "scatter_rows"), ("K5 fwd", "message_fwd"),
+                 ("K3 scatter", "scatter_csr"), ("K3 scatter", "scatter_sum"),
+                 ("K3 scatter", "scatter_small"), ("K5 fwd", "message_fwd"),
                  ("K5 bwd", "message_bwd"), ("K5 bwd sum", "reduce_rows"),
                  ("K6 copy-cast", "cast_copy"), ("K6 copy-cast", "copy16"), ("matmul", "gemm"),
                  ("layernorm", "layer_norm"), ("concat", "CatArray"), ("softmax", "softmax"),
@@ -916,30 +921,38 @@ def main() -> int:
               f"included: max|d affinity| {worst:.3e} (atol {AFFINITY_ATOL})")
 
     with phase("k3"), torch.no_grad():
-        for label, batch in (requests[0], requests[-1]):
-            for name, rows, ids, n in k3_cases(torch, batch, gen):
-                for dtype in (torch.float32, torch.bfloat16):
-                    r = rows.to(dtype)
-                    got = cs.scatter_rows(r, ids, n).cpu()
-                    want = cpu_reference(torch, lambda: cs.scatter_rows_plain(
-                        r.cpu(), ids.cpu(), n), f"K3 {label} {name}")
-                    torch.testing.assert_close(got, want, rtol=K3_RTOL, atol=K3_ATOL)
-                    err = (got - want).abs().max().item()
-                    max_err["K3"] = max(max_err["K3"], err)
-                    print(f"K3 {label} {name} {str(dtype)[6:]}: rows {tuple(rows.shape)} -> "
-                          f"N={n} max_abs_err {err:.3e}")
-        for name, rows, ids, n in k3_edge_cases(torch, gen):
+        def check_k3(what, rows, ids, n):
+            """K3 against the CPU's plain version (tolerance and bits), a second
+            call's bits, and the CSR launch alone against scatter_csr_plain."""
+            row_ptr, perm = cs.scatter_csr(ids, n)
+            want_ptr, want_perm = cs.scatter_csr_plain(ids.cpu(), n)
+            if not (torch.equal(row_ptr.cpu(), want_ptr) and torch.equal(perm.cpu(), want_perm)):
+                raise AssertionError(f"K3 {what}: the CSR differs from scatter_csr_plain's")
+            counts = want_ptr[:, 1:] - want_ptr[:, :-1]
             for dtype in (torch.float32, torch.bfloat16):
                 r = rows.to(dtype)
-                got = cs.scatter_rows(r, ids, n).cpu()
+                first = cs.scatter_rows(r, ids, n)
+                if not torch.equal(first, cs.scatter_rows(r, ids, n)):
+                    raise AssertionError(f"K3 {what} {dtype}: two calls gave other bits")
+                got = first.cpu()
                 want = cpu_reference(torch, lambda: cs.scatter_rows_plain(
-                    r.cpu(), ids.cpu(), n), f"K3 edge case {name}")
+                    r.cpu(), ids.cpu(), n), f"K3 {what}")
                 torch.testing.assert_close(got, want, rtol=K3_RTOL, atol=K3_ATOL)
-                if not torch.all(got[want.abs().sum(-1) == 0] == 0):
-                    raise AssertionError(f"K3 edge case {name}: an empty row is not 0")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K3 {what} {dtype}: not the plain version's bits")
+                if not torch.all(got[counts == 0] == 0):
+                    raise AssertionError(f"K3 {what}: an empty row is not 0")
                 if got.numel():
                     max_err["K3"] = max(max_err["K3"], (got - want).abs().max().item())
-            print(f"K3 edge case {name}: within tolerance (f32, bf16), empty rows 0")
+            print(f"K3 {what}: rows {tuple(rows.shape)} -> N={n}, largest row "
+                  f"{int(counts.max()) if counts.numel() else 0} ids: CSR exact, within "
+                  f"tolerance and bit for bit (f32, bf16), the same bits twice, empty rows 0")
+
+        for label, batch in (requests[0], requests[-1], large):
+            for name, rows, ids, n in k3_cases(torch, batch, gen):
+                check_k3(f"{label} {name}", rows, ids, n)
+        for name, rows, ids, n in k3_edge_cases(torch, gen):
+            check_k3(f"edge case {name}", rows, ids, n)
         print(f"K3 max_abs_err {max_err['K3']:.3e} against the plain version on the CPU "
               f"(rtol {K3_RTOL}, atol {K3_ATOL})")
 
@@ -1126,6 +1139,25 @@ def main() -> int:
 
     with phase("times"), torch.no_grad():
         rows, module_ms, extra = {}, {}, {}
+
+        def time_k3(label, name, r32, ids, n):
+            b, e, f = r32.shape
+            gids = (ids.long() + n * torch.arange(b, device="cuda")[:, None]).reshape(-1)
+            out = torch.empty(b * n, f, device="cuda")
+            for dtype in (torch.bfloat16, torch.float32):
+                r = r32.to(dtype)
+
+                def library():   # the f32 sum needs f32 rows: the cast is part of it
+                    out.zero_()
+                    out.index_add_(0, gids, r.reshape(b * e, f).float())
+
+                ms = graph_time_ms(torch, lambda: cs.scatter_rows(r, ids, n))
+                plain = graph_time_ms(torch, lambda: cs.scatter_rows_plain(r, ids, n))
+                lib = graph_time_ms(torch, library)
+                # every row counts (no mask) and every output row is written
+                nbytes = r.numel() * r.element_size() + ids.numel() * 4 + b * n * f * 4
+                rows[("K3", label, f"{name} {str(dtype)[6:]}")] = (
+                    ms, plain, lib, nbytes, b * e * f, F32_OPS_PER_S)
         for label, batch in (requests[0], requests[-1]):
             cases = kernel_cases(torch, batch, gen)
             for name, table, idx in cases["K2"]:
@@ -1162,23 +1194,7 @@ def main() -> int:
                 ops = n_real * f
                 rows[("K1", label, name)] = (ms, plain, lib, nbytes, ops, F32_OPS_PER_S)
             for name, r32, ids, n in k3_cases(torch, batch, gen):
-                b, e, f = r32.shape
-                gids = (ids.long() + n * torch.arange(b, device="cuda")[:, None]).reshape(-1)
-                out = torch.empty(b * n, f, device="cuda")
-                for dtype in (torch.bfloat16, torch.float32):
-                    r = r32.to(dtype)
-
-                    def library():   # the f32 sum needs f32 rows: the cast is part of it
-                        out.zero_()
-                        out.index_add_(0, gids, r.reshape(b * e, f).float())
-
-                    ms = graph_time_ms(torch, lambda: cs.scatter_rows(r, ids, n))
-                    plain = graph_time_ms(torch, lambda: cs.scatter_rows_plain(r, ids, n))
-                    lib = graph_time_ms(torch, library)
-                    # every row counts (no mask) and every output row is written
-                    nbytes = r.numel() * r.element_size() + ids.numel() * 4 + b * n * f * 4
-                    rows[("K3", label, f"{name} {str(dtype)[6:]}")] = (
-                        ms, plain, lib, nbytes, b * e * f, F32_OPS_PER_S)
+                time_k3(label, name, r32, ids, n)
             # K5 at the served model's message widths with the trained
             # weights; its reference point is the device time of the port's
             # unfused message chain (the GVP modules) on the same tensors,
@@ -1274,6 +1290,7 @@ def main() -> int:
                 graph_time_ms(torch, lambda: cs.segment_sum_2d_plain(masked, p.edge_dst, n)),
                 graph_time_ms(torch, library),
                 masked.numel() * 4 + b * e * 4 + b * n * 28 * 4, b * e * 28, F32_OPS_PER_S)
+        time_k3(large[0], *k3_cases(torch, large[1], gen)[0])   # its protein merged backward
         # K4 at every bucket and direction; beside it the library call
         # (scaled_dot_product_attention with an additive -1e9 mask, which the
         # port never calls) and the port's dense attention core, the chain

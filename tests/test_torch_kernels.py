@@ -11,6 +11,8 @@ without one. This file imports neither JAX nor the JAX package, so it runs on
 a machine that has only PyTorch:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_kernels.py
+
+(``-k k3`` selects K3's tests alone.)
 """
 import os
 import subprocess
@@ -19,6 +21,7 @@ import sys
 import pytest
 import torch
 
+from caster_dta_torch.data.batching import synthetic_pair_batch
 from caster_dta_torch.nn import gvp
 from caster_dta_torch.ops import attention
 from caster_dta_torch.ops import cuda_attention as ca
@@ -130,6 +133,118 @@ def test_k3_matches_plain(cuda, dtype, b, e, n, f, kind):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert torch.all(got[want.abs().sum(-1) == 0] == 0)
     assert cs.LAUNCHES[cs.K3] == before + (1 if b * n * f else 0)
+
+
+def _merged_ids(bucket):
+    """The merged src||dst ids of a bucket's protein graphs (seed 0), as the
+    GVP convs' gather takes them: padding edges put their src on row 0 and
+    their dst on row N-1."""
+    size = (dict(b=32, n_p=512, e_p=4096, n_m=64, e_m=256) if bucket == "flagship" else
+            dict(b=4, n_p=4608, e_p=65536, n_m=128, e_m=1024))
+    p = synthetic_pair_batch(**size, seed=0).protein
+    return torch.cat([p.edge_src, p.edge_dst], 1).to(torch.int32), p.n_pad
+
+
+def _k3_against_plain(rows, ids, n, dev):
+    """K3 on the card against its plain version on the CPU: within the card
+    tolerance, and bit for bit, since every row is summed in edge order."""
+    got = cs.scatter_rows(rows.to(dev), ids.to(dev), n).cpu()
+    want = cs.scatter_rows_plain(rows, ids, n)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, want)
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bucket", ["flagship", "large protein"])
+def test_k3_real_skewed_ids(cuda, dtype, bucket):
+    ids, n = _merged_ids(bucket)
+    counts = torch.stack([torch.bincount(g.long(), minlength=n) for g in ids])
+    # the hot rows 0 and N-1: ~700 ids each (mean) at the flagship, ~30,000
+    # at the large protein
+    assert counts[:, 0].float().mean() > 500 and counts[:, -1].float().mean() > 500
+    assert counts.max() > 10 * cs.K3_LONG
+    gen = torch.Generator().manual_seed(5)
+    rows = torch.randn(*ids.shape, 28, generator=gen).to(dtype)
+    _k3_against_plain(rows, ids, n, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_hot_row_extreme(cuda, dtype):
+    """All 16,384 ids of each graph on one row (over 100 x K3_LONG)."""
+    ids = torch.full((2, 16384), 4, dtype=torch.int32)
+    gen = torch.Generator().manual_seed(6)
+    rows = torch.randn(2, 16384, 28, generator=gen).to(dtype)
+    got, _ = _k3_against_plain(rows, ids, 9, cuda)
+    assert torch.all(got[:, [0, 1, 2, 3, 5, 6, 7, 8]] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_same_bits_twice(cuda, dtype):
+    ids, n = _merged_ids("flagship")
+    gen = torch.Generator().manual_seed(7)
+    rows = torch.randn(*ids.shape, 28, generator=gen).to(dtype).to(cuda)
+    ids = ids.to(cuda)
+    first = cs.scatter_rows(rows, ids, n)
+    assert torch.equal(first, cs.scatter_rows(rows, ids, n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_short_rows_exact(cuda, dtype):
+    """Rows of at most K3_LONG ids (uniform ids, F over one 32-lane tile, and
+    one row over K3_LONG) equal the plain version bit for bit."""
+    gen = torch.Generator().manual_seed(8)
+    ids = torch.randint(0, 300, (8, 4096), generator=gen, dtype=torch.int32)
+    ids[:, :200] = 7
+    rows = torch.randn(8, 4096, 51, generator=gen).to(dtype)
+    got = cs.scatter_rows(rows.to(cuda), ids.to(cuda), 300).cpu()
+    want = cs.scatter_rows_plain(rows, ids, 300)
+    counts = torch.stack([torch.bincount(g.long(), minlength=300) for g in ids])
+    short = counts <= cs.K3_LONG
+    assert short.sum() > 0 and (~short).sum() > 0
+    assert torch.equal(got[short], want[short])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_k3_empty_rows_zero(cuda):
+    """Rows with no id come out exactly 0, beside a row that takes the long path."""
+    gen = torch.Generator().manual_seed(9)
+    ids = (torch.randint(0, 40, (3, 2000), generator=gen) * 2).to(torch.int32)
+    ids[:, :500] = 10
+    rows = torch.randn(3, 2000, 28, generator=gen)
+    got, _ = _k3_against_plain(rows, ids, 170, cuda)
+    empty = torch.stack([torch.bincount(g.long(), minlength=170) for g in ids]) == 0
+    assert empty.sum() > 0 and torch.all(got[empty] == 0)
+
+
+@pytest.mark.parametrize("case", ["flagship", "large protein", "N=6000", "E=0", "N=1",
+                                  "N=70000"])
+def test_k3_csr_matches_plain(cuda, case):
+    """K3's first launch alone (scatter_csr): row_ptr and perm exactly equal
+    to scatter_csr_plain's. N=70000 keeps the counts in global memory."""
+    gen = torch.Generator().manual_seed(10)
+    if case in ("flagship", "large protein"):
+        ids, n = _merged_ids(case)
+    else:
+        b, e, n = {"N=6000": (2, 3000, 6000), "E=0": (2, 0, 9), "N=1": (3, 100, 1),
+                   "N=70000": (2, 3000, 70000)}[case]
+        ids = torch.randint(0, n, (b, e), generator=gen, dtype=torch.int32)
+    before = cs.LAUNCHES[cs.K3]
+    row_ptr, perm = cs.scatter_csr(ids.to(cuda), n)
+    torch.cuda.synchronize()
+    want_ptr, want_perm = cs.scatter_csr_plain(ids, n)
+    assert torch.equal(row_ptr.cpu(), want_ptr) and torch.equal(perm.cpu(), want_perm)
+    assert cs.LAUNCHES[cs.K3] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_counts_past_shared_memory(cuda, dtype):
+    """N=70000 rows: the CSR build keeps its counts in global memory."""
+    gen = torch.Generator().manual_seed(11)
+    ids = torch.randint(0, 70000, (2, 3000), generator=gen, dtype=torch.int32)
+    ids[:, :300] = 69999
+    rows = torch.randn(2, 3000, 9, generator=gen).to(dtype)
+    _k3_against_plain(rows, ids, 70000, cuda)
 
 
 def _trap_in_child(call: str) -> None:

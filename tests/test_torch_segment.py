@@ -225,6 +225,69 @@ def test_scatter_rows_rejects_out_of_range_id(bad):
         cuda_segment.scatter_rows(rows, ids, 9)
 
 
+@pytest.mark.parametrize("b,e,n", [(3, 200, 17), (2, 0, 5), (2, 50, 1), (2, 3000, 6000),
+                                   (1, 700, 300)])
+def test_scatter_csr_plain_matches_numpy(rng, b, e, n):
+    """K3's CSR (its first launch): row_ptr is the running count of each id
+    and perm each graph's stable argsort of the ids. Covers E=0, N=1 and
+    N=6000, and one row that takes a quarter of the ids."""
+    ids = rng.integers(0, n, (b, e)).astype(np.int32)
+    ids[:, : e // 4] = n // 2
+    row_ptr, perm = cuda_segment.scatter_csr(torch.from_numpy(ids), n)
+    assert row_ptr.dtype == perm.dtype == torch.int32
+    assert row_ptr.shape == (b, n + 1) and perm.shape == (b, e)
+    for g in range(b):
+        want_ptr = np.concatenate([[0], np.cumsum(np.bincount(ids[g], minlength=n))])
+        np.testing.assert_array_equal(row_ptr[g].numpy(), want_ptr)
+        np.testing.assert_array_equal(perm[g].numpy(), np.argsort(ids[g], kind="stable"))
+
+
+def _csr_range_sum(rows, row_ptr, perm):
+    """Each row's CSR range summed in f32 in CSR order, as K3's second launch
+    sums it (a warp per row of at most K3_LONG ids, a block per longer row:
+    the same adds in the same order either way)."""
+    b, e, f = rows.shape
+    n = row_ptr.shape[1] - 1
+    out = torch.zeros(b, n, f)
+    for g in range(b):
+        row_of = torch.repeat_interleave(torch.arange(n), (row_ptr[g, 1:] - row_ptr[g, :-1]).long())
+        out[g].index_add_(0, row_of, rows[g].float()[perm[g].long()])
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["flagship", "large protein", "one row"])
+def test_scatter_csr_range_sum_equals_plain(dtype, case):
+    """The range-sum over the CSR equals K3's plain version bit for bit, on
+    the merged src||dst ids that training gives K3 (padding puts ~700 ids on
+    rows 0 and N-1 at the flagship, ~30,000 at the large protein) and with
+    all ids of a graph on one row: rows of more than K3_LONG ids are summed
+    in edge order too, not split (scripts/k3_split_sum_error.py: a split
+    misses the 1e-5 tolerance there)."""
+    if case == "one row":
+        ids, n = torch.full((2, 16384), 4, dtype=torch.int32), 9
+    else:
+        size = (dict(b=32, n_p=512, e_p=4096, n_m=64, e_m=256) if case == "flagship" else
+                dict(b=4, n_p=4608, e_p=65536, n_m=128, e_m=1024))
+        p = synthetic_pair_batch(**size, seed=0).protein
+        ids, n = torch.cat([p.edge_src, p.edge_dst], 1).to(torch.int32), p.n_pad
+    gen = torch.Generator().manual_seed(4)
+    rows = torch.randn(*ids.shape, 28, generator=gen).to(getattr(torch, dtype))
+    row_ptr, perm = cuda_segment.scatter_csr(ids, n)
+    counts = row_ptr[:, 1:] - row_ptr[:, :-1]
+    assert int(counts.max()) > 100 * cuda_segment.K3_LONG or case == "flagship"
+    got = _csr_range_sum(rows, row_ptr, perm)
+    assert torch.equal(got, cuda_segment.scatter_rows_plain(rows, ids, n))
+
+
+@pytest.mark.parametrize("bad", [-1, 9], ids=["negative", "N"])
+def test_scatter_csr_rejects_out_of_range_id(bad):
+    ids = torch.zeros(2, 5, dtype=torch.int32)
+    ids[0, 4] = bad
+    with pytest.raises(IndexError, match="outside"):
+        cuda_segment.scatter_csr(ids, 9)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("order", ["sorted", "unsorted"])
 @pytest.mark.parametrize("b,n,e,f", [(3, 96, 200, 12), (2, 300, 515, 28)])
