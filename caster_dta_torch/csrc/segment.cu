@@ -7,12 +7,30 @@
 //     Replaces the Pallas kernel caster_dta_tpu/ops/pallas_segment.py
 //     ::_segment_kernel_t (one-hot MXU matmuls per destination-row block).
 //     On this card the sum is bound by memory bytes: it does one add per
-//     message element read. Design: one block per (graph, tile of K1_ROWS
-//     destination rows). The block finds each row's edge range by binary
-//     search over the graph's sorted dst (the role of _block_ptr), then every
-//     thread owns (row, feature) outputs and sums that row's masked edges in
-//     f32, in edge order, in a register, and writes the output once.
-//     Deterministic, no atomics; a row with no edges comes out 0.
+//     message element read. Each row is summed in f32 in edge order, as the
+//     plain version (index_add_ on the CPU) sums it, so every output equals
+//     the plain version's bit for bit; a row is never split into partial sums
+//     (scripts/k3_split_sum_error.py). The padding row N-1 holds every padding
+//     edge of its graph (~700 at the flagship bucket, ~30,000 at the large
+//     protein); a kernel that walks it edge by edge in one thread, as this
+//     port's first K1 did, is set by it. Design (segment_walk_kernel, shared
+//     with K8): one block of 16 warps per (graph, tile of rows); a warp takes
+//     up to WALK_GROUP consecutive rows and finds their edge range with one
+//     16-ary search of both ends on the sorted dst (a short range is counted
+//     whole in one round). Where the range holds at most WALK_SHORT edges
+//     the warp sums it (walk_group): lanes own features, the message rows go
+//     out WALK_WINDOW at a time beside the range's dst and mask, and bit masks
+//     of the real edges and of each row's last edge drive one running sum. A
+//     longer row goes to the whole block: its mask is scanned WALK_SPAN edges
+//     a pass and its real edges compacted in order into shared memory (a pass
+//     with none costs one barrier and no message load, so the masked padding
+//     row costs ~E_pad / WALK_SPAN barriers), then 15 warps keep a ring of
+//     tiles of the listed message rows in flight (cp.async for f32) while
+//     warp 0 adds them in order. A graph of at most SMALL_FLOATS message
+//     values (the molecules) takes one block instead (segment_small_kernel):
+//     it stages the graph's messages, dst and mask with one round of loads and
+//     sums every row from shared memory. Deterministic, no atomics; a row with
+//     no real edge comes out 0.
 //
 // K2  gather_rows: out[b, e, :] = table[b, idx[b, e], :] for any index order.
 //     Replaces the Pallas kernel caster_dta_tpu/ops/pallas_segment.py
@@ -79,16 +97,13 @@
 //     sorted within each graph; f32 only. The row-major form of K1. Replaces
 //     the Pallas kernel caster_dta_tpu/ops/pallas_segment.py::_segment_kernel
 //     (one-hot MXU products over the edge chunks of a block of node rows, its
-//     edge range from a block-pointer table). Bound by memory bytes. Design,
-//     unlike K1's thread-per-output walk: one block per (graph, tile of
-//     K8_ROWS node rows, tile of K8_COLS features). The block finds its rows'
-//     edge ranges by binary search on the sorted dst, streams its edges in
-//     chunks of K8_CHUNK whose message columns it stages in shared memory
-//     with coalesced reads, and each thread adds its (row, column) entries'
-//     staged values, in edge order, into a shared f32 tile that is written
-//     once. A warp owns one row of the tile, so its lanes walk the same edges.
-//     Deterministic, no atomics; an empty row comes out 0, and the sums equal
-//     K1's bit for bit on the same masked rows (a masked row adds +0).
+//     edge range from a block-pointer table). Bound by memory bytes. K1's
+//     walker with the mask switched off at compile time: every edge counts,
+//     so the zeroed padding row is a long row of real values, staged whole
+//     through the ring and added in edge order by one warp; it is bound by
+//     one SM's loads and its add chain (one dependent f32 add an edge). The
+//     sums equal K1's bit for bit on the same masked rows (a zeroed row adds
+//     +0 to a sum that starts at +0).
 //
 // Plain C interface, loaded with ctypes (caster_dta_torch/ops/cuda_segment.py).
 // Every entry point launches on the caller's stream and returns
@@ -104,8 +119,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int K1_ROWS = 32;      // destination rows per block
-constexpr int K1_THREADS = 256;
 constexpr int K2_THREADS = 256;
 constexpr int K2_MAX_BLOCKS = 132 * 32;  // grid-stride beyond this
 constexpr int K3_WALK = 64;      // ids per walker that the CSR build aims at
@@ -126,50 +139,27 @@ constexpr int K3_SMALL_ROWS = 4096;      // most rows of a graph on the one-laun
 constexpr int K7_EDGES = 256;    // edges per block
 constexpr int K7_THREADS = 256;
 constexpr int K7_WINDOW_BYTES = 32768;  // staged table rows per window
-constexpr int K8_ROWS = 8;       // node rows per block, one warp each
-constexpr int K8_COLS = 32;      // features per block, one lane each
-constexpr int K8_THREADS = K8_ROWS * K8_COLS;
-constexpr int K8_CHUNK = 224;    // edges staged per pass (28 KB)
+constexpr int WALK_THREADS = 512;  // K1 and K8: a block of 16 warps
+constexpr int WALK_GROUP = 4;      // most consecutive rows a warp takes at once
+constexpr int WALK_WINDOW = 16;    // message rows a lane has in flight on a short range
+constexpr int WALK_SHORT = 64;     // edges one warp sums (four windows); more go to the block
+constexpr int WALK_COUNT = 8;      // a search range of at most 32x this many is counted whole
+constexpr int WALK_PER = 8;        // mask bytes a thread scans per pass over a long row
+constexpr int WALK_SPAN = WALK_THREADS * WALK_PER;  // edges a pass compacts (4096)
+constexpr int WALK_LOADERS = WALK_THREADS - 32;     // warps 1-15 stage a long row, warp 0 adds
+constexpr int WALK_BLOCKS = 2;     // blocks an SM holds (registers: 64 a thread)
+constexpr int WALK_TILE = 240;     // edges of a long row per stage buffer
+constexpr int WALK_RING = 3;       // stage buffers: two in flight while warp 0 adds the third
+constexpr int WALK_COPIES = WALK_TILE * 32 / WALK_LOADERS;  // elements a loader stages a tile
+constexpr int WALK_STAGE_BYTES = WALK_RING * WALK_TILE * 32 * 4;  // f32 ring (90 KB)
+static_assert(WALK_COPIES * WALK_LOADERS == WALK_TILE * 32, "a tile splits evenly over loaders");
+constexpr int SMALL_FLOATS = 16384;  // a graph of at most this many message values,
+constexpr int SMALL_EDGES = 512;     // edges
+constexpr int SMALL_ROWS = 1024;     // and rows is summed by one block (segment_small_kernel)
+constexpr int SMALL_BYTES = SMALL_FLOATS * 4 + SMALL_EDGES * 5 + (SMALL_ROWS + 1) * 4;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// First position in dst[0, E) whose value is >= key (dst sorted ascending).
-__device__ __forceinline__ int lower_bound(const int* __restrict__ dst, int E, int key) {
-  int lo = 0, hi = E;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (dst[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(K1_THREADS)
-segment_sum_sorted_kernel(const T* __restrict__ msgs, const int* __restrict__ dst,
-                          const uint8_t* __restrict__ mask, float* __restrict__ out,
-                          int E, int N, int F) {
-  __shared__ int row_ptr[K1_ROWS + 1];
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.x * K1_ROWS;
-  const int* dst_b = dst + (int64_t)b * E;
-  if (threadIdx.x <= K1_ROWS) row_ptr[threadIdx.x] = lower_bound(dst_b, E, n0 + (int)threadIdx.x);
-  __syncthreads();
-
-  const int rows = min(K1_ROWS, N - n0);
-  const T* msgs_b = msgs + (int64_t)b * E * F;
-  const uint8_t* mask_b = mask + (int64_t)b * E;
-  float* out_b = out + ((int64_t)b * N + n0) * F;
-  for (int i = threadIdx.x; i < rows * F; i += blockDim.x) {
-    const int r = i / F;
-    const int f = i - r * F;
-    float acc = 0.f;
-    for (int e = row_ptr[r]; e < row_ptr[r + 1]; ++e) {
-      if (mask_b[e]) acc += to_f32(msgs_b[(int64_t)e * F + f]);
-    }
-    out_b[(int64_t)r * F + f] = acc;
-  }
-}
 
 template <typename V>
 __global__ void __launch_bounds__(K2_THREADS)
@@ -693,45 +683,333 @@ gather_windowed_kernel(const V* __restrict__ table, const int* __restrict__ idx,
   }
 }
 
-__global__ void __launch_bounds__(K8_THREADS)
-segment_sum_2d_kernel(const float* __restrict__ msgs, const int* __restrict__ dst,
-                      float* __restrict__ out, int E, int N, int F) {
-  __shared__ int row_ptr[K8_ROWS + 1];
-  __shared__ float stage[K8_CHUNK * K8_COLS];
-  __shared__ float tile[K8_ROWS * K8_COLS];
+// lb(k), the first position of dst_b[lo, hi) (sorted ascending) whose value
+// is >= k, for KEYS keys at once: the warp's lanes form KEYS groups, and group
+// g searches key0 + g * stride, (32 / KEYS)-ary, one probe a lane a round.
+// Each group keeps its answer in [a, z] and cuts that range to under a
+// (32 / KEYS)th a round: with two keys, 3 rounds for 4096 edges, 4 for 65,536.
+// Returns to each lane its group's answer.
+template <int KEYS>
+__device__ __forceinline__ int walk_bounds(const int* __restrict__ dst_b, int lo, int hi,
+                                           int key0, int stride) {
+  constexpr int W = 32 / KEYS;
+  constexpr unsigned GROUP_BITS = W == 32 ? 0xffffffffu : (1u << W) - 1;
+  const int lane = threadIdx.x & 31;
+  const int g = lane / W;
+  const int key = key0 + g * stride;
+  if (hi - lo <= 32 * WALK_COUNT) {
+    // a short range: every lane reads WALK_COUNT entries at once and the warp
+    // counts the entries below each key (one round of loads)
+    int below[KEYS];
+#pragma unroll
+    for (int k = 0; k < KEYS; ++k) below[k] = 0;
+#pragma unroll
+    for (int j = 0; j < WALK_COUNT; ++j) {
+      const int i = lo + j * 32 + lane;
+      const int d = i < hi ? dst_b[i] : INT_MAX;
+#pragma unroll
+      for (int k = 0; k < KEYS; ++k) below[k] += d < key0 + k * stride;
+    }
+    int mine = 0;
+#pragma unroll
+    for (int k = 0; k < KEYS; ++k) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) below[k] += __shfl_xor_sync(0xffffffffu, below[k], o);
+      mine = g == k ? below[k] : mine;
+    }
+    return lo + mine;
+  }
+  int a = lo, z = hi;
+  while (__any_sync(0xffffffffu, z > a)) {
+    const int size = z - a;
+    const int step = (size + W - 1) / W;
+    const int p = a + (lane % W + 1) * step - 1;
+    const bool below = size > 0 && p < z && dst_b[p] < key;
+    const int k = __popc((__ballot_sync(0xffffffffu, below) >> (g * W)) & GROUP_BITS);
+    if (size > 0) {
+      z = min(z, a + (k + 1) * step - 1);
+      a += k * step;
+    }
+  }
+  return a;
+}
+
+// Rows [r0, r1) whose edges [lo, lo + count) number at most WALK_SHORT,
+// summed by one warp: lane f owns feature c0 + f. The range's dst and mask,
+// WALK_SHORT / 32 entries a lane, give two bit masks over its edges: the real
+// ones, and the last edge of each row. The rows are zeroed first (a row with
+// no real edge stays 0); then the message rows go out WALK_WINDOW at a time
+// (clamped, unconditional loads; none for a window without a real edge, such
+// as a masked padding row's) and the warp walks them in edge order with one
+// sum: a real edge adds to it, and a row's last edge writes it out and
+// restarts it. Per edge that is a load, an add and two tests of a uniform bit.
+template <typename T, bool MASKED>
+__device__ __forceinline__ void walk_group(const T* __restrict__ msgs_b,
+                                           const int* __restrict__ dst_b,
+                                           const uint8_t* __restrict__ mask_b,
+                                           float* __restrict__ out_b, int r0, int r1, int lo,
+                                           int count, int F) {
+  constexpr int WORDS = WALK_SHORT / 32;
+  const int lane = threadIdx.x & 31;
+  float v[WALK_WINDOW];
+  const auto load = [&](int c0, int i0) {
+    const T* col = msgs_b + (int64_t)lo * F + min(c0 + lane, F - 1);
+#pragma unroll
+    for (int u = 0; u < WALK_WINDOW; ++u) v[u] = to_f32(col[(int64_t)min(i0 + u, count - 1) * F]);
+  };
+  if (count > 0) load(0, 0);  // the first window goes out beside dst and mask
+  int d[WORDS];
+  unsigned reals[WORDS], ends[WORDS];
+#pragma unroll
+  for (int h = 0; h < WORDS; ++h) {
+    const int i = h * 32 + lane;
+    d[h] = i < count ? dst_b[lo + i] : -1;
+    reals[h] = __ballot_sync(0xffffffffu, i < count && (!MASKED || mask_b[lo + i] != 0));
+  }
+  // edge i is its row's last where edge i + 1 lies in another row or past the range
+#pragma unroll
+  for (int h = 0; h < WORDS; ++h) {
+    const int after = __shfl_down_sync(0xffffffffu, d[h], 1);
+    const int next = __shfl_sync(0xffffffffu, h + 1 < WORDS ? d[h + 1 < WORDS ? h + 1 : h] : -1, 0);
+    ends[h] = __ballot_sync(0xffffffffu, h * 32 + lane < count && (lane == 31 ? next : after) != d[h]);
+  }
+  for (int c0 = 0; c0 < F; c0 += 32) {
+    const bool own = c0 + lane < F;
+    for (int r = r0; r < r1; ++r) {
+      if (own) out_b[(int64_t)r * F + c0 + lane] = 0.f;
+    }
+    float acc = 0.f;
+    for (int i0 = 0; i0 < count; i0 += WALK_WINDOW) {
+      const int h = i0 >> 5;
+      int rows = d[0];
+      unsigned real = reals[0], end = ends[0];
+#pragma unroll
+      for (int k = 1; k < WORDS; ++k) {
+        rows = h == k ? d[k] : rows;
+        real = h == k ? reals[k] : real;
+        end = h == k ? ends[k] : end;
+      }
+      const unsigned window = (1u << WALK_WINDOW) - 1;
+      real = (real >> (i0 & 31)) & window;
+      end = (end >> (i0 & 31)) & window;
+      if (c0 != 0 || i0 != 0) {
+        if ((real | end) == 0) continue;
+        if (real != 0) load(c0, i0);
+      }
+#pragma unroll
+      for (int u = 0; u < WALK_WINDOW; ++u) {
+        if ((real >> u) & 1u) acc += v[u];
+        if ((end >> u) & 1u) {
+          const int row = __shfl_sync(0xffffffffu, rows, (i0 + u) & 31);
+          if (own) out_b[(int64_t)row * F + c0 + lane] = acc;
+          acc = 0.f;
+        }
+      }
+    }
+  }
+}
+
+// The real edges of [s, s_end) (at most WALK_SPAN), in edge order, into
+// list; returns their number to every thread of the block. Thread t scans
+// the WALK_PER mask bytes from s + t * WALK_PER. A pass with no real edge
+// (the padding row) costs one barrier.
+__device__ int walk_compact(const uint8_t* __restrict__ mask_b, int s, int s_end, int* list,
+                            int* warp_count) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = s + (int)threadIdx.x * WALK_PER;
+  unsigned bits = 0;
+#pragma unroll
+  for (int j = 0; j < WALK_PER; ++j) {
+    const int e = first + j;
+    const bool m = mask_b[min(e, s_end - 1)] != 0;
+    if (e < s_end && m) bits |= 1u << j;
+  }
+  if (!__syncthreads_or(bits != 0)) return 0;
+  const int own = __popc(bits);
+  int inc = own;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += x;
+  }
+  if (lane == 31) warp_count[warp] = inc;
+  __syncthreads();
+  int at = inc - own, total = 0;
+#pragma unroll
+  for (int w = 0; w < WALK_THREADS / 32; ++w) {
+    const int c = warp_count[w];
+    at += w < warp ? c : 0;
+    total += c;
+  }
+  for (; bits != 0; bits &= bits - 1) list[at++] = first + __ffs(bits) - 1;
+  __syncthreads();  // the list is whole; warp_count free again
+  return total;
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned to = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Until at most WALK_RING - 2 of this thread's groups are in flight.
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(WALK_RING - 2) : "memory");
+}
+
+// Warps 1-15 stage the message rows of entries [i0, i0 + len) of a long
+// row's list (its real edges; for K8 the edges from s on), features
+// [c0, c0 + fw), as f32 into buf[i * 32 + f]. f32 messages go by cp.async,
+// straight into shared memory, so a loader keeps a whole tile in flight
+// without registers; bf16 ones are loaded (every load issued, indices
+// clamped, before any store), widened and stored.
+template <typename T, bool MASKED>
+__device__ __forceinline__ void walk_issue(const T* __restrict__ msgs_b, const int* list, int s,
+                                           int i0, int len, int F, int c0, int fw, float* buf) {
+  const int loader = threadIdx.x - 32;
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int k = 0; k < WALK_COPIES; ++k) {
+      const int q = loader + k * WALK_LOADERS;
+      const int i = q >> 5, f = q & 31;
+      if (i < len && f < fw) {
+        const int e = MASKED ? list[i0 + i] : s + i0 + i;
+        cp_async4(buf + q, reinterpret_cast<const float*>(msgs_b) + (int64_t)e * F + c0 + f);
+      }
+    }
+  } else {
+    float v[WALK_COPIES];
+#pragma unroll
+    for (int k = 0; k < WALK_COPIES; ++k) {
+      const int q = loader + k * WALK_LOADERS;
+      const int i = i0 + min(q >> 5, len - 1);
+      const int e = MASKED ? list[i] : s + i;
+      v[k] = to_f32(msgs_b[(int64_t)e * F + c0 + min(q & 31, fw - 1)]);
+    }
+#pragma unroll
+    for (int k = 0; k < WALK_COPIES; ++k) {
+      const int q = loader + k * WALK_LOADERS;
+      if ((q >> 5) < len) buf[q] = v[k];
+    }
+  }
+}
+
+// K1 (MASKED) and K8: one block per (graph, tile of 16 * group rows), group
+// at most WALK_GROUP (the wrapper takes fewer rows a warp where the graphs
+// give too few blocks to fill the card). Each warp takes group consecutive
+// rows and finds their edge range with one search: one walk_group where the
+// range holds at most WALK_SHORT edges; else it finds the inner bounds too
+// and walks runs of short rows, noting each row of more than WALK_SHORT
+// edges for the block. Then the block takes the noted rows one at a time.
+// Dynamic shared memory: the ring, then (K1) the list.
+template <typename T, bool MASKED>
+__global__ void __launch_bounds__(WALK_THREADS, WALK_BLOCKS)
+segment_walk_kernel(const T* __restrict__ msgs, const int* __restrict__ dst,
+                    const uint8_t* __restrict__ mask, float* __restrict__ out, int E, int N,
+                    int F, int group) {
+  extern __shared__ float walk_smem[];
+  __shared__ int2 long_rows[WALK_GROUP * WALK_THREADS / 32];
+  __shared__ int warp_count[WALK_THREADS / 32];
+  float* stage = walk_smem;
+  int* list = reinterpret_cast<int*>(walk_smem + WALK_RING * WALK_TILE * 32);
   const int b = blockIdx.y;
-  const int n0 = blockIdx.x * K8_ROWS;
-  const int c0 = blockIdx.z * K8_COLS;
-  const int n_rows = min(K8_ROWS, N - n0);
-  const int n_cols = min(K8_COLS, F - c0);
+  const int rows = group * (WALK_THREADS / 32);
+  const int n0 = blockIdx.x * rows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T* msgs_b = msgs + (int64_t)b * E * F;
+  const uint8_t* mask_b = MASKED ? mask + (int64_t)b * E : nullptr;
+  float* out_b = out + (int64_t)b * N * F;
   const int* dst_b = dst + (int64_t)b * E;
-  if (threadIdx.x <= n_rows) row_ptr[threadIdx.x] = lower_bound(dst_b, E, n0 + (int)threadIdx.x);
-  // thread (row r, column c) owns tile[r][c]: a warp is one row
-  const int r = threadIdx.x / K8_COLS;
-  const int c = threadIdx.x % K8_COLS;
-  tile[threadIdx.x] = 0.f;
+
+  const int g0 = n0 + warp * group;
+  const int g1 = min(N, g0 + group);
+  if (lane < group) long_rows[warp * group + lane] = make_int2(0, -1);  // y < 0: none
+  if (g0 < g1) {
+    const int ends = walk_bounds<2>(dst_b, 0, E, g0, group);
+    const int lo = __shfl_sync(0xffffffffu, ends, 0), hi = __shfl_sync(0xffffffffu, ends, 16);
+    const bool whole = hi - lo <= WALK_SHORT;
+    // lane k (k <= group) holds lb(g0 + k) where the range is not whole
+    int bound = lane == 0 ? lo : hi;
+    if (!whole) {
+      const int inner = walk_bounds<WALK_GROUP>(dst_b, lo, hi, g0 + 1, 1);
+      const int from = __shfl_sync(0xffffffffu, inner,
+                                   (max(lane, 1) - 1) % WALK_GROUP * (32 / WALK_GROUP));
+      if (lane > 0) bound = from;
+    }
+    int r = g0;
+    while (r < g1) {
+      // the run [r, r_end) of rows: as many short rows as fit WALK_SHORT edges
+      const int start = __shfl_sync(0xffffffffu, bound, r - g0);
+      int r_end = g1, end = hi;
+      if (!whole) {
+        r_end = r;
+        end = start;
+        while (r_end < g1) {
+          const int e = __shfl_sync(0xffffffffu, bound, r_end + 1 - g0);
+          if (e - end > WALK_SHORT || e - start > WALK_SHORT) break;
+          ++r_end;
+          end = e;
+        }
+        if (r_end == r) {  // row r is long: the block sums it below
+          end = __shfl_sync(0xffffffffu, bound, r + 1 - g0);
+          if (lane == 0) long_rows[r - n0] = make_int2(start, end);
+          r += 1;
+          continue;
+        }
+      }
+      walk_group<T, MASKED>(msgs_b, dst_b, mask_b, out_b, r, r_end, start, end - start, F);
+      r = r_end;
+    }
+  }
   __syncthreads();
 
-  const int lo = row_ptr[0], hi = row_ptr[n_rows];
-  const float* msgs_b = msgs + (int64_t)b * E * F + c0;
-  for (int e0 = lo; e0 < hi; e0 += K8_CHUNK) {
-    const int n_e = min(K8_CHUNK, hi - e0);
-    for (int i = threadIdx.x; i < n_e * n_cols; i += K8_THREADS) {
-      const int e = i / n_cols;
-      const int col = i - e * n_cols;
-      stage[e * K8_COLS + col] = msgs_b[(int64_t)(e0 + e) * F + col];
+  for (int k = 0; k < rows; ++k) {
+    const int2 range = long_rows[k];
+    if (range.y < 0) continue;
+    float* out_row = out_b + (int64_t)(n0 + k) * F;
+    for (int c0 = 0; c0 < F; c0 += 32) {
+      const int fw = min(32, F - c0);
+      float acc = 0.f;
+      for (int s = range.x; s < range.y;) {
+        const int s_end = MASKED ? min(range.y, s + WALK_SPAN) : range.y;
+        const int total = MASKED ? walk_compact(mask_b, s, s_end, list, warp_count) : s_end - s;
+        const int tiles = (total + WALK_TILE - 1) / WALK_TILE;
+        if (tiles > 0) {
+          // a ring of WALK_RING tiles: warps 1-15 keep the next ones in
+          // flight while warp 0 adds the oldest, one barrier a tile
+          if (warp != 0) {
+            for (int t = 0; t < WALK_RING - 1; ++t) {
+              if (t < tiles)
+                walk_issue<T, MASKED>(msgs_b, list, s, t * WALK_TILE,
+                                      min(WALK_TILE, total - t * WALK_TILE), F, c0, fw,
+                                      stage + t * WALK_TILE * 32);
+              cp_async_commit();
+            }
+          }
+          for (int t = 0; t < tiles; ++t) {
+            if (warp != 0) cp_async_wait_ring();
+            __syncthreads();  // tile t is staged; tile t - 1's buffer is free
+            if (warp != 0) {
+              const int next = t + WALK_RING - 1;
+              if (next < tiles)
+                walk_issue<T, MASKED>(msgs_b, list, s, next * WALK_TILE,
+                                      min(WALK_TILE, total - next * WALK_TILE), F, c0, fw,
+                                      stage + (next % WALK_RING) * WALK_TILE * 32);
+              cp_async_commit();
+            } else {
+              // the row's real edges in edge order, one f32 add each
+              acc = k3_chain(stage + (t % WALK_RING) * WALK_TILE * 32 + lane,
+                             min(WALK_TILE, total - t * WALK_TILE), acc);
+            }
+          }
+          __syncthreads();  // the ring is free again
+        }
+        s = s_end;
+      }
+      if (warp == 0 && lane < fw) out_row[c0 + lane] = acc;
     }
-    __syncthreads();
-    if (r < n_rows && c < n_cols) {
-      const int from = max(row_ptr[r], e0) - e0;
-      const int to = min(row_ptr[r + 1], e0 + n_e) - e0;
-      float acc = tile[threadIdx.x];
-      for (int e = from; e < to; ++e) acc += stage[e * K8_COLS + c];
-      tile[threadIdx.x] = acc;
-    }
-    __syncthreads();  // the next chunk overwrites the stage
   }
-  if (r < n_rows && c < n_cols) out[((int64_t)b * N + n0 + r) * F + c0 + c] = tile[threadIdx.x];
 }
 
 template <typename V>
@@ -873,6 +1151,114 @@ int k3_launch_sum(const void* rows, void* ws, void* out, int B, int E, int N, in
   return (int)cudaGetLastError();
 }
 
+// K1 (MASKED) and K8 for a small graph (the molecules): one block per graph
+// stages all of its messages (as f32), dst and mask in shared memory with
+// one round of loads (every load issued before any store), finds each row's
+// range from the row starts among the staged dst, and a warp per row adds
+// the row's real edges, found 32 at a time by a ballot on the staged mask, in
+// edge order. A masked padding row costs a ballot per 32 edges.
+template <typename T, bool MASKED>
+__global__ void __launch_bounds__(WALK_THREADS)
+segment_small_kernel(const T* __restrict__ msgs, const int* __restrict__ dst,
+                     const uint8_t* __restrict__ mask, float* __restrict__ out, int E, int N,
+                     int F) {
+  extern __shared__ float small_smem[];
+  float* s_msgs = small_smem;                                         // [E * F]
+  int* s_dst = reinterpret_cast<int*>(small_smem + SMALL_FLOATS);     // [E]
+  int* s_ptr = s_dst + SMALL_EDGES;                                   // [N + 1]: lb(n)
+  uint8_t* s_real = reinterpret_cast<uint8_t*>(s_ptr + SMALL_ROWS + 1);  // [E]
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int EF = E * F;
+  const T* msgs_b = msgs + (int64_t)b * EF;
+  float* out_b = out + (int64_t)b * N * F;
+  const int* dst_b = dst + (int64_t)b * E;
+
+  float v[SMALL_FLOATS / WALK_THREADS];
+#pragma unroll
+  for (int k = 0; k < SMALL_FLOATS / WALK_THREADS; ++k) {
+    const int i = k * WALK_THREADS + tid;
+    v[k] = i < EF ? to_f32(msgs_b[i]) : 0.f;
+  }
+  const int d = tid < E ? dst_b[tid] : 0;
+  const bool real = tid < E && (!MASKED || mask[(int64_t)b * E + tid] != 0);
+#pragma unroll
+  for (int k = 0; k < SMALL_FLOATS / WALK_THREADS; ++k) {
+    const int i = k * WALK_THREADS + tid;
+    if (i < EF) s_msgs[i] = v[k];
+  }
+  if (tid < E) {
+    s_dst[tid] = d;
+    s_real[tid] = real;
+  }
+  for (int r = tid; r <= N; r += WALK_THREADS) s_ptr[r] = E;  // rows past the last edge
+  __syncthreads();
+  if (tid < E) {  // edge tid starts the rows (dst[tid - 1], dst[tid]]
+    const int prev = tid > 0 ? s_dst[tid - 1] : -1;
+    for (int r = prev + 1; r <= min(d, N); ++r) s_ptr[r] = tid;
+  }
+  __syncthreads();
+
+  for (int r = warp; r < N; r += WALK_THREADS / 32) {
+    const int rb = s_ptr[r], re = s_ptr[r + 1];
+    for (int c0 = 0; c0 < F; c0 += 32) {
+      const int f = min(c0 + lane, F - 1);
+      float acc = 0.f;
+      for (int i0 = rb; i0 < re; i0 += 32) {
+        for (unsigned bits = __ballot_sync(0xffffffffu, i0 + lane < re && s_real[i0 + lane]);
+             bits != 0; bits &= bits - 1) {
+          acc += s_msgs[(i0 + __ffs(bits) - 1) * F + f];
+        }
+      }
+      if (c0 + lane < F) out_b[(int64_t)r * F + c0 + lane] = acc;
+    }
+  }
+}
+
+// A graph the one-block path takes: its messages, dst, mask and row bounds
+// fit SMALL_BYTES of shared memory.
+inline bool walk_small_fits(int E, int N, int F) {
+  return E <= SMALL_EDGES && N <= SMALL_ROWS && (int64_t)E * F <= SMALL_FLOATS;
+}
+
+// One launch of the walker, or of the one-block path for a small graph; the
+// first call of each instantiation raises its dynamic shared memory limit.
+template <typename T, bool MASKED>
+int walk_launch(const void* msgs, const void* dst, const void* mask, void* out, int B, int E,
+                int N, int F, cudaStream_t s) {
+  if (walk_small_fits(E, N, F)) {
+    static bool small_attr = false;
+    if (!small_attr) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          segment_small_kernel<T, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          SMALL_BYTES);
+      if (err != cudaSuccess) return (int)err;
+      small_attr = true;
+    }
+    segment_small_kernel<T, MASKED><<<B, WALK_THREADS, SMALL_BYTES, s>>>(
+        static_cast<const T*>(msgs), static_cast<const int*>(dst),
+        static_cast<const uint8_t*>(mask), static_cast<float*>(out), E, N, F);
+    return (int)cudaGetLastError();
+  }
+  const size_t bytes = WALK_STAGE_BYTES + (MASKED ? WALK_SPAN * sizeof(int) : 0);
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        segment_walk_kernel<T, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  // the most rows a warp (so the fewest blocks) that still gives every SM a block
+  int group = WALK_GROUP;
+  while (group > 1 && (int64_t)B * ((N + 16 * group - 1) / (16 * group)) < 132) group >>= 1;
+  const int rows = 16 * group;
+  const dim3 grid((N + rows - 1) / rows, B);
+  segment_walk_kernel<T, MASKED><<<grid, WALK_THREADS, bytes, s>>>(
+      static_cast<const T*>(msgs), static_cast<const int*>(dst),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), E, N, F, group);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -881,18 +1267,9 @@ extern "C" {
 // int32 sorted per graph, mask [B, E] bool, out [B, N, F] f32. All contiguous.
 int k1_segment_sum_sorted(const void* msgs, const void* dst, const void* mask, void* out,
                           int B, int E, int N, int F, int msgs_bf16, void* stream) {
-  const dim3 grid((N + K1_ROWS - 1) / K1_ROWS, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (msgs_bf16) {
-    segment_sum_sorted_kernel<__nv_bfloat16><<<grid, K1_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(msgs), static_cast<const int*>(dst),
-        static_cast<const uint8_t*>(mask), static_cast<float*>(out), E, N, F);
-  } else {
-    segment_sum_sorted_kernel<float><<<grid, K1_THREADS, 0, s>>>(
-        static_cast<const float*>(msgs), static_cast<const int*>(dst),
-        static_cast<const uint8_t*>(mask), static_cast<float*>(out), E, N, F);
-  }
-  return (int)cudaGetLastError();
+  return msgs_bf16 ? walk_launch<__nv_bfloat16, true>(msgs, dst, mask, out, B, E, N, F, s)
+                   : walk_launch<float, true>(msgs, dst, mask, out, B, E, N, F, s);
 }
 
 // table [B, N, row_bytes] (any 2- or 4-byte element type), idx [B, E] int32
@@ -964,11 +1341,8 @@ int k7_gather_windowed(const void* table, const void* idx, void* out, int B, int
 // out [B, N, F] f32. All contiguous.
 int k8_segment_sum_2d(const void* msgs, const void* dst, void* out, int B, int E, int N, int F,
                       void* stream) {
-  const dim3 grid((N + K8_ROWS - 1) / K8_ROWS, B, (F + K8_COLS - 1) / K8_COLS);
-  segment_sum_2d_kernel<<<grid, K8_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(msgs), static_cast<const int*>(dst), static_cast<float*>(out),
-      E, N, F);
-  return (int)cudaGetLastError();
+  return walk_launch<float, false>(msgs, dst, nullptr, out, B, E, N, F,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

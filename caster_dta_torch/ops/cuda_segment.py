@@ -100,6 +100,11 @@ def segment_sum_sorted(msgs: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor
     destination rows, -> [B, N, F] f32. dst [B, E] int32 is sorted ascending
     within each graph; mask [B, E] bool marks real edges.
 
+    On the card a warp sums a few short rows at once and a row of many edges
+    (the padding row N-1) goes to its whole block, which skips its masked
+    edges a pass of 4096 at a time. Every row is summed in f32 in edge order,
+    so the result equals the plain version's on the CPU bit for bit.
+
     Replaces caster_dta_tpu/ops/pallas_segment.py::_segment_kernel_t
     (via pallas_segment_sum). Bound by memory bytes on the H100."""
     if msgs.device.type == "cpu":
@@ -364,7 +369,9 @@ def segment_sum_2d(msgs: torch.Tensor, dst: torch.Tensor, num_nodes: int) -> tor
     """K8: out[b, n, :] = sum of msgs[b, e, :] over the edges e with
     dst[b, e] == n. msgs [B, E, F] float32 only, already masked (every row
     counts); dst [B, E] int32 in [0, N), sorted ascending within each graph.
-    The sum is taken in f32 in edge order; the output is [B, N, F] f32.
+    The sum is taken in f32 in edge order; the output is [B, N, F] f32, equal
+    to the plain version's on the CPU and to K1's on the same masked rows bit
+    for bit. The card runs K1's kernel with the mask switched off.
 
     Dispatched on no path (ops/segment.py keeps K1, which takes the mask).
 

@@ -12,8 +12,11 @@ Phases, each printed before it starts and after it ends with its wall time:
    ``caster_dta_torch/csrc/attention.cu`` with nvcc for sm_90a, one nvcc per
    source, all at once, and prints ptxas's register and shared-memory lines.
 3. kernels: K1 (sorted segment-sum) and K2 (row gather) on the card, at the
-   shapes of the served model, against their plain PyTorch versions on the
-   same inputs: K2 must be bit-exact, K1 within K1_RTOL/K1_ATOL. K5 (the
+   shapes of the served model (K1 also at the large-protein request's
+   aggregations), against their plain PyTorch versions on the same inputs:
+   K2 must be bit-exact; K1 within K1_RTOL/K1_ATOL of the plain version on
+   the card, and bit for bit the plain version's on the CPU (both sum every
+   row in edge order), the same bits on a second call. K5 (the
    fused GVP message MLP, forward and backward, with the trained model's
    message weights) and K6 (copy-cast) against theirs at the flagship and
    Davis shapes, f32 and with the bf16 step's dtypes, within K5_TOL; K6 bit
@@ -27,9 +30,10 @@ Phases, each printed before it starts and after it ends with its wall time:
    inputs. K7 (windowed gather) against K2 and its plain version, exact, at
    the flagship and Davis dst (sorted), src and shuffled indices, f32 and
    bf16. K8 (row-major segment-sum) against its plain version within
-   K8_RTOL/K8_ATOL at the flagship and Davis protein aggregations, whether it
-   equals K1 bit for bit, and its refusal of bf16. K7 and K8 lie on no path:
-   their launch counts are those of this phase.
+   K8_RTOL/K8_ATOL at the flagship, Davis and large-protein protein
+   aggregations, bit for bit the CPU's plain version and K1 on the same
+   masked rows, and its refusal of bf16. K7 and K8 lie on no path: their
+   launch counts are those of this phase.
 4. serve: loads the trained ``runs/davis_seed9`` model onto the card, answers
    seeded synthetic requests at two buckets, checks that the K1 and K2 launch
    counts rose by the expected launches per forward, that the affinities are
@@ -83,7 +87,10 @@ Phases, each printed before it starts and after it ends with its wall time:
    mask (the library yardstick, which the port never calls) and the device
    time of the port's dense attention core (einsum, mask, f32 softmax,
    einsum); K7 at the flagship and Davis protein gathers beside K2 on the
-   same indices; K8 at the same buckets' protein aggregations.
+   same indices; K8 at the same buckets' protein aggregations; K1 and K8
+   also at the large protein's protein aggregation. Each K1 and K8 line
+   gives its case's longest dst range (the edges of one row: the padding
+   row N-1 at every bucket).
 
 Every CPU reference that a card result is held against is computed twice
 and taken only when the two runs give the same bits (``cpu_reference``).
@@ -245,7 +252,8 @@ def event_times_ms(torch, fn, reps: int = 20, warmup: int = 3) -> list:
 
 
 KERNEL_GROUPS = (("K4 attention", "masked_mha"),
-                 ("K1 segment-sum", "segment_sum_sorted"), ("K2 gather", "gather_rows"),
+                 ("K1 segment-sum", "segment_walk"), ("K1 segment-sum", "segment_small"),
+                 ("K2 gather", "gather_rows"),
                  ("K3 scatter", "scatter_csr"), ("K3 scatter", "scatter_sum"),
                  ("K3 scatter", "scatter_small"), ("K5 fwd", "message_fwd"),
                  ("K5 bwd", "message_bwd"), ("K5 bwd sum", "reduce_rows"),
@@ -304,6 +312,13 @@ def kernel_cases(torch, batch, gen, dev="cuda"):
             ("molecule aggregation, layer 2", randn(b, m.e_pad, 16), m.edge_dst, m.edge_mask, m.n_pad),
         ],
     }
+
+
+def longest_range(dst) -> int:
+    """The most edges any one row of sorted dst [B, E] holds."""
+    if dst.shape[1] == 0:
+        return 0
+    return max(int(g.unique_consecutive(return_counts=True)[1].max()) for g in dst.cpu())
 
 
 def edge_cases(torch, gen, dev="cuda"):
@@ -603,6 +618,52 @@ def main() -> int:
                "K6": 0.0, "K7": 0.0, "K8": 0.0}
     phase_launches = {}   # K4, K7, K8: launches over the phases that run them
 
+    def check_k1(what, msgs, dst, mask, n):
+        """K1 against its plain version on the card (atomic order, within
+        K1_RTOL/K1_ATOL) and on the CPU (edge order, bit for bit), and a second
+        call's bits -> (max_abs_err against the CPU, against the card's)."""
+        got = cs.segment_sum_sorted(msgs, dst, mask, n)
+        again = cs.segment_sum_sorted(msgs, dst, mask, n)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1 {what} {msgs.dtype}: two calls gave other bits")
+        card = cs.segment_sum_sorted_plain(msgs, dst, mask, n)
+        torch.testing.assert_close(got, card, rtol=K1_RTOL, atol=K1_ATOL)
+        cpu = cpu_reference(torch, lambda: cs.segment_sum_sorted_plain(
+            msgs.cpu(), dst.cpu(), mask.cpu(), n), f"K1 {what}")
+        got = got.cpu()
+        torch.testing.assert_close(got, cpu, rtol=K1_RTOL, atol=K1_ATOL)
+        if not torch.equal(got, cpu):
+            raise AssertionError(f"K1 {what} {msgs.dtype}: not the CPU plain version's bits")
+        err = (got - cpu).abs().max().item() if got.numel() else 0.0
+        max_err["K1"] = max(max_err["K1"], err)
+        return err, ((got - card.cpu()).abs().max().item() if got.numel() else 0.0)
+
+    def check_k8(label, p):
+        """K8 at a request's protein aggregation, on messages zeroed where
+        masked: within K8_RTOL/K8_ATOL of its plain version on the card, bit for
+        bit the CPU's and K1's on the same masked rows -> the masked messages."""
+        n, dst = p.n_pad, p.edge_dst
+        msgs = torch.randn(p.batch_size, p.e_pad, 28, generator=gen, device="cuda")
+        masked = torch.where(p.edge_mask[..., None], msgs, 0.0).contiguous()
+        got = cs.segment_sum_2d(masked, dst, n)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, cs.segment_sum_2d_plain(masked, dst, n), rtol=K8_RTOL,
+                                   atol=K8_ATOL)
+        card_err = (got - cs.segment_sum_2d_plain(masked, dst, n)).abs().max().item()
+        cpu = cpu_reference(torch, lambda: cs.segment_sum_2d_plain(masked.cpu(), dst.cpu(), n),
+                            f"K8 {label}")
+        if not torch.equal(got.cpu(), cpu):
+            raise AssertionError(f"K8 {label}: not the CPU plain version's bits")
+        if not torch.equal(got, cs.segment_sum_sorted(msgs, dst, p.edge_mask, n)):
+            raise AssertionError(f"K8 {label}: not K1's bits on the same masked rows")
+        max_err["K8"] = max(max_err["K8"], (got.cpu() - cpu).abs().max().item())
+        print(f"K8 {label} protein aggregation: msgs {tuple(msgs.shape)} -> N={n}, longest dst "
+              f"range {longest_range(dst)}: bit for bit the CPU's plain version and K1 on the "
+              f"same masked rows; against the plain version on the card max_abs_err "
+              f"{card_err:.3e}")
+        return masked
+
     with phase("kernels"), torch.no_grad():
         for label, batch in (requests[0], requests[-1]):
             cases = kernel_cases(torch, batch, gen)
@@ -620,35 +681,39 @@ def main() -> int:
                       f"bit-exact (f32, bf16)")
             for name, msgs, dst, mask, n in cases["K1"]:
                 for dtype in (torch.float32, torch.bfloat16):
-                    m = msgs.to(dtype)
-                    got = cs.segment_sum_sorted(m, dst, mask, n)
-                    torch.cuda.synchronize()
-                    want = cs.segment_sum_sorted_plain(m, dst, mask, n)
-                    torch.testing.assert_close(got, want, rtol=K1_RTOL, atol=K1_ATOL)
-                    err = (got - want).abs().max().item()
-                    max_err["K1"] = max(max_err["K1"], err)
+                    _, card_err = check_k1(f"{label} {name}", msgs.to(dtype), dst, mask, n)
                     print(f"K1 {label} {name} {str(dtype)[6:]}: msgs {tuple(msgs.shape)} -> "
-                          f"N={n} max_abs_err {err:.3e}")
+                          f"N={n}, longest dst range {longest_range(dst)}: bit for bit the "
+                          f"CPU's plain version, the same bits twice; against the plain "
+                          f"version on the card max_abs_err {card_err:.3e}")
+        # the large-protein request's aggregations: its padding row holds
+        # ~30,000 masked edges a graph
+        for name, msgs, dst, mask, n in kernel_cases(torch, large[1], gen)["K1"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                _, card_err = check_k1(f"{large[0]} {name}", msgs.to(dtype), dst, mask, n)
+                print(f"K1 {large[0]} {name} {str(dtype)[6:]}: msgs {tuple(msgs.shape)} -> "
+                      f"N={n}, longest dst range {longest_range(dst)}: bit for bit the CPU's "
+                      f"plain version, the same bits twice; against the plain version on the "
+                      f"card max_abs_err {card_err:.3e}")
         for name, msgs, dst, mask, n in edge_cases(torch, gen):
             for dtype in (torch.float32, torch.bfloat16):
                 m = msgs.to(dtype)
+                check_k1(f"edge case {name}", m, dst, mask, n)
                 got = cs.segment_sum_sorted(m, dst, mask, n)
-                torch.cuda.synchronize()
                 want = cs.segment_sum_sorted_plain(m, dst, mask, n)
-                torch.testing.assert_close(got, want, rtol=K1_RTOL, atol=K1_ATOL)
                 empty = want.abs().sum(-1) == 0
                 if not torch.all(got[empty] == 0):
                     raise AssertionError(f"K1 edge case {name}: an empty row is not 0")
-                max_err["K1"] = max(max_err["K1"], (got - want).abs().max().item())
             table = torch.randn(msgs.shape[0], n, msgs.shape[2], generator=gen, device="cuda")
             idx = torch.randint(0, n, (msgs.shape[0], msgs.shape[1] + 3), generator=gen,
                                 device="cuda", dtype=torch.int32)
             if not torch.equal(cs.gather_rows(table, idx), cs.gather_rows_plain(table, idx)):
                 raise AssertionError(f"K2 edge case {name}: not bit-exact")
             torch.cuda.synchronize()
-            print(f"edge case {name}: K1 within tolerance, empty rows 0; K2 bit-exact")
-        print(f"K1 max_abs_err {max_err['K1']:.3e} (rtol {K1_RTOL}, atol {K1_ATOL}); "
-              f"K2 max_abs_err {max_err['K2']:.1e} (bit-exact)")
+            print(f"edge case {name}: K1 bit for bit the CPU's, empty rows 0; K2 bit-exact")
+        print(f"K1 max_abs_err {max_err['K1']:.3e} against the plain version on the CPU "
+              f"(rtol {K1_RTOL}, atol {K1_ATOL}, and bit for bit); K2 max_abs_err "
+              f"{max_err['K2']:.1e} (bit-exact)")
 
         # K5 with the trained model's message weights (both GVP convs have the
         # same widths; the first conv's weights), K6 on the node table
@@ -748,9 +813,12 @@ def main() -> int:
 
         # K7 and K8 lie on no path: their launches are counted over this part
         reset_launches()
-        for label, batch in (requests[0], requests[-1]):
+        for label, batch in (requests[0], requests[-1], large):
             p = batch.protein.to("cuda")
             b, n, e = p.batch_size, p.n_pad, p.e_pad
+            if batch is large[1]:   # K8 alone at the large protein
+                masked = check_k8(label, p)
+                continue
             table = torch.randn(b, n, 28, generator=gen, device="cuda")
             order = torch.argsort(torch.rand(b, e, generator=gen, device="cuda"), dim=1)
             shuffled = torch.gather(p.edge_dst, 1, order).contiguous()
@@ -766,18 +834,7 @@ def main() -> int:
                                              f"its plain version")
                 print(f"K7 {label} {name}: table {tuple(table.shape)} idx {tuple(idx.shape)} "
                       f"equals K2 and its plain version bit for bit (f32, bf16)")
-            msgs = torch.randn(b, e, 28, generator=gen, device="cuda")
-            masked = torch.where(p.edge_mask[..., None], msgs, 0.0).contiguous()
-            got = cs.segment_sum_2d(masked, p.edge_dst, n)
-            torch.cuda.synchronize()
-            want = cs.segment_sum_2d_plain(masked, p.edge_dst, n)
-            torch.testing.assert_close(got, want, rtol=K8_RTOL, atol=K8_ATOL)
-            err = (got - want).abs().max().item()
-            max_err["K8"] = max(max_err["K8"], err)
-            same_k1 = torch.equal(got, cs.segment_sum_sorted(msgs, p.edge_dst, p.edge_mask, n))
-            print(f"K8 {label} protein aggregation: msgs {tuple(msgs.shape)} -> N={n} "
-                  f"max_abs_err {err:.3e}; equals K1 on the same masked rows bit for bit: "
-                  f"{same_k1}")
+            masked = check_k8(label, p)
         try:
             cs.segment_sum_2d(masked.to(torch.bfloat16), p.edge_dst, n)
         except TypeError as refusal:
@@ -785,8 +842,9 @@ def main() -> int:
         else:
             raise AssertionError("K8 took bf16 messages")
         phase_launches.update({cs.K7: cs.LAUNCHES[cs.K7], cs.K8: cs.LAUNCHES[cs.K8]})
-        print(f"K7 bit-exact; K8 max_abs_err {max_err['K8']:.3e} (rtol {K8_RTOL}, atol "
-              f"{K8_ATOL}); launches in this part {phase_launches}")
+        print(f"K7 bit-exact; K8 max_abs_err {max_err['K8']:.3e} against the plain version "
+              f"on the CPU (rtol {K8_RTOL}, atol {K8_ATOL}, and bit for bit); launches in this "
+              f"part {phase_launches}")
 
     def serve_path(tag: str, run, run_cpu, per_forward: dict, reqs=requests,
                    timed=(requests[0], requests[-1])) -> tuple:
@@ -1158,6 +1216,47 @@ def main() -> int:
                 nbytes = r.numel() * r.element_size() + ids.numel() * 4 + b * n * f * 4
                 rows[("K3", label, f"{name} {str(dtype)[6:]}")] = (
                     ms, plain, lib, nbytes, b * e * f, F32_OPS_PER_S)
+        def time_k1(label, name, msgs, dst, mask, n):
+            b, e, f = msgs.shape
+            out = torch.empty(b * n, f, device="cuda")
+            flat = torch.where(mask[..., None], msgs.float(), 0.0).reshape(b * e, f)
+            rows_s = (dst.long() + n * torch.arange(b, device="cuda")[:, None]).reshape(-1)
+
+            def library():
+                out.zero_()
+                out.index_add_(0, rows_s, flat)
+
+            ms = graph_time_ms(torch, lambda: cs.segment_sum_sorted(msgs, dst, mask, n))
+            plain = graph_time_ms(torch, lambda: cs.segment_sum_sorted_plain(msgs, dst, mask, n))
+            lib = graph_time_ms(torch, library)
+            # only the real edges' message rows are needed (the kernel reads
+            # no masked row); dst and mask are read whole
+            n_real = int(mask.sum().item())
+            nbytes = (n_real * f * msgs.element_size() + dst.numel() * 4
+                      + mask.numel() + b * n * f * 4)
+            rows[("K1", label, name)] = (ms, plain, lib, nbytes, n_real * f, F32_OPS_PER_S)
+            extra[("K1", label, name)] = f"longest dst range {longest_range(dst)}"
+
+        def time_k8(label, p):
+            b, n, e = p.batch_size, p.n_pad, p.e_pad
+            msgs = torch.randn(b, e, 28, generator=gen, device="cuda")
+            masked = torch.where(p.edge_mask[..., None], msgs, 0.0).contiguous()
+            rows_s = (p.edge_dst.long() + n * torch.arange(b, device="cuda")[:, None]).reshape(-1)
+            out = torch.empty(b * n, 28, device="cuda")
+
+            def library():
+                out.zero_()
+                out.index_add_(0, rows_s, masked.reshape(b * e, 28))
+
+            # every message row counts (no mask), dst whole, each output row once
+            rows[("K8", label, "protein aggregation")] = (
+                graph_time_ms(torch, lambda: cs.segment_sum_2d(masked, p.edge_dst, n)),
+                graph_time_ms(torch, lambda: cs.segment_sum_2d_plain(masked, p.edge_dst, n)),
+                graph_time_ms(torch, library),
+                masked.numel() * 4 + b * e * 4 + b * n * 28 * 4, b * e * 28, F32_OPS_PER_S)
+            extra[("K8", label, "protein aggregation")] = (
+                f"longest dst range {longest_range(p.edge_dst)}")
+
         for label, batch in (requests[0], requests[-1]):
             cases = kernel_cases(torch, batch, gen)
             for name, table, idx in cases["K2"]:
@@ -1174,25 +1273,7 @@ def main() -> int:
                 nbytes = idx.numel() * 4 + n_rows * f * 4 + b * e * f * 4
                 rows[("K2", label, name)] = (ms, plain, lib, nbytes, 0, F32_OPS_PER_S)
             for name, msgs, dst, mask, n in cases["K1"]:
-                b, e, f = msgs.shape
-                out = torch.empty(b * n, f, device="cuda")
-                flat = torch.where(mask[..., None], msgs, 0.0).reshape(b * e, f)
-                rows_s = (dst.long() + n * torch.arange(b, device="cuda")[:, None]).reshape(-1)
-
-                def library():
-                    out.zero_()
-                    out.index_add_(0, rows_s, flat)
-
-                ms = graph_time_ms(torch, lambda: cs.segment_sum_sorted(msgs, dst, mask, n))
-                plain = graph_time_ms(torch, lambda: cs.segment_sum_sorted_plain(msgs, dst, mask, n))
-                lib = graph_time_ms(torch, library)
-                # only the real edges' message rows are needed (the kernel
-                # reads no masked row); dst and mask are read whole
-                n_real = int(mask.sum().item())
-                nbytes = (n_real * f * msgs.element_size() + dst.numel() * 4
-                          + mask.numel() + b * n * f * 4)
-                ops = n_real * f
-                rows[("K1", label, name)] = (ms, plain, lib, nbytes, ops, F32_OPS_PER_S)
+                time_k1(label, name, msgs, dst, mask, n)
             for name, r32, ids, n in k3_cases(torch, batch, gen):
                 time_k3(label, name, r32, ids, n)
             # K5 at the served model's message widths with the trained
@@ -1275,22 +1356,14 @@ def main() -> int:
                     f"K2 on the same indices "
                     f"{graph_time_ms(torch, lambda: cs.gather_rows(table, idx)):.4f} ms")
             # K8 at the protein aggregation, on masked messages
-            msgs = torch.randn(b, e, 28, generator=gen, device="cuda")
-            masked = torch.where(p.edge_mask[..., None], msgs, 0.0).contiguous()
-            rows_s = (p.edge_dst.long() + n * torch.arange(b, device="cuda")[:, None]).reshape(-1)
-            out = torch.empty(b * n, 28, device="cuda")
-
-            def library():
-                out.zero_()
-                out.index_add_(0, rows_s, masked.reshape(b * e, 28))
-
-            # every message row counts (no mask), dst whole, each output row once
-            rows[("K8", label, "protein aggregation")] = (
-                graph_time_ms(torch, lambda: cs.segment_sum_2d(masked, p.edge_dst, n)),
-                graph_time_ms(torch, lambda: cs.segment_sum_2d_plain(masked, p.edge_dst, n)),
-                graph_time_ms(torch, library),
-                masked.numel() * 4 + b * e * 4 + b * n * 28 * 4, b * e * 28, F32_OPS_PER_S)
+            time_k8(label, p)
         time_k3(large[0], *k3_cases(torch, large[1], gen)[0])   # its protein merged backward
+        # K1 (f32 and bf16 messages) and K8 at the large protein's protein
+        # aggregation, whose padding row holds ~30,000 edges a graph
+        name, msgs, dst, mask, n = kernel_cases(torch, large[1], gen)["K1"][0]
+        time_k1(large[0], name, msgs, dst, mask, n)
+        time_k1(large[0], f"{name} bfloat16", msgs.to(torch.bfloat16), dst, mask, n)
+        time_k8(large[0], large[1].protein.to("cuda"))
         # K4 at every bucket and direction; beside it the library call
         # (scaled_dot_product_attention with an additive -1e9 mask, which the
         # port never calls) and the port's dense attention core, the chain

@@ -66,6 +66,61 @@ def test_k1_matches_plain(cuda, dtype, b, n, e, f):
     assert cs.LAUNCHES[cs.K1] == before + 1
 
 
+def _aggregation(case, f=28, seed=12):
+    """K1's inputs on the CPU: (msgs [B, E, F], dst, mask, N). The buckets'
+    real dst and mask (synthetic_pair_batch, seed 0; padding edges at
+    dst = N-1, masked), all edges of each graph on one row and real, or
+    random sorted dst with one real edge in ten masked."""
+    gen = torch.Generator().manual_seed(seed)
+    if case in ("flagship protein", "flagship molecule", "large protein"):
+        size = (dict(b=4, n_p=4608, e_p=65536, n_m=128, e_m=1024) if case == "large protein"
+                else dict(b=32, n_p=512, e_p=4096, n_m=64, e_m=256))
+        batch = synthetic_pair_batch(**size, seed=0)
+        g = batch.molecule if case == "flagship molecule" else batch.protein
+        dst, mask, n = g.edge_dst.to(torch.int32), g.edge_mask, g.n_pad
+    elif case == "one row":
+        dst = torch.full((2, 16384), 4, dtype=torch.int32)
+        mask, n = torch.ones(2, 16384, dtype=torch.bool), 9
+    else:
+        b, n, e = {"E=0": (2, 40, 0), "N=1": (3, 1, 100), "E=1001": (3, 77, 1001)}[case]
+        dst = torch.sort(torch.randint(0, n, (b, e), generator=gen), dim=1).values.to(torch.int32)
+        mask = torch.rand(b, e, generator=gen) < 0.9
+    msgs = torch.randn(*dst.shape, f, generator=gen)
+    return msgs, dst.contiguous(), mask.contiguous(), n
+
+
+K1_CASES = [("flagship protein", 28), ("flagship molecule", 51), ("flagship molecule", 16),
+            ("large protein", 28), ("one row", 28), ("E=0", 9), ("N=1", 4), ("E=1001", 70)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,f", K1_CASES)
+def test_k1_equals_the_cpu_bit_for_bit(cuda, dtype, case, f):
+    """K1 sums every row in edge order in f32, as the plain version does on
+    the CPU, so the two agree bit for bit: at the buckets' real dst and mask
+    (the padding row N-1 holds ~700 masked edges a graph at the flagship,
+    ~30,000 at the large protein), a row of 16,384 real edges, no edges, one
+    row and an E off any alignment."""
+    msgs, dst, mask, n = _aggregation(case, f)
+    msgs = msgs.to(dtype)
+    before = cs.LAUNCHES[cs.K1]
+    got = cs.segment_sum_sorted(msgs.to(cuda), dst.to(cuda), mask.to(cuda), n).cpu()
+    want = cs.segment_sum_sorted_plain(msgs, dst, mask, n)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, want)
+    assert cs.LAUNCHES[cs.K1] == before + (1 if got.numel() else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_same_bits_twice(cuda, dtype):
+    msgs, dst, mask, n = (t.to(cuda) if isinstance(t, torch.Tensor) else t
+                          for t in _aggregation("large protein"))
+    msgs = msgs.to(dtype)
+    first = cs.segment_sum_sorted(msgs, dst, mask, n)
+    assert torch.equal(first, cs.segment_sum_sorted(msgs, dst, mask, n))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,e,f", [(32, 512, 8192, 28), (32, 64, 256, 51), (2, 9, 13, 1)])
 def test_k2_bit_exact(cuda, dtype, b, n, e, f):
@@ -555,22 +610,33 @@ def test_k7_traps_on_an_index_out_of_range(cuda):
         cs.gather_windowed(torch.ones(1, 4, 3), torch.tensor([[0, 1, 5, 2]], dtype=torch.int32))
 
 
-@pytest.mark.parametrize("b,n,e,f", [(32, 512, 4096, 28), (32, 64, 256, 51), (3, 77, 1000, 5),
-                                     (2, 130, 515, 70), (2, 40, 0, 9)])
-def test_k8_matches_plain(cuda, b, n, e, f):
-    """K8 against its plain version (index_add_ in atomic order on the card:
-    f32 sums in another order, 1e-5), and against K1 on the same masked rows
-    bit for bit (both add in edge order; a zeroed row adds +0)."""
+@pytest.mark.parametrize("b,n,e,f,kind", [
+    (32, 512, 4096, 28, "random"), (32, 64, 256, 51, "random"), (3, 77, 1000, 5, "random"),
+    (2, 130, 515, 70, "random"), (2, 40, 0, 9, "random"),
+    (4, 4608, 65536, 28, "large protein"),  # the bucket's dst: ~30,000 zeroed edges on N-1
+    (2, 9, 16384, 28, "one row"),           # every edge of a graph on one row
+])
+def test_k8_matches_plain(cuda, b, n, e, f, kind):
+    """K8 against its plain version on the CPU (index_add_ in edge order, as
+    K8 adds): within 1e-5 and bit for bit; and against K1 on the same masked
+    rows bit for bit (both add in edge order; a zeroed row adds +0)."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(8)
-    msgs, dst, mask = _sorted_case(gen, b, n, e, f, cuda)
+    if kind == "random":
+        msgs, dst, mask = _sorted_case(gen, b, n, e, f, cuda)
+    else:
+        msgs, dst, mask, _ = (t.to(cuda) if isinstance(t, torch.Tensor) else t
+                              for t in _aggregation(kind, f))
+        assert msgs.shape == (b, e, f)
     masked = torch.where(mask[..., None], msgs, 0.0).contiguous()
     before = cs.LAUNCHES[cs.K8]
     got = cs.segment_sum_2d(masked, dst, n)
     torch.cuda.synchronize()
     assert cs.LAUNCHES[cs.K8] == before + 1
     assert got.dtype == torch.float32 and got.shape == (b, n, f)
-    torch.testing.assert_close(got, cs.segment_sum_2d_plain(masked, dst, n), rtol=1e-5, atol=1e-5)
+    want = cs.segment_sum_2d_plain(masked.cpu(), dst.cpu(), n)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.cpu(), want)
     assert torch.equal(got, cs.segment_sum_sorted(msgs, dst, mask, n))
 
 

@@ -43,7 +43,11 @@ def _padded_case(rng, b, n, e_real, e_pad, f, empty_stride=1):
     return msgs, dst, mask
 
 
-CASES = [(2, 70, 150, 200, 12), (1, 300, 515, 515, 28), (3, 33, 40, 64, 5), (2, 16, 0, 8, 3)]
+# the last three put most edges on the masked padding row N-1, as the
+# buckets do (~700 of 4096 at the flagship, ~30,000 of 65,536 at the large
+# protein): the row that K1's and K8's kernels hand to a whole block
+CASES = [(2, 70, 150, 200, 12), (1, 300, 515, 515, 28), (3, 33, 40, 64, 5), (2, 16, 0, 8, 3),
+         (2, 40, 50, 2000, 28), (1, 9, 100, 5000, 16), (3, 130, 400, 1001, 51)]
 
 
 @pytest.mark.parametrize("pallas", [False, True], ids=["xla", "pallas"])
@@ -317,7 +321,8 @@ def test_gather_windowed_rejects_out_of_range_index(bad):
 
 
 @pytest.mark.parametrize("b,n,e_real,e_pad,f", [(2, 70, 150, 200, 12), (1, 300, 515, 600, 28),
-                                                (2, 16, 0, 8, 3)])
+                                                (2, 16, 0, 8, 3), (2, 40, 50, 2000, 28),
+                                                (1, 9, 100, 5000, 16)])
 def test_segment_sum_2d_plain_matches_pallas(rng, b, n, e_real, e_pad, f):
     """K8's plain version against the TPU kernel (_pallas_segment_sum_2d,
     interpret mode) on masked messages: empty rows, padding edges at N-1
