@@ -16,36 +16,57 @@
 //     (the aggregation that follows masks it). The output row is [s', v'] in
 //     the dtype of `both`.
 //     Replaces caster_dta_tpu/ops/pallas_gvp_message.py::_fwd_kernel.
-// K5 bwd  k5_message_bwd: recomputes the forward of a tile of edges keeping
-//     every layer's activations, then runs the layers backwards (the JAX
-//     _layer_bwd, with its rounding points) and writes d(both) as one
-//     [B, 2E, F] tensor (source rows, then destination rows), d(es) and d(ev)
-//     in their inputs' dtypes, and each weight's gradient summed over all
-//     edges in f32. Replaces ::_bwd_kernel.
+// K5 bwd  k5_message_bwd: recomputes the forward of a tile of edges, then
+//     runs the layers backwards (the JAX _layer_bwd, with its rounding points)
+//     and writes d(both) as one [B, 2E, F] tensor (source rows, then
+//     destination rows), d(es) and d(ev) in their inputs' dtypes, and each
+//     weight's gradient summed over all edges in f32. Replaces ::_bwd_kernel.
 // K6  k6_cast_copy: y = x, copied, cast between f32 and bf16 or not at all.
 //     Replaces ::_cast_kernel (reached through layout_pin).
 //
-// What bounds them on the H100, and the design. At the served model's widths
-// K5 fwd reads ~476 bytes and does ~5 kflop per edge, and K5 bwd moves ~840
-// bytes and does ~10 kflop: both under the f32 ridge of 67e12 / 3.35e12 = 20
-// flop per byte, so the least time is the bytes' time. The products are
-// tiny (K <= 73, N <= 16), far below what wgmma takes, so this first version
-// keeps them out of device memory instead: one block per tile of edges
-// stages the packed weights (rounded to the compute dtype) and the tile's
-// activations in shared memory as f32, column-major with an odd stride, so a
-// warp reads 32 edges of one column without bank conflicts while the weight
-// it multiplies is broadcast. Each stage of a layer is a flat loop of the
-// block's threads over (edge, output) pairs, each summing its inputs in a
-// fixed order; stages are separated by __syncthreads. What limits it is the
-// shared-memory traffic of these scalar products (two reads per FMA), not
-// device memory.
+// What bounds them on the H100. At the served model's widths K5 fwd reads
+// ~476 bytes and does ~5 kflop per edge, and K5 bwd moves ~840 bytes and does
+// ~10 kflop: both under the ridge of the card (20 flop per byte in f32, 295
+// in bf16), so the least time is the bytes' time. The products are tiny
+// (K <= 73, N <= 16), far below the 64-row tiles of wgmma.
 //
-// The weight gradients need a sum over every edge. As in K1-K3 there are no
-// atomics: a backward block takes BWD_TILES_PER_BLOCK consecutive tiles in
-// order, sums each weight's terms over a tile's edges in edge order, adds the
-// tile's sums to a per-block accumulator in shared memory, and writes it to
-// row blockIdx.x of a [n_blocks, n_weights] f32 scratch. A second launch sums
-// the rows in a fixed order. Two runs give the same bits.
+// K5 fwd, and K5 bwd in f32 or at widths without a warp-tile instance
+// (message_bwd_kernel): one block per tile of edges stages the packed
+// weights (rounded to the compute dtype) and the tile's activations in shared
+// memory as f32, column-major with an odd stride, so a warp reads 32 edges of
+// one column without bank conflicts while the weight it multiplies is
+// broadcast. Each stage of a layer is a flat loop of the block's threads over
+// (edge, output) pairs, each summing its inputs in a fixed order; stages are
+// separated by __syncthreads. What limits it is the shared-memory traffic of
+// these scalar products (two reads per FMA), not device memory.
+//
+// K5 bwd with the bf16 compute dtype (message_bwd_mma_kernel, for the widths
+// of MmaNet instances): a warp owns a tile of 16 edges from its inputs to its
+// gradients, with no block barrier between stages. Every product is an
+// mma.sync.m16n8k16 with bf16 operands and f32 sums: exactly the rounded
+// operands and f32 sums of the contract, so only the sum order changes.
+// Edges are the rows (M); a vector quantity is three 16-row tiles, one per
+// xyz. A product's f32 result feeds the next product's A operand by register
+// moves (the C and A layouts share their 8x8 blocks); a weight gradient
+// gW[o, k] = sum_e d[e, o] x[e, k] is a product whose K is the tile's edges,
+// its operands transposed in registers by movmatrix. The block's warps share
+// one copy of every weight, staged once as the B fragments of both its
+// forward and its backward products. A warp keeps only each layer's inputs,
+// in bf16 (every later use is a rounded product operand), and recomputes the
+// layer's forward just before its backward. Weight gradients: each warp adds
+// its tile's sums to its own f32 slab in shared memory, tile after tile; at
+// the end the block adds its warps' slabs in warp order into its row of a
+// [n_blocks, n_weights] scratch, and a second launch (reduce_rows_kernel)
+// sums the rows in a fixed order. No atomics: two runs give the same bits.
+// Persistent blocks (MMA_BLOCKS_PER_SM per SM) walk the tiles in a fixed
+// order. What holds it back is scalar work around the mma's (address and
+// fragment arithmetic, the elementwise math, which takes the fast exp,
+// reciprocal and rsqrt intrinsics), at 8 warps an SM.
+//
+// K6: a unit is 16 bytes of the wider dtype (4 f32 and their bf16, or 8
+// bf16), so each warp's loads and stores are contiguous; a thread moves one
+// unit a round on a grid of at most one wave, grid-stride. Pointers off
+// 16-byte alignment take an element-wise loop.
 //
 // Plain C interface, loaded with ctypes (caster_dta_torch/ops/cuda_gvp_message.py).
 // Every entry point launches on the caller's stream and returns
@@ -64,9 +85,7 @@ constexpr int BWD_TILE = 32;               // edges per backward tile
 constexpr int BWD_TILES_PER_BLOCK = 8;     // consecutive tiles per backward block
 constexpr int MAX_SMEM = 232448;           // 227 KB, the most a block can have
 constexpr int REDUCE_COLS = 32;            // weights per reduce block
-constexpr int REDUCE_SEGS = 8;             // row segments per reduce block
-constexpr int K6_THREADS = 256;
-constexpr int K6_MAX_BLOCKS = 132 * 16;
+constexpr int REDUCE_SEGS = 32;            // row segments per reduce block
 constexpr float EPS = 1e-8f;
 
 enum { ACT_NONE = 0, ACT_RELU = 1, ACT_SIGMOID = 2 };
@@ -648,6 +667,903 @@ reduce_rows_kernel(const float* __restrict__ partial, float* __restrict__ out, i
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5 bwd with the bf16 compute dtype: warp-owned tiles of 16 edges on mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_WARPS = 4;            // warps per block
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr int MMA_BLOCKS_PER_SM = 2;    // resident blocks an SM holds (registers, shared memory)
+constexpr int MMA_ROWS = 16;            // edges per warp tile: the mma's M
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// ---- warp primitives (PTX) ----
+
+// two f32 rounded to bf16 (nearest even) in one word, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a b for a 16x16 bf16 A (row-major), a 16x8 bf16 B (column-major) and a
+// 16x8 f32 D, the fragments as PTX's mma.m16n8k16 lays them out
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// the transpose of an 8x8 b16 matrix held one word a lane (lane 4r + c holds
+// row r, columns 2c and 2c + 1), in the same layout
+__device__ __forceinline__ uint32_t transpose8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ float shfl_xor(float x, int m) {
+  return __shfl_xor_sync(0xffffffffu, x, m);
+}
+
+// ---- end of warp primitives ----
+
+// The warp-tile kernel's elementwise math: f32, through the card's fast
+// exp, reciprocal and reciprocal square root (a few ulp each), which keeps
+// the slow-path branches of IEEE division and square root out of its code.
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+
+__device__ __forceinline__ float act_fast(int a, float x) {
+  return a == ACT_RELU ? fmaxf(x, 0.f) : a == ACT_SIGMOID ? sigmoid_fast(x) : x;
+}
+
+__device__ __forceinline__ float dact_fast(int a, float x) {
+  if (a == ACT_RELU) return x > 0.f ? 1.f : 0.f;
+  if (a == ACT_SIGMOID) {
+    const float s = sigmoid_fast(x);
+    return s * (1.f - s);
+  }
+  return 1.f;
+}
+
+// A 16-row f32 tile of N 8-column tiles in the mma's C layout: lane 4g + t
+// holds, of column tile n, v[n] = {(g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1)}.
+template <int N>
+struct CTile {
+  float v[N][4];
+};
+
+// A 16-row bf16 tile of K 16-column tiles in the mma's A layout: v[k] holds
+// the 8x8 blocks (rows 0-7, columns 0-7), (8-15, 0-7), (0-7, 8-15) and
+// (8-15, 8-15) of column tile k, one word each, in the layout of transpose8.
+template <int K>
+struct ATile {
+  uint32_t v[K][4];
+};
+
+template <int N>
+__device__ __forceinline__ void zero(CTile<N>& c) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c.v[n][i] = 0.f;
+  }
+}
+
+// The tile rounded to bf16 as the A operand of the next product: C and A
+// share their 8x8 blocks, so this is a register move.
+template <int N>
+__device__ __forceinline__ ATile<cdiv(N, 2)> to_a(const CTile<N>& c) {
+  ATile<cdiv(N, 2)> a;
+#pragma unroll
+  for (int k = 0; k < cdiv(N, 2); ++k) {
+    a.v[k][0] = pack_bf16(c.v[2 * k][0], c.v[2 * k][1]);
+    a.v[k][1] = pack_bf16(c.v[2 * k][2], c.v[2 * k][3]);
+    if (2 * k + 1 < N) {
+      a.v[k][2] = pack_bf16(c.v[2 * k + 1][0], c.v[2 * k + 1][1]);
+      a.v[k][3] = pack_bf16(c.v[2 * k + 1][2], c.v[2 * k + 1][3]);
+    } else {
+      a.v[k][2] = 0u;
+      a.v[k][3] = 0u;
+    }
+  }
+  return a;
+}
+
+// Columns 16m .. 16m + 15 of c, rounded and transposed, as an A operand: its
+// rows are those columns and its K is the tile's 16 edges.
+template <int N>
+__device__ __forceinline__ void trans_a(const CTile<N>& c, int m, uint32_t (&a)[4]) {
+  a[0] = transpose8(pack_bf16(c.v[2 * m][0], c.v[2 * m][1]));
+  a[2] = transpose8(pack_bf16(c.v[2 * m][2], c.v[2 * m][3]));
+  if (2 * m + 1 < N) {
+    a[1] = transpose8(pack_bf16(c.v[2 * m + 1][0], c.v[2 * m + 1][1]));
+    a[3] = transpose8(pack_bf16(c.v[2 * m + 1][2], c.v[2 * m + 1][3]));
+  } else {
+    a[1] = 0u;
+    a[3] = 0u;
+  }
+}
+
+// Columns 8n .. 8n + 7 of a tile, rounded and transposed, as a B operand
+// whose K is the tile's 16 edges.
+template <int N>
+__device__ __forceinline__ uint2 trans_b(const CTile<N>& c, int n) {
+  return make_uint2(transpose8(pack_bf16(c.v[n][0], c.v[n][1])),
+                    transpose8(pack_bf16(c.v[n][2], c.v[n][3])));
+}
+
+template <int K>
+__device__ __forceinline__ uint2 trans_b(const ATile<K>& a, int n) {
+  return make_uint2(transpose8(a.v[n / 2][2 * (n % 2)]), transpose8(a.v[n / 2][2 * (n % 2) + 1]));
+}
+
+// One gated GVP layer's widths, and what follows from them: K* counts the
+// 16-column tiles of an A operand, N* the 8-column tiles of a C tile; the
+// offsets of its B fragments (256 bytes each) in the staged weights, of its
+// weight-gradient fragments (512 bytes each) in a warp's slab, and of its
+// weights in the packed layout ([out, in]: wh, ws, bs, wv, wsv, bsv).
+template <int SI_, int VI_, int H_, int SO_, int VO_>
+struct MmaLayer {
+  static constexpr int SI = SI_, VI = VI_, H = H_, SO = SO_, VO = VO_;
+  static constexpr int KS = cdiv(SI, 16), KV = cdiv(VI, 16), KH = cdiv(H, 16);
+  static constexpr int KSO = cdiv(SO, 16), KVO = cdiv(VO, 16);
+  static constexpr int NSI = cdiv(SI, 8), NVI = cdiv(VI, 8), NH = cdiv(H, 8);
+  static constexpr int NSO = cdiv(SO, 8), NVO = cdiv(VO, 8);
+  // B operands: *_F of the forward products, *_B of the backward ones
+  static constexpr int WH_F = 0;                    // vh = v wh^T      [vi, h]
+  static constexpr int WS_FS = WH_F + KV * NH;      // spre = s ws^T     [si, so]
+  static constexpr int WS_FV = WS_FS + KS * NSO;    //   + vn ws^T       [h, so]
+  static constexpr int WV_F = WS_FV + KH * NSO;     // vraw = vh wv^T   [h, vo]
+  static constexpr int WSV_F = WV_F + KH * NVO;     // z = gi wsv^T     [so, vo]
+  static constexpr int WSV_B = WSV_F + KSO * NVO;   // dgi = dz wsv     [vo, so]
+  static constexpr int WS_BS = WSV_B + KVO * NSO;   // ds = dspre ws    [so, si]
+  static constexpr int WS_BV = WS_BS + KSO * NSI;   // dvn = dspre ws   [so, h]
+  static constexpr int WV_B = WS_BV + KSO * NH;     // dvh = dvraw wv   [vo, h]
+  static constexpr int WH_B = WV_B + KVO * NH;      // dv = dvh wh      [h, vi]
+  static constexpr int NB = WH_B + KH * NVI;
+  // weight gradients, rows x columns in 16 x 8 fragments
+  static constexpr int G_WSV = 0;                         // wsv^T [so, vo]
+  static constexpr int G_WS = G_WSV + KSO * NVO;          // ws    [so, si | h]
+  static constexpr int G_WV = G_WS + KSO * (NSI + NH);    // wv^T  [h, vo]
+  static constexpr int G_WH = G_WV + KH * NVO;            // wh    [h, vi]
+  static constexpr int NG = G_WH + KH * NVI;
+  static constexpr int BIAS = 8 * (NSO + NVO);            // bs, then bsv, padded
+  static constexpr int CACHE = KS + 3 * KV;               // A tiles of the layer's inputs
+  static constexpr int P_WH = 0, P_WS = H * VI, P_BS = P_WS + SO * (SI + H);
+  static constexpr int P_WV = P_BS + SO, P_WSV = P_WV + VO * H, P_BSV = P_WSV + VO * SO;
+  static constexpr int NW = P_BSV + VO;
+};
+
+// The message MLP of a GVPConv: node (NS, NV), edge (SE, VE); the first layer
+// maps (2NS + SE, 2NV + VE) to (SO, VO) through H0 vector channels, every
+// later one (SO, VO) to itself through H1.
+template <int NS_, int NV_, int SE_, int VE_, int H0, int SO, int VO, int H1>
+struct MmaNet {
+  static constexpr int NS = NS_, NV = NV_, SE = SE_, VE = VE_;
+  using L0 = MmaLayer<2 * NS_ + SE_, 2 * NV_ + VE_, H0, SO, VO>;
+  using L1 = MmaLayer<SO, VO, H1, SO, VO>;
+};
+
+// the served model's GVP convs (runs/davis_seed9): node (16, 4), edge (32, 1)
+using ServedNet = MmaNet<16, 4, 32, 1, 9, 16, 4, 4>;
+
+// Byte offsets in a block's shared memory for n_layers layers: the staged B
+// fragments and biases of every layer, then each warp's region: its layer
+// inputs (A tiles, 16 bytes a lane each), its weight-gradient slab (f32
+// fragments, 16 bytes a lane each) and its bias-gradient sums.
+struct MmaSmem {
+  int b1, bias0, bias1, warp0, cache1, slab, gbias, per_warp, total, slab_floats;
+};
+
+template <class Net>
+__host__ __device__ inline MmaSmem mma_smem(int n_layers) {
+  using L0 = typename Net::L0;
+  using L1 = typename Net::L1;
+  const int m = n_layers - 1;
+  MmaSmem s;
+  s.b1 = L0::NB * 256;
+  s.bias0 = s.b1 + m * L1::NB * 256;
+  s.bias1 = s.bias0 + 4 * L0::BIAS;
+  s.warp0 = (s.bias1 + 4 * m * L1::BIAS + 15) / 16 * 16;
+  s.cache1 = L0::CACHE * 512;
+  s.slab = s.cache1 + m * L1::CACHE * 512;
+  s.gbias = s.slab + (L0::NG + m * L1::NG) * 512;
+  s.slab_floats = (L0::NG + m * L1::NG) * 128 + L0::BIAS + m * L1::BIAS;
+  s.per_warp = (s.slab + 4 * s.slab_floats + 15) / 16 * 16;
+  s.total = s.warp0 + MMA_WARPS * s.per_warp;
+  return s;
+}
+
+// Stage one B operand, B[k][n] = w[k sk + n sn] for k < K, n < N (else 0),
+// rounded to bf16, as fragments (k tile, n tile) of 32 lanes x 2 words.
+__device__ void stage_b(const float* __restrict__ w, int K, int N, int sk, int sn, uint2* dst) {
+  const int kts = cdiv(K, 16), nts = cdiv(N, 8);
+  for (int p = threadIdx.x; p < kts * nts * 32; p += blockDim.x) {
+    const int lane = p & 31, f = p >> 5, kt = f / nts, nt = f - kt * nts;
+    const int n = 8 * nt + (lane >> 2), k0 = 16 * kt + 2 * (lane & 3);
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + (i & 1) + 8 * (i >> 1);
+      x[i] = k < K && n < N ? w[k * sk + n * sn] : 0.f;
+    }
+    dst[p] = make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
+  }
+}
+
+// Stage a layer's B operands and its biases (f32, padded with zeros).
+template <class L>
+__device__ void stage_layer(const float* __restrict__ w, uint2* B, float* bias) {
+  constexpr int SH = L::SI + L::H;
+  stage_b(w + L::P_WH, L::VI, L::H, 1, L::VI, B + 32 * L::WH_F);
+  stage_b(w + L::P_WS, L::SI, L::SO, 1, SH, B + 32 * L::WS_FS);
+  stage_b(w + L::P_WS + L::SI, L::H, L::SO, 1, SH, B + 32 * L::WS_FV);
+  stage_b(w + L::P_WV, L::H, L::VO, 1, L::H, B + 32 * L::WV_F);
+  stage_b(w + L::P_WSV, L::SO, L::VO, 1, L::SO, B + 32 * L::WSV_F);
+  stage_b(w + L::P_WSV, L::VO, L::SO, L::SO, 1, B + 32 * L::WSV_B);
+  stage_b(w + L::P_WS, L::SO, L::SI, SH, 1, B + 32 * L::WS_BS);
+  stage_b(w + L::P_WS + L::SI, L::SO, L::H, SH, 1, B + 32 * L::WS_BV);
+  stage_b(w + L::P_WV, L::VO, L::H, L::H, 1, B + 32 * L::WV_B);
+  stage_b(w + L::P_WH, L::H, L::VI, L::VI, 1, B + 32 * L::WH_B);
+  for (int i = threadIdx.x; i < L::BIAS; i += blockDim.x) {
+    const int o = i - 8 * L::NSO;
+    bias[i] = o < 0 ? (i < L::SO ? w[L::P_BS + i] : 0.f) : (o < L::VO ? w[L::P_BSV + o] : 0.f);
+  }
+}
+
+// A layer's forward activations on a tile, as its backward needs them.
+template <class L>
+struct Fwd {
+  CTile<L::NH> vh[3], q, vn;
+  CTile<L::NSO> spre;
+  CTile<L::NVO> vraw[3], g;
+};
+
+// One gated GVP layer on the warp's tile (the JAX _layer_fwd): xs, xv are the
+// layer's rounded inputs; B, bias its staged weights.
+template <class L>
+__device__ __forceinline__ void fwd_mma(const uint2* __restrict__ B, const float* __restrict__ bias,
+                                        int act_v, const ATile<L::KS>& xs,
+                                        const ATile<L::KV> (&xv)[3], Fwd<L>& f, int lane) {
+  const int c0 = 2 * (lane & 3);
+  // vh = wh v, each of xyz
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    zero(f.vh[d]);
+#pragma unroll
+    for (int n = 0; n < L::NH; ++n) {
+#pragma unroll
+      for (int k = 0; k < L::KV; ++k) {
+        mma_bf16(f.vh[d].v[n], xv[d].v[k], B[(L::WH_F + k * L::NH + n) * 32 + lane]);
+      }
+    }
+  }
+  // the clamped norm over xyz
+#pragma unroll
+  for (int n = 0; n < L::NH; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = f.vh[0].v[n][i], y = f.vh[1].v[n][i], z = f.vh[2].v[n][i];
+      f.q.v[n][i] = x * x + y * y + z * z;
+      const float qq = fmaxf(f.q.v[n][i], EPS);
+      f.vn.v[n][i] = qq * rsqrtf(qq);
+    }
+  }
+  // spre = ws [s, vn] + bs
+  const ATile<L::KH> vna = to_a(f.vn);
+#pragma unroll
+  for (int n = 0; n < L::NSO; ++n) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < L::KS; ++k) {
+      mma_bf16(acc, xs.v[k], B[(L::WS_FS + k * L::NSO + n) * 32 + lane]);
+    }
+#pragma unroll
+    for (int k = 0; k < L::KH; ++k) {
+      mma_bf16(acc, vna.v[k], B[(L::WS_FV + k * L::NSO + n) * 32 + lane]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f.spre.v[n][i] = acc[i] + bias[8 * n + c0 + (i & 1)];
+  }
+  // vraw = wv vh
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const ATile<L::KH> a = to_a(f.vh[d]);
+    zero(f.vraw[d]);
+#pragma unroll
+    for (int n = 0; n < L::NVO; ++n) {
+#pragma unroll
+      for (int k = 0; k < L::KH; ++k) {
+        mma_bf16(f.vraw[d].v[n], a.v[k], B[(L::WV_F + k * L::NVO + n) * 32 + lane]);
+      }
+    }
+  }
+  // the gate reads the pre-activation scalars through the vector activation
+  CTile<L::NSO> gi;
+#pragma unroll
+  for (int n = 0; n < L::NSO; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) gi.v[n][i] = act_fast(act_v, f.spre.v[n][i]);
+  }
+  const ATile<L::KSO> ga = to_a(gi);
+#pragma unroll
+  for (int n = 0; n < L::NVO; ++n) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < L::KSO; ++k) {
+      mma_bf16(acc, ga.v[k], B[(L::WSV_F + k * L::NVO + n) * 32 + lane]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f.g.v[n][i] = sigmoid_fast(acc[i] + bias[8 * L::NSO + 8 * n + c0 + (i & 1)]);
+    }
+  }
+}
+
+// The layer's outputs, rounded: the next layer's inputs.
+template <class L>
+__device__ __forceinline__ void fwd_out(const Fwd<L>& f, int act_s, ATile<L::KSO>& xs,
+                                        ATile<L::KVO> (&xv)[3]) {
+  CTile<L::NSO> s;
+#pragma unroll
+  for (int n = 0; n < L::NSO; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s.v[n][i] = act_fast(act_s, f.spre.v[n][i]);
+  }
+  xs = to_a(s);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    CTile<L::NVO> v;
+#pragma unroll
+    for (int n = 0; n < L::NVO; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v.v[n][i] = f.vraw[d].v[n][i] * f.g.v[n][i];
+    }
+    xv[d] = to_a(v);
+  }
+}
+
+// out[8n + c] += the sum of column c of tile n over the 16 rows, in a fixed
+// order; lanes 0-3 write.
+template <int N>
+__device__ __forceinline__ void add_colsum(const CTile<N>& c, float* out, int lane) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    float s0 = c.v[n][0] + c.v[n][2], s1 = c.v[n][1] + c.v[n][3];
+#pragma unroll
+    for (int m = 4; m < 32; m *= 2) {
+      s0 += shfl_xor(s0, m);
+      s1 += shfl_xor(s1, m);
+    }
+    if (lane < 4) {
+      out[8 * n + 2 * lane] += s0;
+      out[8 * n + 2 * lane + 1] += s1;
+    }
+  }
+}
+
+__device__ __forceinline__ void slab_add(float4* slab, int f, int lane, const float (&c)[4]) {
+  float4& s = slab[f * 32 + lane];
+  s.x += c[0];
+  s.y += c[1];
+  s.z += c[2];
+  s.w += c[3];
+}
+
+// The backward of one layer on the warp's tile (the JAX _layer_bwd). ds, dv
+// are the cotangents of its outputs; the cotangents of its inputs go to
+// sink_s(n, c) (scalar column tile n) and sink_v(d, n, c) (vector tile n of
+// xyz d); its weight gradients are added to the warp's slab, its bias
+// gradients to gbias.
+template <class L, class SinkS, class SinkV>
+__device__ __forceinline__ void bwd_mma(const uint2* __restrict__ B, int act_s, int act_v,
+                                        const ATile<L::KS>& xs, const ATile<L::KV> (&xv)[3],
+                                        const Fwd<L>& f, const CTile<L::NSO>& ds,
+                                        const CTile<L::NVO> (&dv)[3], float4* slab, float* gbias,
+                                        int lane, SinkS sink_s, SinkV sink_v) {
+  uint32_t a[4];
+  // the gate: dvraw = dv g, dz = (dv . vraw) g (1 - g)
+  CTile<L::NVO> dvraw[3], dz;
+#pragma unroll
+  for (int n = 0; n < L::NVO; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float gg = f.g.v[n][i];
+      const float dg = dv[0].v[n][i] * f.vraw[0].v[n][i] + dv[1].v[n][i] * f.vraw[1].v[n][i] +
+                       dv[2].v[n][i] * f.vraw[2].v[n][i];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) dvraw[d].v[n][i] = dv[d].v[n][i] * gg;
+      dz.v[n][i] = dg * gg * (1.f - gg);
+    }
+  }
+  add_colsum(dz, gbias + 8 * L::NSO, lane);
+  // the gradient of wsv: [i, o] = sum_e act_v(spre)[e, i] dz[e, o]
+  CTile<L::NSO> gi;
+#pragma unroll
+  for (int n = 0; n < L::NSO; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) gi.v[n][i] = act_fast(act_v, f.spre.v[n][i]);
+  }
+#pragma unroll
+  for (int m = 0; m < L::KSO; ++m) {
+    trans_a(gi, m, a);
+#pragma unroll
+    for (int n = 0; n < L::NVO; ++n) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(acc, a, trans_b(dz, n));
+      slab_add(slab, L::G_WSV + m * L::NVO + n, lane, acc);
+    }
+  }
+  // dspre = ds act_s'(spre) + (dz wsv) act_v'(spre)
+  const ATile<L::KVO> dza = to_a(dz);
+  CTile<L::NSO> dspre;
+#pragma unroll
+  for (int n = 0; n < L::NSO; ++n) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < L::KVO; ++k) {
+      mma_bf16(acc, dza.v[k], B[(L::WSV_B + k * L::NSO + n) * 32 + lane]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = f.spre.v[n][i];
+      dspre.v[n][i] = ds.v[n][i] * dact_fast(act_s, x) + acc[i] * dact_fast(act_v, x);
+    }
+  }
+  add_colsum(dspre, gbias, lane);
+  // the gradient of ws: [o, k] = sum_e dspre[e, o] [s, vn][e, k]
+#pragma unroll
+  for (int m = 0; m < L::KSO; ++m) {
+    trans_a(dspre, m, a);
+#pragma unroll
+    for (int n = 0; n < L::NSI; ++n) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(acc, a, trans_b(xs, n));
+      slab_add(slab, L::G_WS + m * (L::NSI + L::NH) + n, lane, acc);
+    }
+#pragma unroll
+    for (int n = 0; n < L::NH; ++n) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(acc, a, trans_b(f.vn, n));
+      slab_add(slab, L::G_WS + m * (L::NSI + L::NH) + L::NSI + n, lane, acc);
+    }
+  }
+  // [ds, dvn] = dspre ws: ds to the sink
+  const ATile<L::KSO> dpa = to_a(dspre);
+#pragma unroll
+  for (int n = 0; n < L::NSI; ++n) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < L::KSO; ++k) {
+      mma_bf16(acc, dpa.v[k], B[(L::WS_BS + k * L::NSI + n) * 32 + lane]);
+    }
+    sink_s(n, acc);
+  }
+  CTile<L::NH> dvn;
+  zero(dvn);
+#pragma unroll
+  for (int n = 0; n < L::NH; ++n) {
+#pragma unroll
+    for (int k = 0; k < L::KSO; ++k) {
+      mma_bf16(dvn.v[n], dpa.v[k], B[(L::WS_BV + k * L::NH + n) * 32 + lane]);
+    }
+  }
+  // dvh = dvraw wv
+  CTile<L::NH> dvh[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const ATile<L::KVO> x = to_a(dvraw[d]);
+    zero(dvh[d]);
+#pragma unroll
+    for (int n = 0; n < L::NH; ++n) {
+#pragma unroll
+      for (int k = 0; k < L::KVO; ++k) {
+        mma_bf16(dvh[d].v[n], x.v[k], B[(L::WV_B + k * L::NH + n) * 32 + lane]);
+      }
+    }
+  }
+  // the gradient of wv: [j, o] = sum_{e, xyz} vh[e, j] dvraw[e, o]
+#pragma unroll
+  for (int m = 0; m < L::KH; ++m) {
+#pragma unroll
+    for (int n = 0; n < L::NVO; ++n) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        trans_a(f.vh[d], m, a);
+        mma_bf16(acc, a, trans_b(dvraw[d], n));
+      }
+      slab_add(slab, L::G_WV + m * L::NVO + n, lane, acc);
+    }
+  }
+  // the norm: dvh += vh dvn / vn where |vh|^2 > eps (0 inside the clamp)
+#pragma unroll
+  for (int n = 0; n < L::NH; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float coef = f.q.v[n][i] > EPS ? __fdividef(dvn.v[n][i], f.vn.v[n][i]) : 0.f;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) dvh[d].v[n][i] += f.vh[d].v[n][i] * coef;
+    }
+  }
+  // dv = dvh wh to the sink
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const ATile<L::KH> x = to_a(dvh[d]);
+#pragma unroll
+    for (int n = 0; n < L::NVI; ++n) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < L::KH; ++k) {
+        mma_bf16(acc, x.v[k], B[(L::WH_B + k * L::NVI + n) * 32 + lane]);
+      }
+      sink_v(d, n, acc);
+    }
+  }
+  // the gradient of wh: [j, i] = sum_{e, xyz} dvh[e, j] v[e, i]
+#pragma unroll
+  for (int m = 0; m < L::KH; ++m) {
+#pragma unroll
+    for (int n = 0; n < L::NVI; ++n) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        trans_a(dvh[d], m, a);
+        mma_bf16(acc, a, trans_b(xv[d], n));
+      }
+      slab_add(slab, L::G_WH + m * L::NVI + n, lane, acc);
+    }
+  }
+}
+
+template <class L>
+__device__ __forceinline__ void cache_store(uint4* cache, int lane, const ATile<L::KS>& xs,
+                                            const ATile<L::KV> (&xv)[3]) {
+#pragma unroll
+  for (int k = 0; k < L::KS; ++k) {
+    cache[k * 32 + lane] = make_uint4(xs.v[k][0], xs.v[k][1], xs.v[k][2], xs.v[k][3]);
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+#pragma unroll
+    for (int k = 0; k < L::KV; ++k) {
+      cache[(L::KS + d * L::KV + k) * 32 + lane] =
+          make_uint4(xv[d].v[k][0], xv[d].v[k][1], xv[d].v[k][2], xv[d].v[k][3]);
+    }
+  }
+}
+
+template <class L>
+__device__ __forceinline__ void cache_load(const uint4* cache, int lane, ATile<L::KS>& xs,
+                                           ATile<L::KV> (&xv)[3]) {
+#pragma unroll
+  for (int k = 0; k < L::KS; ++k) {
+    const uint4 u = cache[k * 32 + lane];
+    xs.v[k][0] = u.x;
+    xs.v[k][1] = u.y;
+    xs.v[k][2] = u.z;
+    xs.v[k][3] = u.w;
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+#pragma unroll
+    for (int k = 0; k < L::KV; ++k) {
+      const uint4 u = cache[(L::KS + d * L::KV + k) * 32 + lane];
+      xv[d].v[k][0] = u.x;
+      xv[d].v[k][1] = u.y;
+      xv[d].v[k][2] = u.z;
+      xv[d].v[k][3] = u.w;
+    }
+  }
+}
+
+// The packed index of a layer's weight-gradient entry: row r, column c of
+// slab fragment f (or of the bias sums when f < 0, at column c); -1 for
+// padding.
+template <class L>
+__device__ __forceinline__ int grad_index(int f, int r, int c) {
+  if (f < 0) {
+    const int o = c - 8 * L::NSO;
+    if (o < 0) return c < L::SO ? L::P_BS + c : -1;
+    return o < L::VO ? L::P_BSV + o : -1;
+  }
+  if (f < L::G_WS) {
+    const int i = 16 * (f / L::NVO) + r, o = 8 * (f % L::NVO) + c;
+    return i < L::SO && o < L::VO ? L::P_WSV + o * L::SO + i : -1;
+  }
+  if (f < L::G_WV) {
+    const int ff = f - L::G_WS, n = ff % (L::NSI + L::NH), o = 16 * (ff / (L::NSI + L::NH)) + r;
+    if (o >= L::SO) return -1;
+    if (n < L::NSI) {
+      const int k = 8 * n + c;
+      return k < L::SI ? L::P_WS + o * (L::SI + L::H) + k : -1;
+    }
+    const int k = 8 * (n - L::NSI) + c;
+    return k < L::H ? L::P_WS + o * (L::SI + L::H) + L::SI + k : -1;
+  }
+  if (f < L::G_WH) {
+    const int ff = f - L::G_WV, j = 16 * (ff / L::NVO) + r, o = 8 * (ff % L::NVO) + c;
+    return j < L::H && o < L::VO ? L::P_WV + o * L::H + j : -1;
+  }
+  const int ff = f - L::G_WH, j = 16 * (ff / L::NVI) + r, i = 8 * (ff % L::NVI) + c;
+  return j < L::H && i < L::VI ? L::P_WH + j * L::VI + i : -1;
+}
+
+// The dtypes of K5 bwd's tensors as bits: both, es, ev, dout (bf16 where
+// set). The bf16 training step's: both and es f32, ev bf16, dout f32.
+constexpr int DT_STEP = 1 << 2;
+
+// ACT_S, ACT_V and DT fix the activations and dtypes at compile time where
+// they are >= 0 (the instance for the served model's bf16 step drops the
+// runtime branches of every load, store and activation); -1 takes them from
+// the arguments.
+template <class Net, int ACT_S, int ACT_V, int DT>
+__global__ void __launch_bounds__(MMA_THREADS, MMA_BLOCKS_PER_SM)
+message_bwd_mma_kernel(Inputs in, int n_layers, const float* __restrict__ w, int act_s, int act_v,
+                       const void* __restrict__ dout, int dout_bf16, void* __restrict__ dboth,
+                       void* __restrict__ des, void* __restrict__ dev,
+                       float* __restrict__ partial, int n_w) {
+  if constexpr (ACT_S >= 0) act_s = ACT_S;
+  if constexpr (ACT_V >= 0) act_v = ACT_V;
+  if constexpr (DT >= 0) {
+    in.both_bf16 = DT & 1;
+    in.es_bf16 = (DT >> 1) & 1;
+    in.ev_bf16 = (DT >> 2) & 1;
+    dout_bf16 = (DT >> 3) & 1;
+  }
+  using L0 = typename Net::L0;
+  using L1 = typename Net::L1;
+  constexpr int NS = Net::NS, NV = Net::NV, SE = Net::SE, VE = Net::VE;
+  constexpr int FB = NS + 3 * NV, SO = L0::SO, VO = L0::VO, FO = SO + 3 * VO;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  const MmaSmem s = mma_smem<Net>(n_layers);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c0 = 2 * (lane & 3);
+
+  uint2* const B0 = reinterpret_cast<uint2*>(smem_bytes);
+  float* const bias0 = reinterpret_cast<float*>(smem_bytes + s.bias0);
+  // layer k >= 1's staged weights and biases
+  auto b_of = [&](int k) {
+    return reinterpret_cast<uint2*>(smem_bytes + s.b1) + (k - 1) * L1::NB * 32;
+  };
+  auto bias_of = [&](int k) {
+    return reinterpret_cast<float*>(smem_bytes + s.bias1) + (k - 1) * L1::BIAS;
+  };
+  stage_layer<L0>(w, B0, bias0);
+  for (int k = 1; k < n_layers; ++k) {
+    stage_layer<L1>(w + L0::NW + (k - 1) * L1::NW, b_of(k), bias_of(k));
+  }
+  for (int i = threadIdx.x; i < MMA_WARPS * s.per_warp / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(smem_bytes + s.warp0)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+
+  unsigned char* const mine = smem_bytes + s.warp0 + warp * s.per_warp;
+  uint4* const cache0 = reinterpret_cast<uint4*>(mine);
+  auto cache_of = [&](int k) {
+    return reinterpret_cast<uint4*>(mine + s.cache1) + (k - 1) * L1::CACHE * 32;
+  };
+  float4* const slab0 = reinterpret_cast<float4*>(mine + s.slab);
+  auto slab_of = [&](int k) { return slab0 + (L0::NG + (k - 1) * L1::NG) * 32; };
+  float* const gbias0 = reinterpret_cast<float*>(mine + s.gbias);
+  auto gbias_of = [&](int k) { return gbias0 + L0::BIAS + (k - 1) * L1::BIAS; };
+
+  const int64_t n_tiles = (in.R + MMA_ROWS - 1) / MMA_ROWS;
+  const int64_t stride = (int64_t)gridDim.x * MMA_WARPS;
+  for (int64_t tile = (int64_t)blockIdx.x * MMA_WARPS + warp; tile < n_tiles; tile += stride) {
+    // the lane's two edges, rows g and g + 8 of the tile. Every load below
+    // is unconditional (its address picked by selects), so a lane issues
+    // them all before it waits: an edge past R reads edge R - 1, a column
+    // past the widths the last column, and the value is zeroed after.
+    int64_t r[2], src[2], dst[2];
+    bool ok[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t re = tile * MMA_ROWS + g + 8 * h;
+      ok[h] = re < in.R;
+      r[h] = ok[h] ? re : in.R - 1;
+      const int64_t b = r[h] / in.E, j = r[h] - b * in.E;
+      src[h] = b * 2 * (int64_t)in.E + j;
+      dst[h] = src[h] + in.E;
+    }
+    // the first layer's inputs, rounded: s = (s_j, es, s_i), v = (v_j, ev, v_i)
+    auto s_in = [&](int h, int k) -> float {
+      const int kk = k < L0::SI ? k : L0::SI - 1;
+      const bool j = kk < NS, e = !j && kk < NS + SE;
+      const float x = load(e ? in.es : in.both,
+                           j ? src[h] * FB + kk
+                             : e ? r[h] * SE + (kk - NS) : dst[h] * FB + (kk - NS - SE),
+                           e ? in.es_bf16 : in.both_bf16);
+      return ok[h] && k < L0::SI ? x : 0.f;
+    };
+    auto v_in = [&](int h, int i, int d) -> float {
+      const int ii = i < L0::VI ? i : L0::VI - 1;
+      const bool j = ii < NV, e = !j && ii < NV + VE;
+      const float x = load(e ? in.ev : in.both,
+                           j ? src[h] * FB + NS + 3 * ii + d
+                             : e ? r[h] * 3 * VE + 3 * (ii - NV) + d
+                                 : dst[h] * FB + NS + 3 * (ii - NV - VE) + d,
+                           e ? in.ev_bf16 : in.both_bf16);
+      return ok[h] && i < L0::VI ? x : 0.f;
+    };
+    {
+      ATile<L0::KS> xs;
+      ATile<L0::KV> xv[3];
+#pragma unroll
+      for (int k = 0; k < L0::KS; ++k) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int col = 16 * k + c0 + 8 * (q >> 1), h = q & 1;
+          xs.v[k][q] = pack_bf16(s_in(h, col), s_in(h, col + 1));
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+#pragma unroll
+        for (int k = 0; k < L0::KV; ++k) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int col = 16 * k + c0 + 8 * (q >> 1), h = q & 1;
+            xv[d].v[k][q] = pack_bf16(v_in(h, col, d), v_in(h, col + 1, d));
+          }
+        }
+      }
+      cache_store<L0>(cache0, lane, xs, xv);
+      // the forward, keeping every later layer's inputs
+      if (n_layers > 1) {
+        ATile<L1::KS> ys;
+        ATile<L1::KV> yv[3];
+        {
+          Fwd<L0> f;
+          fwd_mma<L0>(B0, bias0, act_v, xs, xv, f, lane);
+          fwd_out<L0>(f, act_s, ys, yv);
+        }
+        cache_store<L1>(cache_of(1), lane, ys, yv);
+        for (int k = 1; k < n_layers - 1; ++k) {
+          Fwd<L1> f;
+          fwd_mma<L1>(b_of(k), bias_of(k), act_v, ys, yv, f, lane);
+          fwd_out<L1>(f, act_s, ys, yv);
+          cache_store<L1>(cache_of(k + 1), lane, ys, yv);
+        }
+      }
+    }
+    // the cotangent of the last layer's output: ds [so], dv [3vo]
+    CTile<L0::NSO> ds;
+    CTile<L0::NVO> dv[3];
+#pragma unroll
+    for (int n = 0; n < L0::NSO; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 8 * n + c0 + (i & 1), h = i >> 1;
+        const float x = load(dout, r[h] * FO + (col < SO ? col : SO - 1), dout_bf16);
+        ds.v[n][i] = ok[h] && col < SO ? x : 0.f;
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+#pragma unroll
+      for (int n = 0; n < L0::NVO; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = 8 * n + c0 + (i & 1), h = i >> 1;
+          const float x = load(dout, r[h] * FO + SO + 3 * (col < VO ? col : VO - 1) + d, dout_bf16);
+          dv[d].v[n][i] = ok[h] && col < VO ? x : 0.f;
+        }
+      }
+    }
+    // the later layers backwards, each forward recomputed from its inputs
+    for (int k = n_layers - 1; k >= 1; --k) {
+      const bool last = k == n_layers - 1;
+      const int as = last ? ACT_NONE : act_s, av = last ? ACT_NONE : act_v;
+      ATile<L1::KS> ys;
+      ATile<L1::KV> yv[3];
+      cache_load<L1>(cache_of(k), lane, ys, yv);
+      Fwd<L1> f;
+      fwd_mma<L1>(b_of(k), bias_of(k), av, ys, yv, f, lane);
+      CTile<L1::NSI> ds_in;
+      CTile<L1::NVI> dv_in[3];
+      bwd_mma<L1>(
+          b_of(k), as, av, ys, yv, f, ds, dv, slab_of(k), gbias_of(k), lane,
+          [&](int n, const float (&c)[4]) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) ds_in.v[n][i] = c[i];
+          },
+          [&](int d, int n, const float (&c)[4]) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) dv_in[d].v[n][i] = c[i];
+          });
+      ds = ds_in;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) dv[d] = dv_in[d];
+    }
+    // the first layer, its input cotangents stored: d(both) source rows,
+    // d(es), d(both) destination rows; the same for the vectors and d(ev)
+    {
+      const bool last = n_layers == 1;
+      const int as = last ? ACT_NONE : act_s, av = last ? ACT_NONE : act_v;
+      ATile<L0::KS> xs;
+      ATile<L0::KV> xv[3];
+      cache_load<L0>(cache0, lane, xs, xv);
+      Fwd<L0> f;
+      fwd_mma<L0>(B0, bias0, av, xs, xv, f, lane);
+      bwd_mma<L0>(
+          B0, as, av, xs, xv, f, ds, dv, slab0, gbias0, lane,
+          [&](int n, const float (&c)[4]) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int col = 8 * n + c0 + (i & 1), h = i >> 1;
+              if (!ok[h] || col >= L0::SI) continue;
+              if (col < NS) {
+                store(dboth, src[h] * FB + col, c[i], in.both_bf16);
+              } else if (col < NS + SE) {
+                store(des, r[h] * SE + (col - NS), c[i], in.es_bf16);
+              } else {
+                store(dboth, dst[h] * FB + (col - NS - SE), c[i], in.both_bf16);
+              }
+            }
+          },
+          [&](int d, int n, const float (&c)[4]) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int col = 8 * n + c0 + (i & 1), h = i >> 1;
+              if (!ok[h] || col >= L0::VI) continue;
+              if (col < NV) {
+                store(dboth, src[h] * FB + NS + 3 * col + d, c[i], in.both_bf16);
+              } else if (col < NV + VE) {
+                store(dev, r[h] * 3 * VE + 3 * (col - NV) + d, c[i], in.ev_bf16);
+              } else {
+                store(dboth, dst[h] * FB + NS + 3 * (col - NV - VE) + d, c[i], in.both_bf16);
+              }
+            }
+          });
+    }
+  }
+  __syncthreads();
+  // the block's row of weight gradients: the warps' slabs added in warp order
+  const int frag_floats = (L0::NG + (n_layers - 1) * L1::NG) * 128;
+  for (int p = threadIdx.x; p < s.slab_floats; p += blockDim.x) {
+    float sum = 0.f;
+    for (int v = 0; v < MMA_WARPS; ++v) {
+      sum += reinterpret_cast<const float*>(smem_bytes + s.warp0 + v * s.per_warp + s.slab)[p];
+    }
+    int idx;
+    if (p < frag_floats) {
+      const int f = p >> 7, ln = (p >> 2) & 31, q = p & 3;
+      const int rr = (ln >> 2) + 8 * (q >> 1), cc = 2 * (ln & 3) + (q & 1);
+      if (f < L0::NG) {
+        idx = grad_index<L0>(f, rr, cc);
+      } else {
+        const int k = 1 + (f - L0::NG) / L1::NG;
+        idx = grad_index<L1>((f - L0::NG) % L1::NG, rr, cc);
+        if (idx >= 0) idx += L0::NW + (k - 1) * L1::NW;
+      }
+    } else {
+      const int q = p - frag_floats;
+      if (q < L0::BIAS) {
+        idx = grad_index<L0>(-1, 0, q);
+      } else {
+        const int k = 1 + (q - L0::BIAS) / L1::BIAS;
+        idx = grad_index<L1>(-1, 0, (q - L0::BIAS) % L1::BIAS);
+        if (idx >= 0) idx += L0::NW + (k - 1) * L1::NW;
+      }
+    }
+    if (idx >= 0) partial[(int64_t)blockIdx.x * n_w + idx] = sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6: copy-cast
+// ---------------------------------------------------------------------------
+
+constexpr int K6_THREADS = 256;
+constexpr int K6_BLOCKS_PER_SM = 2048 / K6_THREADS;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename TO> __device__ __forceinline__ TO from_f32(float x);
@@ -656,6 +1572,60 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
+// One unit of a vectorised copy-cast: 16 bytes of the wider dtype and the
+// same elements of the other, so a warp's loads and stores are each
+// contiguous. The same dtype copies a word; f32 -> bf16 rounds 4 elements
+// to nearest even, bf16 -> f32 widens 4 exactly.
+template <typename TI, typename TO>
+struct K6Unit;
+
+template <typename T>
+struct K6Unit<T, T> {
+  using In = uint4;
+  using Out = uint4;
+  static constexpr int ELEMS = 16 / (int)sizeof(T);
+  static __device__ __forceinline__ uint4 convert(const uint4& x) { return x; }
+};
+
+template <>
+struct K6Unit<float, __nv_bfloat16> {
+  using In = uint4;
+  using Out = uint2;
+  static constexpr int ELEMS = 4;
+  static __device__ __forceinline__ uint2 convert(const uint4& x) {
+    return make_uint2(pack_bf16(__uint_as_float(x.x), __uint_as_float(x.y)),
+                      pack_bf16(__uint_as_float(x.z), __uint_as_float(x.w)));
+  }
+};
+
+template <>
+struct K6Unit<__nv_bfloat16, float> {
+  using In = uint2;
+  using Out = uint4;
+  static constexpr int ELEMS = 4;
+  static __device__ __forceinline__ uint4 convert(const uint2& x) {
+    return make_uint4(x.x << 16, x.x & 0xffff0000u, x.y << 16, x.y & 0xffff0000u);
+  }
+};
+
+// y = x for `units` units (K6Unit) of 16-byte-aligned x and y, one a thread
+// a round, grid-stride; then the n - units * ELEMS elements past them, one a
+// thread of block 0.
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(K6_THREADS)
+cast_vec_kernel(const TI* __restrict__ x, TO* __restrict__ y, int64_t units, int64_t n) {
+  using U = K6Unit<TI, TO>;
+  const typename U::In* xu = reinterpret_cast<const typename U::In*>(x);
+  typename U::Out* yu = reinterpret_cast<typename U::Out*>(y);
+  const int64_t stride = (int64_t)gridDim.x * K6_THREADS;
+  for (int64_t u = (int64_t)blockIdx.x * K6_THREADS + threadIdx.x; u < units; u += stride) {
+    yu[u] = U::convert(__ldg(xu + u));
+  }
+  const int64_t tail = units * U::ELEMS + threadIdx.x;
+  if (blockIdx.x == 0 && tail < n) y[tail] = from_f32<TO>(to_f32(x[tail]));
+}
+
+// pointers off 16-byte alignment: one element a thread, grid-stride
 template <typename TI, typename TO>
 __global__ void __launch_bounds__(K6_THREADS)
 cast_copy_kernel(const TI* __restrict__ x, TO* __restrict__ y, int64_t n) {
@@ -665,23 +1635,40 @@ cast_copy_kernel(const TI* __restrict__ x, TO* __restrict__ y, int64_t n) {
   }
 }
 
-// same dtype: a copy of 16-byte words
-__global__ void __launch_bounds__(K6_THREADS)
-copy16_kernel(const uint4* __restrict__ x, uint4* __restrict__ y, int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) y[i] = x[i];
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      sms = 132;
+    }
+  }
+  return sms;
 }
 
-unsigned k6_blocks(int64_t n) {
-  int64_t blocks = (n + K6_THREADS - 1) / K6_THREADS;
-  return (unsigned)(blocks > K6_MAX_BLOCKS ? K6_MAX_BLOCKS : blocks);
-}
-
+// The grid stays within one wave of the card (K6_BLOCKS_PER_SM blocks of
+// K6_THREADS a SM); a larger tensor is walked grid-stride.
 template <typename TI, typename TO>
 void launch_cast(const void* x, void* y, int64_t n, cudaStream_t s) {
-  cast_copy_kernel<TI, TO><<<k6_blocks(n), K6_THREADS, 0, s>>>(static_cast<const TI*>(x),
-                                                               static_cast<TO*>(y), n);
+  const TI* xt = static_cast<const TI*>(x);
+  TO* yt = static_cast<TO*>(y);
+  const int64_t wave = (int64_t)sm_count() * K6_BLOCKS_PER_SM;
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0) {
+    const int64_t blocks = (n + K6_THREADS - 1) / K6_THREADS;
+    cast_copy_kernel<TI, TO><<<(unsigned)(blocks < wave ? blocks : wave), K6_THREADS, 0, s>>>(
+        xt, yt, n);
+    return;
+  }
+  const int64_t units = n / K6Unit<TI, TO>::ELEMS;
+  int64_t blocks = (units + K6_THREADS - 1) / K6_THREADS;
+  blocks = blocks < 1 ? 1 : blocks > wave ? wave : blocks;
+  cast_vec_kernel<TI, TO><<<(unsigned)blocks, K6_THREADS, 0, s>>>(xt, yt, units, n);
 }
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
 
 bool valid(const int* dims, const Shape& sh) {
   if (sh.n_layers < 1 || sh.ns < 0 || sh.nv < 1 || sh.se < 0 || sh.ve < 1) return false;
@@ -689,6 +1676,33 @@ bool valid(const int* dims, const Shape& sh) {
     if (dims[3 * k] < 1 || dims[3 * k + 1] < 0 || dims[3 * k + 2] < 1) return false;
   }
   return true;
+}
+
+// Whether the widths are those of the MmaNet instance Net.
+template <class Net>
+bool is_net(const int* dims, const Shape& sh) {
+  using L0 = typename Net::L0;
+  using L1 = typename Net::L1;
+  if (sh.ns != Net::NS || sh.nv != Net::NV || sh.se != Net::SE || sh.ve != Net::VE) return false;
+  if (dims[0] != L0::H || dims[1] != L0::SO || dims[2] != L0::VO) return false;
+  for (int k = 1; k < sh.n_layers; ++k) {
+    if (dims[3 * k] != L1::H || dims[3 * k + 1] != L1::SO || dims[3 * k + 2] != L1::VO) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// K5 bwd takes the warp-tile kernel for the bf16 compute dtype at the widths
+// of an MmaNet instance, the block-tile kernel otherwise.
+bool bwd_on_mma(const int* dims, const Shape& sh, int cdt_bf16) {
+  return cdt_bf16 && is_net<ServedNet>(dims, sh);
+}
+
+// The warp-tile instance for these activations and dtypes (DT_STEP's bits):
+// the served model's bf16 step, (relu, none), has one of its own.
+bool bwd_step_instance(int act_s, int act_v, int dt) {
+  return act_s == ACT_RELU && act_v == ACT_NONE && dt == DT_STEP;
 }
 
 template <bool BF>
@@ -707,9 +1721,27 @@ int launch_fwd(const Inputs& in, const Shape& sh, const int* dims_dev, const Wid
   return (int)cudaGetLastError();
 }
 
-int64_t bwd_block_count(int64_t R) {
+int64_t bwd_block_count(int64_t R, bool mma) {
+  if (mma) {
+    const int64_t tiles = (R + MMA_ROWS - 1) / MMA_ROWS;
+    const int64_t blocks = (tiles + MMA_WARPS - 1) / MMA_WARPS;
+    const int64_t resident = (int64_t)sm_count() * MMA_BLOCKS_PER_SM;
+    return blocks < resident ? blocks : resident;
+  }
   const int64_t tiles = (R + BWD_TILE - 1) / BWD_TILE;
   return (tiles + BWD_TILES_PER_BLOCK - 1) / BWD_TILES_PER_BLOCK;
+}
+
+int64_t bwd_smem_bytes(const int* dims, const Shape& sh, int cdt_bf16) {
+  if (bwd_on_mma(dims, sh, cdt_bf16)) return mma_smem<ServedNet>(sh.n_layers).total;
+  return bwd_smem(widths(dims, sh));
+}
+
+int reduce_rows(const float* partial, float* dw, int64_t blocks, int n_w, cudaStream_t s) {
+  const dim3 block(REDUCE_COLS, REDUCE_SEGS);
+  reduce_rows_kernel<<<(unsigned)((n_w + REDUCE_COLS - 1) / REDUCE_COLS), block, 0, s>>>(
+      partial, dw, (int)blocks, n_w);
+  return (int)cudaGetLastError();
 }
 
 template <bool BF>
@@ -723,15 +1755,37 @@ int launch_bwd(const Inputs& in, const Shape& sh, const int* dims_dev, const Wid
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
-  const int64_t blocks = bwd_block_count(in.R);
+  const int64_t blocks = bwd_block_count(in.R, false);
   message_bwd_kernel<BF><<<(unsigned)blocks, THREADS, (size_t)bwd_smem(wd), s>>>(
       in, sh, dims_dev, w, act_s, act_v, dout, dout_bf16, dboth, des, dev, partial);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(REDUCE_COLS, REDUCE_SEGS);
-  reduce_rows_kernel<<<(unsigned)((wd.n_w + REDUCE_COLS - 1) / REDUCE_COLS), block, 0, s>>>(
-      partial, dw, (int)blocks, wd.n_w);
-  return (int)cudaGetLastError();
+  return reduce_rows(partial, dw, blocks, wd.n_w, s);
+}
+
+template <class Net, int ACT_S, int ACT_V, int DT>
+int launch_bwd_mma(const Inputs& in, const Shape& sh, int n_w, const float* w, int act_s,
+                   int act_v, const void* dout, int dout_bf16, void* dboth, void* des, void* dev,
+                   float* partial, float* dw, cudaStream_t s) {
+  const auto kernel = message_bwd_mma_kernel<Net, ACT_S, ACT_V, DT>;
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  const int64_t blocks = bwd_block_count(in.R, true);
+  const MmaSmem sm = mma_smem<Net>(sh.n_layers);
+  kernel<<<(unsigned)blocks, MMA_THREADS, (size_t)sm.total, s>>>(
+      in, sh.n_layers, w, act_s, act_v, dout, dout_bf16, dboth, des, dev, partial, n_w);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return reduce_rows(partial, dw, blocks, n_w, s);
 }
 
 }  // namespace
@@ -739,18 +1793,35 @@ int launch_bwd(const Inputs& in, const Shape& sh, const int* dims_dev, const Wid
 extern "C" {
 
 // Bytes of shared memory a block of K5 fwd (backward == 0) or K5 bwd
-// (backward != 0) needs for this shape; -1 for a shape it does not take.
-// dims: (h, so, vo) of each of the n_layers layers, on the host.
+// (backward != 0; its kernel depends on the compute dtype, cdt_bf16) needs
+// for this shape; -1 for a shape it does not take. dims: (h, so, vo) of each
+// of the n_layers layers, on the host.
 long long k5_smem_bytes(const int* dims, int n_layers, int ns, int nv, int se, int ve,
-                        int backward) {
+                        int backward, int cdt_bf16) {
   const Shape sh = {n_layers, ns, nv, se, ve};
   if (!valid(dims, sh)) return -1;
-  const Widths wd = widths(dims, sh);
-  return backward ? bwd_smem(wd) : fwd_smem(wd);
+  return backward ? bwd_smem_bytes(dims, sh, cdt_bf16) : fwd_smem(widths(dims, sh));
 }
 
-// Rows of K5 bwd's weight-gradient scratch for R = B * E edges.
-long long k5_bwd_blocks(long long R) { return bwd_block_count(R); }
+// The kernel K5 bwd runs for this shape, compute dtype, activations and
+// dtypes (both_bf16 | es_bf16 << 1 | ev_bf16 << 2 | dout_bf16 << 3): 0 the
+// block-tile kernel, 1 the warp-tile (mma.sync) kernel, 2 its instance for
+// the served model's bf16 step.
+int k5_bwd_kernel(const int* dims, int n_layers, int ns, int nv, int se, int ve, int cdt_bf16,
+                  int act_s, int act_v, int dtypes) {
+  const Shape sh = {n_layers, ns, nv, se, ve};
+  if (!valid(dims, sh) || !bwd_on_mma(dims, sh, cdt_bf16)) return 0;
+  return bwd_step_instance(act_s, act_v, dtypes) ? 2 : 1;
+}
+
+// Rows of K5 bwd's weight-gradient scratch for R = B * E edges (on the
+// current device, for the warp-tile kernel).
+long long k5_bwd_blocks(const int* dims, int n_layers, int ns, int nv, int se, int ve,
+                        int cdt_bf16, long long R) {
+  const Shape sh = {n_layers, ns, nv, se, ve};
+  if (!valid(dims, sh)) return -1;
+  return bwd_block_count(R, bwd_on_mma(dims, sh, cdt_bf16));
+}
 
 // both [B, 2E, ns + 3nv], es [B, E, se], ev [B, E, 3ve] (each f32, or bf16
 // where its flag is set), w the packed f32 weights (n_w entries, layer by
@@ -775,7 +1846,7 @@ int k5_message_fwd(const void* both, const void* es, const void* ev, const float
 // The inputs as for k5_message_fwd, plus dout [B, E, so + 3vo] (f32, or bf16
 // with dout_bf16). Writes dboth [B, 2E, ns + 3nv], des [B, E, se] and dev
 // [B, E, 3ve] in the dtypes of both, es and ev, and dw [n_w] f32, the weight
-// gradients packed as w. partial: f32 scratch of k5_bwd_blocks(B * E) rows of
+// gradients packed as w. partial: f32 scratch of k5_bwd_blocks(...) rows of
 // n_w. Two launches: the tiles, then the sum of their rows.
 int k5_message_bwd(const void* both, const void* es, const void* ev, const float* w,
                    const int* dims_dev, const int* dims_host, const void* dout, void* dboth,
@@ -785,9 +1856,20 @@ int k5_message_bwd(const void* both, const void* es, const void* ev, const float
   const Shape sh = {n_layers, ns, nv, se, ve};
   if (!valid(dims_host, sh) || B < 1 || E < 1) return (int)cudaErrorInvalidValue;
   const Widths wd = widths(dims_host, sh);
-  if (wd.n_w != n_w || bwd_smem(wd) > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (wd.n_w != n_w || bwd_smem_bytes(dims_host, sh, cdt_bf16) > MAX_SMEM) {
+    return (int)cudaErrorInvalidValue;
+  }
   const Inputs in = {both, es, ev, both_bf16, es_bf16, ev_bf16, (int64_t)B * E, E};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bwd_on_mma(dims_host, sh, cdt_bf16)) {
+    const int dt = both_bf16 | es_bf16 << 1 | ev_bf16 << 2 | dout_bf16 << 3;
+    return bwd_step_instance(act_s, act_v, dt)
+               ? launch_bwd_mma<ServedNet, ACT_RELU, ACT_NONE, DT_STEP>(
+                     in, sh, n_w, w, act_s, act_v, dout, dout_bf16, dboth, des, dev, partial, dw, s)
+               : launch_bwd_mma<ServedNet, -1, -1, -1>(in, sh, n_w, w, act_s, act_v, dout,
+                                                       dout_bf16, dboth, des, dev, partial, dw,
+                                                       s);
+  }
   return cdt_bf16
              ? launch_bwd<true>(in, sh, dims_dev, wd, w, act_s, act_v, dout, dout_bf16, dboth,
                                 des, dev, partial, dw, s)
@@ -799,12 +1881,7 @@ int k5_message_bwd(const void* both, const void* es, const void* ev, const float
 int k6_cast_copy(const void* x, void* y, long long n, int x_bf16, int y_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  const int64_t bytes = n * (x_bf16 ? 2 : 4);
-  if (x_bf16 == y_bf16 && bytes % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(y) % 16 == 0) {
-    copy16_kernel<<<k6_blocks(bytes / 16), K6_THREADS, 0, s>>>(
-        static_cast<const uint4*>(x), static_cast<uint4*>(y), bytes / 16);
-  } else if (x_bf16 && y_bf16) {
+  if (x_bf16 && y_bf16) {
     launch_cast<__nv_bfloat16, __nv_bfloat16>(x, y, n, s);
   } else if (x_bf16) {
     launch_cast<__nv_bfloat16, float>(x, y, n, s);

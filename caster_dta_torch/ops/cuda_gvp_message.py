@@ -62,9 +62,11 @@ def load_library() -> build.Built:
         built = build.build("gvp_message.cu")
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib = built.lib
-        lib.k5_smem_bytes.argtypes = [vp, i, i, i, i, i, i]
+        lib.k5_smem_bytes.argtypes = [vp, i, i, i, i, i, i, i]
         lib.k5_smem_bytes.restype = ll
-        lib.k5_bwd_blocks.argtypes = [ll]
+        lib.k5_bwd_kernel.argtypes = [vp] + [i] * 9
+        lib.k5_bwd_kernel.restype = i
+        lib.k5_bwd_blocks.argtypes = [vp, i, i, i, i, i, i, ll]
         lib.k5_bwd_blocks.restype = ll
         lib.k5_message_fwd.argtypes = [vp] * 7 + [i] * 14 + [vp]
         lib.k5_message_fwd.restype = i
@@ -279,8 +281,13 @@ def _dims_args(dims: tuple, device: torch.device):
     return (ctypes.c_int * len(flat))(*flat), _dims_on_device[key]
 
 
+def _cdt_bf16(spec: MessageSpec) -> int:
+    return int(spec.compute_dtype == torch.bfloat16)
+
+
 def _check_smem(lib, name, dims, dims_host, spec, se, ve, backward) -> None:
-    need = lib.k5_smem_bytes(dims_host, len(dims), spec.ns, spec.nv, se, ve, int(backward))
+    need = lib.k5_smem_bytes(dims_host, len(dims), spec.ns, spec.nv, se, ve, int(backward),
+                             _cdt_bf16(spec))
     if need < 0:
         raise ValueError(f"{name}: layer widths {dims} with ns={spec.ns}, nv={spec.nv}, "
                          f"se={se}, ve={ve} are not taken")
@@ -288,6 +295,24 @@ def _check_smem(lib, name, dims, dims_host, spec, se, ve, backward) -> None:
         raise ValueError(f"{name}: layer widths (h, so, vo) {dims} with ns={spec.ns}, "
                          f"nv={spec.nv}, se={se}, ve={ve} need {need} bytes of shared memory "
                          f"per block, over the {SMEM_LIMIT} a block can have")
+
+
+BWD_KERNELS = ("block tiles", "warp tiles", "warp tiles, bf16 step")
+
+
+def bwd_kernel(both, es, ev, weights, dout, spec: MessageSpec) -> str:
+    """Which kernel ``message_bwd`` runs for these arguments (one of
+    BWD_KERNELS): the block-tile kernel (f32 products, or widths without a
+    warp-tile instance), the warp-tile kernel (mma.sync, bf16 products), or
+    its instance for the served model's bf16 training step ((relu, none)
+    activations; both, es and dout f32, ev bf16). Builds the library."""
+    dims = _layer_dims(weights, spec, es.shape[-1], ev.shape[-1] // 3)
+    flat = [x for d in dims for x in d]
+    dtypes = sum(_is_bf16(t) << k for k, t in enumerate((both, es, ev, dout)))
+    return BWD_KERNELS[load_library().lib.k5_bwd_kernel(
+        (ctypes.c_int * len(flat))(*flat), len(dims), spec.ns, spec.nv, es.shape[-1],
+        ev.shape[-1] // 3, _cdt_bf16(spec), _ACT_CODES[spec.act_s], _ACT_CODES[spec.act_v],
+        dtypes)]
 
 
 def _pack(weights) -> torch.Tensor:
@@ -330,7 +355,7 @@ def message_fwd(both: torch.Tensor, es: torch.Tensor, ev: torch.Tensor,
             both.data_ptr(), es.data_ptr(), ev.data_ptr(), w.data_ptr(), dims_dev.data_ptr(),
             dims_host, out.data_ptr(), b, e, spec.ns, spec.nv, se, ve, len(dims), w.numel(),
             _ACT_CODES[spec.act_s], _ACT_CODES[spec.act_v], _is_bf16(both), _is_bf16(es),
-            _is_bf16(ev), int(spec.compute_dtype == torch.bfloat16), stream)
+            _is_bf16(ev), _cdt_bf16(spec), stream)
     _raise_on(err, K5F)
     LAUNCHES[K5F] += 1
     return out
@@ -345,7 +370,9 @@ def message_bwd(both: torch.Tensor, es: torch.Tensor, ev: torch.Tensor,
     have a fixed order and no atomics: two runs give the same bits.
 
     Replaces caster_dta_tpu/ops/pallas_gvp_message.py::_bwd_kernel. Bound by
-    memory bytes on the H100 (see the source)."""
+    memory bytes on the H100 (see the source); with the bf16 compute dtype
+    at the served model's widths it runs on warp tiles of 16 edges and
+    mma.sync (``bwd_kernel``)."""
     if both.device.type == "cpu":
         return message_bwd_plain(both, es, ev, weights, dout, spec)
     if both.device.type != "cuda":
@@ -364,18 +391,18 @@ def message_bwd(both: torch.Tensor, es: torch.Tensor, ev: torch.Tensor,
     lib = load_library().lib
     dims_host, dims_dev = _dims_args(dims, both.device)
     _check_smem(lib, K5B, dims, dims_host, spec, se, ve, backward=True)
-    partial = torch.empty(lib.k5_bwd_blocks(b * e), w.numel(), dtype=torch.float32,
-                          device=both.device)
-    dw = torch.empty(w.numel(), dtype=torch.float32, device=both.device)
     with torch.cuda.device(both.device):
+        rows = lib.k5_bwd_blocks(dims_host, len(dims), spec.ns, spec.nv, se, ve,
+                                 _cdt_bf16(spec), b * e)
+        partial = torch.empty(rows, w.numel(), dtype=torch.float32, device=both.device)
+        dw = torch.empty(w.numel(), dtype=torch.float32, device=both.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.k5_message_bwd(
             both.data_ptr(), es.data_ptr(), ev.data_ptr(), w.data_ptr(), dims_dev.data_ptr(),
             dims_host, dout.data_ptr(), dboth.data_ptr(), des.data_ptr(), dev.data_ptr(),
             partial.data_ptr(), dw.data_ptr(), b, e, spec.ns, spec.nv, se, ve, len(dims),
             w.numel(), _ACT_CODES[spec.act_s], _ACT_CODES[spec.act_v], _is_bf16(both),
-            _is_bf16(es), _is_bf16(ev), _is_bf16(dout), int(spec.compute_dtype == torch.bfloat16),
-            stream)
+            _is_bf16(es), _is_bf16(ev), _is_bf16(dout), _cdt_bf16(spec), stream)
     _raise_on(err, K5B)
     LAUNCHES[K5B] += 1
     return dboth, des, dev, [g.view(wt.shape) for g, wt in zip(dw.split(sizes), weights)]
@@ -394,7 +421,7 @@ def cast_copy(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
     Replaces caster_dta_tpu/ops/pallas_gvp_message.py::_cast_kernel (via
     layout_pin). Bound by memory bytes on the H100: one read and one write
-    per element, 16-byte words where the dtype stays."""
+    per element, in 16-byte words where both pointers are 16-byte aligned."""
     if x.device.type == "cpu":
         return cast_copy_plain(x, dtype)
     if x.device.type != "cuda":

@@ -16,13 +16,16 @@ Phases, each printed before it starts and after it ends with its wall time:
    aggregations), against their plain PyTorch versions on the same inputs:
    K2 must be bit-exact; K1 within K1_RTOL/K1_ATOL of the plain version on
    the card, and bit for bit the plain version's on the CPU (both sum every
-   row in edge order), the same bits on a second call. K5 (the
-   fused GVP message MLP, forward and backward, with the trained model's
-   message weights) and K6 (copy-cast) against theirs at the flagship and
-   Davis shapes, f32 and with the bf16 step's dtypes, within K5_TOL; K6 bit
-   for bit. Edge cases: E off the tiles, one layer, a fused conv whose edges
-   are all masked (its output and every gradient exactly 0), and a second run
-   of K5 that must give the first run's bits. K4 (blockwise masked attention)
+   row in edge order), the same bits on a second call. K5 (the fused GVP
+   message MLP, forward and backward, with the trained model's message
+   weights; K5 bwd on its warp-tile kernel where bf16 is the compute dtype,
+   on its block-tile kernel in f32) and K6 (copy-cast, every f32/bf16 pair,
+   on the node table and on an odd-length slice off 16-byte alignment)
+   against theirs at the flagship and Davis shapes, f32 and with the bf16
+   step's dtypes, within K5_TOL; K6 bit for bit. Edge cases: E off the
+   tiles, one layer, a fused conv whose edges are all masked (its output and
+   every gradient exactly 0), and a second run of K5 that must give the
+   first run's bits. K4 (blockwise masked attention)
    at the cross-attention shapes of the flagship, Davis and large-protein
    requests, both directions, with their masks, against its plain version
    within K4_TOL and bit for bit on a second run; edge cases: a fully masked
@@ -257,7 +260,7 @@ KERNEL_GROUPS = (("K4 attention", "masked_mha"),
                  ("K3 scatter", "scatter_csr"), ("K3 scatter", "scatter_sum"),
                  ("K3 scatter", "scatter_small"), ("K5 fwd", "message_fwd"),
                  ("K5 bwd", "message_bwd"), ("K5 bwd sum", "reduce_rows"),
-                 ("K6 copy-cast", "cast_copy"), ("K6 copy-cast", "copy16"), ("matmul", "gemm"),
+                 ("K6 copy-cast", "cast_vec"), ("K6 copy-cast", "cast_copy"), ("matmul", "gemm"),
                  ("layernorm", "layer_norm"), ("concat", "CatArray"), ("softmax", "softmax"),
                  ("optimizer", "multi_tensor_apply"), ("reduction", "reduce_kernel"),
                  ("copy", "Memcpy"))
@@ -726,17 +729,22 @@ def main() -> int:
             for kind in K5_DTYPES:
                 spec = cgm.MessageSpec(16, 4, acts[0], acts[1],
                                        getattr(torch, K5_DTYPES[kind][3]))
-                k5_check(torch, cgm, f"{label} {kind}", k5_inputs(torch, gen, b, e, kind),
-                         weights, spec, max_err)
+                inputs = k5_inputs(torch, gen, b, e, kind)
+                route = cgm.bwd_kernel(*inputs[:3], weights, inputs[3], spec)
+                k5_check(torch, cgm, f"{label} {kind} (K5 bwd on {route})", inputs, weights,
+                         spec, max_err)
             table = torch.randn(b, batch.protein.n_pad, 28, generator=gen, device="cuda")
-            for src, dst in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
-                             (torch.bfloat16, torch.float32)):
-                x = table.to(src)
-                if not torch.equal(cgm.cast_copy(x, dst), cgm.cast_copy_plain(x, dst)):
-                    raise AssertionError(f"K6 {label} {src} -> {dst}: not bit-exact")
+            flat = table.reshape(-1)
+            f32, bf16 = torch.float32, torch.bfloat16
+            for src, dst in ((f32, f32), (f32, bf16), (bf16, f32), (bf16, bf16)):
+                # the table, and an odd-length slice from element 1 (off 16-byte alignment)
+                for x in (table.to(src), flat[:-2].to(src)[1:]):
+                    if not torch.equal(cgm.cast_copy(x, dst), cgm.cast_copy_plain(x, dst)):
+                        raise AssertionError(f"K6 {label} {src} -> {dst} {tuple(x.shape)}: "
+                                             f"not bit-exact")
             torch.cuda.synchronize()
-            print(f"K6 {label}: table {tuple(table.shape)} f32->f32, f32->bf16, bf16->f32 "
-                  f"bit-exact")
+            print(f"K6 {label}: table {tuple(table.shape)} and a misaligned odd-length slice, "
+                  f"f32->f32, f32->bf16, bf16->f32, bf16->bf16 bit-exact")
         for kind in K5_DTYPES:
             spec = cgm.MessageSpec(16, 4, acts[0], acts[1], getattr(torch, K5_DTYPES[kind][3]))
             k5_check(torch, cgm, f"edge case E=1000 (off the tiles) B=3 {kind}",
@@ -1091,6 +1099,11 @@ def main() -> int:
         else:
             print(f"{tag}train device time: {busy:.3f} ms in {n_kernels:.0f} kernels per step, "
                   f"device idle {1 - busy / step_ms:.1%} of the median step (torch.profiler)")
+            k5b = {name: ms for name, ms in per_kernel.items() if "message_bwd" in name}
+            if k5b:   # which K5 bwd kernel the step ran (the warp-tile one has two instances)
+                print(f"{tag}K5 bwd kernels in the step: " + "; ".join(
+                    f"{name.replace('(anonymous namespace)::', '').split('(')[0]} {ms:.3f} ms"
+                    for name, ms in k5b.items()))
             print(f"{tag}train device time by group: " + ", ".join(
                 f"{g} {ms:.3f} ms ({ms / busy:.1%})" for g, ms in kernel_groups(per_kernel).items()))
             out.update({"kernel ms per step": busy, "kernels per step": n_kernels,

@@ -453,6 +453,45 @@ def test_k5_gives_the_same_bits_twice(cuda, cdt):
         assert torch.equal(a, b)
 
 
+# K5 bwd's warp tiles (16 edges) and blocks (4 warps, at most 2 a SM): edge
+# counts off both, and a grid over which each warp walks many tiles (Davis:
+# 32,768 tiles against 1,056 resident warps on an H100).
+@pytest.mark.parametrize("b,e", [(1, 1), (1, 15), (1, 17), (1, 33), (1, 16 * 37 + 7),
+                                 (3, 16 * 85 + 7), (128, 4096)])
+@pytest.mark.parametrize("dtypes,cdt", [((F32, F32, BF16), BF16), ((F32, F32, F32), F32)],
+                         ids=["bf16 step", "f32"])
+def test_k5_bwd_off_the_tiles(cuda, b, e, dtypes, cdt):
+    both, es, ev, weights, dout = _k5_case(cuda, b, e, 3, ("relu", None), dtypes)
+    spec = cgm.MessageSpec(16, 4, "relu", None, cdt)
+    assert cgm.bwd_kernel(both, es, ev, weights, dout, spec) == (
+        "warp tiles, bf16 step" if cdt == BF16 else "block tiles")
+    before = cgm.LAUNCHES[cgm.K5B]
+    got = cgm.message_bwd(both, es, ev, weights, dout, spec)
+    torch.cuda.synchronize()
+    assert cgm.LAUNCHES[cgm.K5B] == before + 1
+    want = cgm.message_bwd_plain(both, es, ev, weights, dout, spec)
+    for what, g, ref in zip(("d both", "d es", "d ev"), got[:3], want[:3]):
+        assert g.dtype == ref.dtype and g.shape == ref.shape
+        _k5_close(g, ref, cdt, what)
+    for i, (g, ref) in enumerate(zip(got[3], want[3])):
+        _k5_close(g, ref, cdt, f"weight {i}", weight=True)
+
+
+# the warp-tile kernel's instance with activations and dtypes read at run
+# time (the bf16 step with (relu, none) has its own)
+@pytest.mark.parametrize("n_layers,acts", [(1, ("relu", "sigmoid")), (2, ("sigmoid", "sigmoid"))])
+def test_k5_bwd_warp_tiles_other_depths(cuda, n_layers, acts):
+    both, es, ev, weights, dout = _k5_case(cuda, 2, 16 * 9 + 5, n_layers, acts, (F32, F32, BF16))
+    spec = cgm.MessageSpec(16, 4, acts[0], acts[1], BF16)
+    assert cgm.bwd_kernel(both, es, ev, weights, dout, spec) == "warp tiles"
+    runs = [cgm.message_bwd(both, es, ev, weights, dout, spec) for _ in range(2)]
+    want = cgm.message_bwd_plain(both, es, ev, weights, dout, spec)
+    for a, b in zip(list(runs[0][:3]) + runs[0][3], list(runs[1][:3]) + runs[1][3]):
+        assert torch.equal(a, b)
+    for i, (g, ref) in enumerate(zip(list(runs[0][:3]) + runs[0][3], list(want[:3]) + want[3])):
+        _k5_close(g, ref, BF16, f"output {i}", weight=i >= 3)
+
+
 def test_k5_refuses_what_it_does_not_take(cuda):
     both, es, ev, weights, dout = _k5_case(cuda, 2, 64, 3, ("relu", None), (F32, F32, F32))
     spec = cgm.MessageSpec(16, 4, "relu", None, F32)
@@ -480,6 +519,21 @@ def test_k6_is_an_exact_cast(cuda, src, dst, shape):
     assert y.dtype == dst and y.data_ptr() != x.data_ptr()
     assert torch.equal(y, cgm.cast_copy_plain(x, dst))
     assert cgm.LAUNCHES[cgm.K6] == before + 1
+
+
+# K6 moves 16-byte units (8 elements where it casts) and leaves the rest to
+# one thread each; a slice from offset 1 is off 16-byte alignment and takes
+# the element-wise loop.
+@pytest.mark.parametrize("src,dst", [(F32, F32), (F32, BF16), (BF16, F32), (BF16, BF16)])
+@pytest.mark.parametrize("n", [1, 7, 9, 4097, 1_000_003])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k6_odd_lengths_and_a_misaligned_start(cuda, src, dst, n, offset):
+    base = torch.randn(n + offset, device=cuda).to(src)
+    x = base[offset:]
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (offset == 1)
+    y = cgm.cast_copy(x, dst)
+    assert torch.equal(y, cgm.cast_copy_plain(x, dst))
+    assert torch.equal(y.cpu(), x.cpu().to(dst))
 
 
 # K4 against its plain version on the card: the same f32 products summed in
