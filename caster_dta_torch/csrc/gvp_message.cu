@@ -30,8 +30,33 @@
 // in bf16), so the least time is the bytes' time. The products are tiny
 // (K <= 73, N <= 16), far below the 64-row tiles of wgmma.
 //
-// K5 fwd, and K5 bwd in f32 or at widths without a warp-tile instance
-// (message_bwd_kernel): one block per tile of edges stages the packed
+// K5 fwd at the widths of MmaNet instances (the served model's GVP convs, any
+// depth): a warp owns a tile of edges from its input rows to its output
+// rows, with no block barrier after the weights are staged. Its lanes copy
+// the tile's rows of both, es and ev into the warp's staging in shared
+// memory as f32, neighbouring lanes on neighbouring addresses, every load
+// issued before any is waited on, and write the output rows from a staging
+// the same way. Persistent blocks of 4 warps walk the tiles in a fixed
+// order; each block stages its weights once.
+//   bf16 compute dtype (message_fwd_mma_kernel): tiles of 16 edges, every
+//   product an mma.sync on the fragments of K5 bwd's warp tiles (fwd_mma,
+//   fwd_out below); ~96 registers, 5 blocks an SM.
+//   f32 (message_fwd_f32_kernel; TF32 is off by contract, so no tensor-core
+//   product): tiles of 32 edges, a lane's edge held in registers, every
+//   weight read as a float4 broadcast from shared memory (transposed to
+//   [in][out]) for 4 to 12 FFMAs. Each output is one FFMA chain in the
+//   contract's order (inputs ascending, the scalars before the norms, the
+//   bias last) with IEEE sqrt, exp and division: the bits of the block-tile
+//   kernel. 168 registers, 3 blocks an SM; its FFMAs and their shared-memory
+//   weight loads, not device memory, set its time (without its device loads
+//   it takes ~80% of it at the Davis bucket).
+//   Each has an instance with the served model's activations (relu, none)
+//   and the dtypes of its call (bf16 step: both, es f32, ev bf16; serving:
+//   f32) fixed at compile time, and one that reads them at run time.
+//
+// K5 fwd at other widths, and K5 bwd in f32 or at widths without a warp-tile
+// instance (message_fwd_kernel, message_bwd_kernel): one block per tile of
+// edges stages the packed
 // weights (rounded to the compute dtype) and the tile's activations in shared
 // memory as f32, column-major with an odd stride, so a warp reads 32 edges of
 // one column without bank conflicts while the weight it multiplies is
@@ -708,6 +733,10 @@ __device__ __forceinline__ float shfl_xor(float x, int m) {
   return __shfl_xor_sync(0xffffffffu, x, m);
 }
 
+// the warp's lanes wait for each other; their shared-memory writes before it
+// are seen by every lane after it
+__device__ __forceinline__ void warp_sync() { __syncwarp(); }
+
 // ---- end of warp primitives ----
 
 // The warp-tile kernel's elementwise math: f32, through the card's fast
@@ -897,8 +926,10 @@ __device__ void stage_b(const float* __restrict__ w, int K, int N, int sk, int s
   }
 }
 
-// Stage a layer's B operands and its biases (f32, padded with zeros).
-template <class L>
+// Stage a layer's B operands (BWD: those of its backward products too; the
+// forward's are the first L::WSV_B fragments) and its biases (f32, padded
+// with zeros).
+template <class L, bool BWD = true>
 __device__ void stage_layer(const float* __restrict__ w, uint2* B, float* bias) {
   constexpr int SH = L::SI + L::H;
   stage_b(w + L::P_WH, L::VI, L::H, 1, L::VI, B + 32 * L::WH_F);
@@ -906,11 +937,13 @@ __device__ void stage_layer(const float* __restrict__ w, uint2* B, float* bias) 
   stage_b(w + L::P_WS + L::SI, L::H, L::SO, 1, SH, B + 32 * L::WS_FV);
   stage_b(w + L::P_WV, L::H, L::VO, 1, L::H, B + 32 * L::WV_F);
   stage_b(w + L::P_WSV, L::SO, L::VO, 1, L::SO, B + 32 * L::WSV_F);
-  stage_b(w + L::P_WSV, L::VO, L::SO, L::SO, 1, B + 32 * L::WSV_B);
-  stage_b(w + L::P_WS, L::SO, L::SI, SH, 1, B + 32 * L::WS_BS);
-  stage_b(w + L::P_WS + L::SI, L::SO, L::H, SH, 1, B + 32 * L::WS_BV);
-  stage_b(w + L::P_WV, L::VO, L::H, L::H, 1, B + 32 * L::WV_B);
-  stage_b(w + L::P_WH, L::H, L::VI, L::VI, 1, B + 32 * L::WH_B);
+  if constexpr (BWD) {
+    stage_b(w + L::P_WSV, L::VO, L::SO, L::SO, 1, B + 32 * L::WSV_B);
+    stage_b(w + L::P_WS, L::SO, L::SI, SH, 1, B + 32 * L::WS_BS);
+    stage_b(w + L::P_WS + L::SI, L::SO, L::H, SH, 1, B + 32 * L::WS_BV);
+    stage_b(w + L::P_WV, L::VO, L::H, L::H, 1, B + 32 * L::WV_B);
+    stage_b(w + L::P_WH, L::H, L::VI, L::VI, 1, B + 32 * L::WH_B);
+  }
   for (int i = threadIdx.x; i < L::BIAS; i += blockDim.x) {
     const int o = i - 8 * L::NSO;
     bias[i] = o < 0 ? (i < L::SO ? w[L::P_BS + i] : 0.f) : (o < L::VO ? w[L::P_BSV + o] : 0.f);
@@ -1558,6 +1591,555 @@ message_bwd_mma_kernel(Inputs in, int n_layers, const float* __restrict__ w, int
 }
 
 // ---------------------------------------------------------------------------
+// K5 fwd at the widths of MmaNet instances: warp-owned edge tiles
+// ---------------------------------------------------------------------------
+
+constexpr int FWD_WARPS = 4;               // warps per block of either warp-tile forward
+constexpr int FWD_THREADS = 32 * FWD_WARPS;
+// resident blocks an SM holds: the mma kernel's ~96 registers allow 5, the
+// f32 kernel's 168 (a lane's edge and its layer's outputs) and ~58 KB of
+// shared memory 3; fewer was slower on the card for either
+constexpr int FWD_MMA_BLOCKS_PER_SM = 5;
+constexpr int FWD_F32_BLOCKS_PER_SM = 3;
+constexpr int F32_ROWS = 32;               // edges per warp tile of the f32 kernel: one a lane
+
+// f32 serving's dtypes of K5 fwd's inputs as bits: both | es << 1 | ev << 2,
+// bf16 where set (DT_STEP's first three bits are the bf16 step's).
+constexpr int DT_F32 = 0;
+
+// Whether a warp-tile forward runs its served instance: the served model's
+// activations (relu, none) with the dtypes of its bf16 training step or of
+// f32 serving, fixed at compile time.
+__host__ __device__ inline bool fwd_served_instance(int cdt_bf16, int act_s, int act_v, int dt) {
+  return act_s == ACT_RELU && act_v == ACT_NONE && dt == (cdt_bf16 ? DT_STEP : DT_F32);
+}
+
+// Row strides (floats) of a warp's staged input rows of width w. The f32
+// kernel's lane reads its own row as float4s: an odd count of them puts 8
+// lanes' reads in distinct banks. The mma kernel's lanes read column pairs
+// of rows g and g + 8: a stride of 8 more than a multiple of 16 does.
+__host__ __device__ constexpr int lane_stride(int w) { return (cdiv(w, 4) | 1) * 4; }
+__host__ __device__ constexpr int pair_stride(int w) { return cdiv(w - 8, 16) * 16 + 8; }
+
+// The f32 kernel's staged weights of a layer, each matrix transposed
+// ([in][out], out padded with zeros to a multiple of 4) so that one float4
+// gives the weights of 4 outputs for one input: wh^T [vi][h], ws^T
+// [si + h][so], bs [so], wv^T [h][vo], wsv^T [so][vo], bsv [vo].
+template <class L>
+struct F32Layer {
+  static constexpr int HP = cdiv(L::H, 4) * 4, SOP = cdiv(L::SO, 4) * 4, VOP = cdiv(L::VO, 4) * 4;
+  static constexpr int WH = 0, WS = WH + L::VI * HP, BS = WS + (L::SI + L::H) * SOP;
+  static constexpr int WV = BS + SOP, WSV = WV + L::H * VOP, BSV = WSV + L::SO * VOP;
+  static constexpr int N = BSV + VOP;
+};
+
+// Byte offsets in a block's shared memory of a warp-tile forward for
+// n_layers layers: the staged weights of layer 0 and then of each later
+// layer (mma: the B fragments of the forward products, then the biases;
+// f32: F32Layer, biases included), then each warp's staging of its tile's
+// input rows (both's source rows, es, both's destination rows, ev), which
+// also stages the tile's output rows.
+struct FwdSmem {
+  int b1, bias0, bias1, warp0, per_warp, total;
+};
+
+template <class Net>
+__host__ __device__ inline FwdSmem fwd_warp_smem(int n_layers, bool mma) {
+  using L0 = typename Net::L0;
+  using L1 = typename Net::L1;
+  constexpr int FB = Net::NS + 3 * Net::NV, SE = Net::SE, EV = 3 * Net::VE;
+  const int m = n_layers - 1;
+  FwdSmem s;
+  if (mma) {
+    s.b1 = L0::WSV_B * 256;
+    s.bias0 = s.b1 + m * L1::WSV_B * 256;
+    s.bias1 = s.bias0 + 4 * L0::BIAS;
+    s.warp0 = (s.bias1 + 4 * m * L1::BIAS + 15) / 16 * 16;
+    s.per_warp = (4 * MMA_ROWS * (2 * pair_stride(FB) + pair_stride(SE) + EV) + 15) / 16 * 16;
+  } else {
+    s.b1 = 4 * F32Layer<L0>::N;
+    s.bias0 = s.bias1 = 0;
+    s.warp0 = s.b1 + 4 * m * F32Layer<L1>::N;
+    s.per_warp = 4 * F32_ROWS * (2 * lane_stride(FB) + lane_stride(SE) + lane_stride(EV));
+  }
+  s.total = s.warp0 + FWD_WARPS * s.per_warp;
+  return s;
+}
+
+// A warp's tile of edges: its first edge r0 split into (b0, j0) once; edge e
+// of the tile is (b0, j0 + e) until that passes E.
+struct TileEdges {
+  int64_t r0, b0;
+  int j0, E, n;   // n: the tile's edges (none past R)
+  __device__ __forceinline__ TileEdges(int64_t r, int64_t R, int e, int rows) : r0(r), E(e) {
+    b0 = r < ((int64_t)1 << 32) ? (int64_t)((uint32_t)r / (uint32_t)e) : r / e;
+    j0 = (int)(r - b0 * e);
+    n = (int)(R - r < rows ? R - r : rows);
+  }
+  // the row of both ([B, 2E, F]) that holds edge e's source node; its
+  // destination's is E rows on
+  __device__ __forceinline__ int64_t src(int e) const {
+    int j = j0 + e;
+    int64_t b = b0;
+    if (j >= E) {
+      const int q = j / E;
+      b += q;
+      j -= q * E;
+    }
+    return b * 2 * (int64_t)E + j;
+  }
+  // whether the tile lies in one graph, so its source rows are one run of
+  // both's rows, and its destination rows another
+  __device__ __forceinline__ bool one_graph() const { return j0 + n <= E; }
+};
+
+// A warp's tile of T rows row(0) .. row(n - 1) of a [*, W] tensor (f32, or
+// bf16 where set) as f32: element p = lane + 32 k of the tile in x[k], 0 past
+// its n W elements. The lanes read neighbouring elements, and every load is
+// issued before any is waited on. run: the rows are first, first + 1, ...
+template <int W, int T>
+struct Rows {
+  static constexpr int K = cdiv(T * W, 32);
+  float x[K];
+
+  template <class Row>
+  __device__ __forceinline__ void fetch(const void* base, int bf16, bool run, int64_t first,
+                                        Row row, int n, int lane) {
+    if (run) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int p = lane + 32 * k;
+        x[k] = p < n * W ? load(base, first * W + p, bf16) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int p = lane + 32 * k, e = p / W;
+        x[k] = p < n * W ? load(base, row(e) * W + (p - e * W), bf16) : 0.f;
+      }
+    }
+  }
+
+  // into dst [T][S]
+  template <int S>
+  __device__ __forceinline__ void put(float* dst, int lane) const {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int p = lane + 32 * k, e = p / W;
+      if (p < T * W) dst[e * S + (p - e * W)] = x[k];
+    }
+  }
+};
+
+// Stage the warp's tile of T edges in st as f32: both's source rows [T][SB],
+// es [T][SS], both's destination rows [T][SB], ev [T][SV]; rows past the
+// tile's edges hold zeros.
+template <class Net, int T, int SB, int SS, int SV>
+__device__ __forceinline__ void stage_tile(const Inputs& in, const TileEdges& t, float* st,
+                                           int lane) {
+  constexpr int FB = Net::NS + 3 * Net::NV;
+  const bool run = t.one_graph();
+  const int64_t src0 = t.src(0), E = in.E;
+  Rows<FB, T> src, dst;
+  Rows<Net::SE, T> es;
+  Rows<3 * Net::VE, T> ev;
+  const auto none = [](int) { return (int64_t)0; };
+  src.fetch(in.both, in.both_bf16, run, src0, [&](int e) { return t.src(e); }, t.n, lane);
+  es.fetch(in.es, in.es_bf16, true, t.r0, none, t.n, lane);
+  dst.fetch(in.both, in.both_bf16, run, src0 + E, [&](int e) { return t.src(e) + E; }, t.n, lane);
+  ev.fetch(in.ev, in.ev_bf16, true, t.r0, none, t.n, lane);
+  warp_sync();   // every lane is done with the staging's last contents
+  src.template put<SB>(st, lane);
+  es.template put<SS>(st + T * SB, lane);
+  dst.template put<SB>(st + T * (SB + SS), lane);
+  ev.template put<SV>(st + T * (2 * SB + SS), lane);
+  warp_sync();
+}
+
+// The warp writes its tile's n output rows, staged in st as f32 [n][FO], to
+// out (f32, or bf16 where set) from row r0, the lanes on neighbouring
+// elements.
+template <int T, int FO>
+__device__ __forceinline__ void write_tile(const float* st, void* out, int bf16, int64_t r0, int n,
+                                           int lane) {
+#pragma unroll
+  for (int k = 0; k < cdiv(T * FO, 32); ++k) {
+    const int p = lane + 32 * k;
+    if (p < n * FO) store(out, r0 * FO + p, st[p], bf16);
+  }
+}
+
+// ---- K5 fwd with the f32 compute dtype: a lane per edge, FFMA ----
+
+// dst[k * NP + n] = w[k * sk + n * sn] for k < K, n < N, and 0 for N <= n < NP
+__device__ void stage_t(const float* __restrict__ w, int K, int N, int NP, int sk, int sn,
+                        float* dst) {
+  for (int p = threadIdx.x; p < K * NP; p += blockDim.x) {
+    const int k = p / NP, n = p - k * NP;
+    dst[p] = n < N ? w[k * sk + n * sn] : 0.f;
+  }
+}
+
+template <class L>
+__device__ void stage_layer_f32(const float* __restrict__ w, float* W) {
+  using F = F32Layer<L>;
+  constexpr int SH = L::SI + L::H;
+  stage_t(w + L::P_WH, L::VI, L::H, F::HP, 1, L::VI, W + F::WH);
+  stage_t(w + L::P_WS, SH, L::SO, F::SOP, 1, SH, W + F::WS);
+  stage_t(w + L::P_BS, 1, L::SO, F::SOP, 0, 1, W + F::BS);
+  stage_t(w + L::P_WV, L::H, L::VO, F::VOP, 1, L::H, W + F::WV);
+  stage_t(w + L::P_WSV, L::SO, L::VO, F::VOP, 1, L::SO, W + F::WSV);
+  stage_t(w + L::P_BSV, 1, L::VO, F::VOP, 0, 1, W + F::BSV);
+}
+
+// N floats of a staged row (16-byte aligned) into x
+template <int N>
+__device__ __forceinline__ void read_row(const float* p, float (&x)[N]) {
+#pragma unroll
+  for (int u = 0; u < N / 4; ++u) {
+    const float4 f = reinterpret_cast<const float4*>(p)[u];
+    x[4 * u] = f.x;
+    x[4 * u + 1] = f.y;
+    x[4 * u + 2] = f.z;
+    x[4 * u + 3] = f.w;
+  }
+#pragma unroll
+  for (int i = N / 4 * 4; i < N; ++i) x[i] = p[i];
+}
+
+// acc[4q + c] += x w[c] for the outputs 4q + c < N of the float4 w
+template <int N>
+__device__ __forceinline__ void mac4(float (&acc)[N], int q, float x, const float4& w) {
+  const float wc[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (4 * q + c < N) acc[4 * q + c] += x * wc[c];
+  }
+}
+
+// One gated GVP layer on a lane's edge (the JAX _layer_fwd in f32): s, v
+// ([xyz][channel]) its inputs, W its staged weights (F32Layer). Each output
+// is one multiply-add chain over its inputs in ascending order, the scalars
+// before the norms, its bias added last, with IEEE sqrt, exp and division:
+// the arithmetic of the block-tile kernel, whose bits it gives.
+template <class L>
+__device__ __forceinline__ void layer_f32(const float* __restrict__ W, int act_s, int act_v,
+                                          const float (&s)[L::SI], const float (&v)[3][L::VI],
+                                          float (&s_out)[L::SO], float (&v_out)[3][L::VO]) {
+  using F = F32Layer<L>;
+  const float4* w4 = reinterpret_cast<const float4*>(W);
+  // vh = wh v, each of xyz
+  float vh[3][L::H];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+#pragma unroll
+    for (int j = 0; j < L::H; ++j) vh[d][j] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < L::VI; ++i) {
+#pragma unroll
+    for (int q = 0; q < F::HP / 4; ++q) {
+      const float4 w = w4[(F::WH + i * F::HP) / 4 + q];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) mac4(vh[d], q, v[d][i], w);
+    }
+  }
+  // the clamped norm over xyz; vraw = wv vh
+  float vn[L::H], vr[3][L::VO];
+#pragma unroll
+  for (int j = 0; j < L::H; ++j) {
+    const float x = vh[0][j], y = vh[1][j], z = vh[2][j];
+    vn[j] = sqrtf(fmaxf(x * x + y * y + z * z, EPS));
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+#pragma unroll
+    for (int o = 0; o < L::VO; ++o) vr[d][o] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < L::H; ++j) {
+#pragma unroll
+    for (int q = 0; q < F::VOP / 4; ++q) {
+      const float4 w = w4[(F::WV + j * F::VOP) / 4 + q];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) mac4(vr[d], q, vh[d][j], w);
+    }
+  }
+  // spre = ws [s, vn] + bs
+  float sp[L::SO];
+#pragma unroll
+  for (int o = 0; o < L::SO; ++o) sp[o] = 0.f;
+#pragma unroll
+  for (int k = 0; k < L::SI; ++k) {
+#pragma unroll
+    for (int q = 0; q < F::SOP / 4; ++q) mac4(sp, q, s[k], w4[(F::WS + k * F::SOP) / 4 + q]);
+  }
+#pragma unroll
+  for (int k = 0; k < L::H; ++k) {
+#pragma unroll
+    for (int q = 0; q < F::SOP / 4; ++q) {
+      mac4(sp, q, vn[k], w4[(F::WS + (L::SI + k) * F::SOP) / 4 + q]);
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < L::SO; ++o) sp[o] = sp[o] + W[F::BS + o];
+  // the gate reads the pre-activation scalars through the vector activation
+  float z[L::VO];
+#pragma unroll
+  for (int o = 0; o < L::VO; ++o) z[o] = 0.f;
+#pragma unroll
+  for (int i = 0; i < L::SO; ++i) {
+    const float gi = act(act_v, sp[i]);
+#pragma unroll
+    for (int q = 0; q < F::VOP / 4; ++q) mac4(z, q, gi, w4[(F::WSV + i * F::VOP) / 4 + q]);
+  }
+#pragma unroll
+  for (int o = 0; o < L::VO; ++o) {
+    const float g = sigmoid(z[o] + W[F::BSV + o]);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) v_out[d][o] = vr[d][o] * g;
+  }
+#pragma unroll
+  for (int o = 0; o < L::SO; ++o) s_out[o] = act(act_s, sp[o]);
+}
+
+// ACT_S, ACT_V and DT (both | es << 1 | ev << 2, bf16 where set) fix the
+// activations and dtypes at compile time where they are >= 0; -1 takes them
+// from the arguments. out [R, FO] in both's dtype.
+template <class Net, int ACT_S, int ACT_V, int DT>
+__global__ void __launch_bounds__(FWD_THREADS, FWD_F32_BLOCKS_PER_SM)
+message_fwd_f32_kernel(Inputs in, int n_layers, const float* __restrict__ w, int act_s, int act_v,
+                       void* __restrict__ out) {
+  if constexpr (ACT_S >= 0) act_s = ACT_S;
+  if constexpr (ACT_V >= 0) act_v = ACT_V;
+  if constexpr (DT >= 0) {
+    in.both_bf16 = DT & 1;
+    in.es_bf16 = (DT >> 1) & 1;
+    in.ev_bf16 = (DT >> 2) & 1;
+  }
+  using L0 = typename Net::L0;
+  using L1 = typename Net::L1;
+  constexpr int NS = Net::NS, NV = Net::NV, SE = Net::SE, VE = Net::VE;
+  constexpr int FB = NS + 3 * NV, SO = L0::SO, VO = L0::VO, FO = SO + 3 * VO, T = F32_ROWS;
+  constexpr int SB = lane_stride(FB), SS = lane_stride(SE), SV = lane_stride(3 * VE);
+  static_assert(FO % 4 == 0 && FO <= 2 * SB + SS + SV, "output rows are staged as float4s");
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  const FwdSmem s = fwd_warp_smem<Net>(n_layers, false);
+  float* const W0 = reinterpret_cast<float*>(smem_bytes);
+  auto w_of = [&](int k) {
+    return reinterpret_cast<float*>(smem_bytes + s.b1) + (k - 1) * F32Layer<L1>::N;
+  };
+  stage_layer_f32<L0>(w, W0);
+  for (int k = 1; k < n_layers; ++k) stage_layer_f32<L1>(w + L0::NW + (k - 1) * L1::NW, w_of(k));
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* const st = reinterpret_cast<float*>(smem_bytes + s.warp0 + warp * s.per_warp);
+  const int64_t n_tiles = (in.R + T - 1) / T;
+  const int64_t stride = (int64_t)gridDim.x * FWD_WARPS;
+  for (int64_t tile = (int64_t)blockIdx.x * FWD_WARPS + warp; tile < n_tiles; tile += stride) {
+    const TileEdges t(tile * T, in.R, in.E, T);
+    stage_tile<Net, T, SB, SS, SV>(in, t, st, lane);
+    // the lane's edge, row `lane` of the tile: s = (s_j, es, s_i), v = (v_j, ev, v_i)
+    float rj[FB], re[SE], ri[FB], rv[3 * VE];
+    read_row(st + lane * SB, rj);
+    read_row(st + T * SB + lane * SS, re);
+    read_row(st + T * (SB + SS) + lane * SB, ri);
+    read_row(st + T * (2 * SB + SS) + lane * SV, rv);
+    float xs[L0::SI], xv[3][L0::VI];
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      xs[c] = rj[c];
+      xs[NS + SE + c] = ri[c];
+    }
+#pragma unroll
+    for (int c = 0; c < SE; ++c) xs[NS + c] = re[c];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        xv[d][i] = rj[NS + 3 * i + d];
+        xv[d][NV + VE + i] = ri[NS + 3 * i + d];
+      }
+#pragma unroll
+      for (int i = 0; i < VE; ++i) xv[d][NV + i] = rv[3 * i + d];
+    }
+    float ys[SO], yv[3][VO];
+    {
+      const bool last = n_layers == 1;
+      layer_f32<L0>(W0, last ? ACT_NONE : act_s, last ? ACT_NONE : act_v, xs, xv, ys, yv);
+    }
+    for (int k = 1; k < n_layers; ++k) {
+      const bool last = k == n_layers - 1;
+      float zs[SO], zv[3][VO];
+      layer_f32<L1>(w_of(k), last ? ACT_NONE : act_s, last ? ACT_NONE : act_v, ys, yv, zs, zv);
+#pragma unroll
+      for (int o = 0; o < SO; ++o) ys[o] = zs[o];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+#pragma unroll
+        for (int o = 0; o < VO; ++o) yv[d][o] = zv[d][o];
+      }
+    }
+    // the lane's output row [s', v'] into the staging, then the tile's rows out
+    float o[FO];
+#pragma unroll
+    for (int c = 0; c < SO; ++c) o[c] = ys[c];
+#pragma unroll
+    for (int i = 0; i < VO; ++i) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) o[SO + 3 * i + d] = yv[d][i];
+    }
+    warp_sync();   // every lane has read its inputs
+#pragma unroll
+    for (int u = 0; u < FO / 4; ++u) {
+      reinterpret_cast<float4*>(st + lane * FO)[u] =
+          make_float4(o[4 * u], o[4 * u + 1], o[4 * u + 2], o[4 * u + 3]);
+    }
+    warp_sync();
+    write_tile<T, FO>(st, out, in.both_bf16, t.r0, t.n, lane);
+  }
+}
+
+// ---- K5 fwd with the bf16 compute dtype: 16-edge tiles on mma.sync ----
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// As message_fwd_f32_kernel, on the layer forward of K5 bwd's warp tiles
+// (fwd_mma, fwd_out): s' and v' are rounded to bf16 after every layer, the
+// last included, and only then stored in out's dtype.
+template <class Net, int ACT_S, int ACT_V, int DT>
+__global__ void __launch_bounds__(FWD_THREADS, FWD_MMA_BLOCKS_PER_SM)
+message_fwd_mma_kernel(Inputs in, int n_layers, const float* __restrict__ w, int act_s, int act_v,
+                       void* __restrict__ out) {
+  if constexpr (ACT_S >= 0) act_s = ACT_S;
+  if constexpr (ACT_V >= 0) act_v = ACT_V;
+  if constexpr (DT >= 0) {
+    in.both_bf16 = DT & 1;
+    in.es_bf16 = (DT >> 1) & 1;
+    in.ev_bf16 = (DT >> 2) & 1;
+  }
+  using L0 = typename Net::L0;
+  using L1 = typename Net::L1;
+  constexpr int NS = Net::NS, NV = Net::NV, SE = Net::SE, VE = Net::VE;
+  constexpr int FB = NS + 3 * NV, SO = L0::SO, VO = L0::VO, FO = SO + 3 * VO, T = MMA_ROWS;
+  constexpr int SB = pair_stride(FB), SS = pair_stride(SE), SV = 3 * VE;
+  static_assert(NS % 8 == 0 && SE % 8 == 0, "each 8 columns of s come from one input");
+  static_assert(FO <= 2 * SB + SS + SV, "the output rows fit the staging");
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  const FwdSmem s = fwd_warp_smem<Net>(n_layers, true);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c0 = 2 * (lane & 3);
+
+  uint2* const B0 = reinterpret_cast<uint2*>(smem_bytes);
+  float* const bias0 = reinterpret_cast<float*>(smem_bytes + s.bias0);
+  auto b_of = [&](int k) {
+    return reinterpret_cast<uint2*>(smem_bytes + s.b1) + (k - 1) * L1::WSV_B * 32;
+  };
+  auto bias_of = [&](int k) {
+    return reinterpret_cast<float*>(smem_bytes + s.bias1) + (k - 1) * L1::BIAS;
+  };
+  stage_layer<L0, false>(w, B0, bias0);
+  for (int k = 1; k < n_layers; ++k) {
+    stage_layer<L1, false>(w + L0::NW + (k - 1) * L1::NW, b_of(k), bias_of(k));
+  }
+  __syncthreads();
+
+  float* const st = reinterpret_cast<float*>(smem_bytes + s.warp0 + warp * s.per_warp);
+  const float* const sj = st;
+  const float* const se = st + T * SB;
+  const float* const si = se + T * SS;
+  const float* const sv = si + T * SB;
+  const int64_t n_tiles = (in.R + T - 1) / T;
+  const int64_t stride = (int64_t)gridDim.x * FWD_WARPS;
+  for (int64_t tile = (int64_t)blockIdx.x * FWD_WARPS + warp; tile < n_tiles; tile += stride) {
+    const TileEdges t(tile * T, in.R, in.E, T);
+    stage_tile<Net, T, SB, SS, SV>(in, t, st, lane);
+    // the first layer's inputs as A tiles, rounded: s = (s_j, es, s_i),
+    // v = (v_j, ev, v_i); a column group of 8 comes from one of them
+    ATile<L0::KS> xs;
+    ATile<L0::KV> xv[3];
+#pragma unroll
+    for (int k = 0; k < L0::KS; ++k) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = g + 8 * (q & 1), cb = 16 * k + 8 * (q >> 1);
+        if (cb >= L0::SI) {
+          xs.v[k][q] = 0u;
+          continue;
+        }
+        const float* p = cb < NS        ? sj + row * SB + cb
+                         : cb < NS + SE ? se + row * SS + (cb - NS)
+                                        : si + row * SB + (cb - NS - SE);
+        const float2 f = *reinterpret_cast<const float2*>(p + c0);
+        xs.v[k][q] = pack_bf16(f.x, f.y);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+#pragma unroll
+      for (int k = 0; k < L0::KV; ++k) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = g + 8 * (q & 1);
+          float x[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int ch = 16 * k + c0 + 8 * (q >> 1) + h, c = ch < L0::VI ? ch : L0::VI - 1;
+            const float* p = c < NV        ? sj + row * SB + NS + 3 * c + d
+                             : c < NV + VE ? sv + row * SV + 3 * (c - NV) + d
+                                           : si + row * SB + NS + 3 * (c - NV - VE) + d;
+            x[h] = ch < L0::VI ? *p : 0.f;
+          }
+          xv[d].v[k][q] = pack_bf16(x[0], x[1]);
+        }
+      }
+    }
+    // the layers; each one's outputs rounded are the next one's inputs
+    ATile<L1::KS> ys;
+    ATile<L1::KV> yv[3];
+    {
+      const bool last = n_layers == 1;
+      Fwd<L0> f;
+      fwd_mma<L0>(B0, bias0, last ? ACT_NONE : act_v, xs, xv, f, lane);
+      fwd_out<L0>(f, last ? ACT_NONE : act_s, ys, yv);
+    }
+    for (int k = 1; k < n_layers; ++k) {
+      const bool last = k == n_layers - 1;
+      Fwd<L1> f;
+      fwd_mma<L1>(b_of(k), bias_of(k), last ? ACT_NONE : act_v, ys, yv, f, lane);
+      fwd_out<L1>(f, last ? ACT_NONE : act_s, ys, yv);
+    }
+    // the output rows [s', v'] into the staging as f32 [T][FO], then out
+    warp_sync();   // every lane has read its inputs
+#pragma unroll
+    for (int k = 0; k < L1::KS; ++k) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = g + 8 * (q & 1), col = 16 * k + c0 + 8 * (q >> 1);
+        if (col < SO) st[row * FO + col] = bf16_lo(ys.v[k][q]);
+        if (col + 1 < SO) st[row * FO + col + 1] = bf16_hi(ys.v[k][q]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+#pragma unroll
+      for (int k = 0; k < L1::KV; ++k) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = g + 8 * (q & 1), ch = 16 * k + c0 + 8 * (q >> 1);
+          if (ch < VO) st[row * FO + SO + 3 * ch + d] = bf16_lo(yv[d].v[k][q]);
+          if (ch + 1 < VO) st[row * FO + SO + 3 * (ch + 1) + d] = bf16_hi(yv[d].v[k][q]);
+        }
+      }
+    }
+    warp_sync();
+    write_tile<T, FO>(st, out, in.both_bf16, t.r0, t.n, lane);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K6: copy-cast
 // ---------------------------------------------------------------------------
 
@@ -1705,6 +2287,20 @@ bool bwd_step_instance(int act_s, int act_v, int dt) {
   return act_s == ACT_RELU && act_v == ACT_NONE && dt == DT_STEP;
 }
 
+// K5 fwd's kernel: 0 the block-tile kernel, 1 a warp-tile kernel (mma.sync
+// for the bf16 compute dtype, FFMA for f32) at the widths of an MmaNet
+// instance, 2 its served instance (fwd_served_instance); dt: both | es << 1 |
+// ev << 2, bf16 where set.
+int fwd_route(const int* dims, const Shape& sh, int cdt_bf16, int act_s, int act_v, int dt) {
+  if (!is_net<ServedNet>(dims, sh)) return 0;
+  return fwd_served_instance(cdt_bf16, act_s, act_v, dt) ? 2 : 1;
+}
+
+int64_t fwd_smem_bytes(const int* dims, const Shape& sh, int cdt_bf16) {
+  if (is_net<ServedNet>(dims, sh)) return fwd_warp_smem<ServedNet>(sh.n_layers, cdt_bf16).total;
+  return fwd_smem(widths(dims, sh));
+}
+
 template <bool BF>
 int launch_fwd(const Inputs& in, const Shape& sh, const int* dims_dev, const Widths& wd,
                const float* w, int act_s, int act_v, void* out, int out_bf16, cudaStream_t s) {
@@ -1718,6 +2314,39 @@ int launch_fwd(const Inputs& in, const Shape& sh, const int* dims_dev, const Wid
   const int64_t blocks = (in.R + FWD_TILE - 1) / FWD_TILE;
   message_fwd_kernel<BF><<<(unsigned)blocks, THREADS, (size_t)fwd_smem(wd), s>>>(
       in, sh, dims_dev, w, act_s, act_v, out, out_bf16);
+  return (int)cudaGetLastError();
+}
+
+// A warp-tile forward (MMA: on mma.sync, else the f32 kernel) at the served
+// widths: persistent blocks, at most the card's resident ones.
+template <bool MMA, int ACT_S, int ACT_V, int DT>
+int launch_fwd_warp(const Inputs& in, int n_layers, const float* w, int act_s, int act_v,
+                    void* out, cudaStream_t s) {
+  const auto kernel = [] {   // only the instance that runs is compiled
+    if constexpr (MMA) {
+      return message_fwd_mma_kernel<ServedNet, ACT_S, ACT_V, DT>;
+    } else {
+      return message_fwd_f32_kernel<ServedNet, ACT_S, ACT_V, DT>;
+    }
+  }();
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  const int64_t rows = MMA ? MMA_ROWS : F32_ROWS;
+  const int64_t blocks = ((in.R + rows - 1) / rows + FWD_WARPS - 1) / FWD_WARPS;
+  const int64_t resident =
+      (int64_t)sm_count() * (MMA ? FWD_MMA_BLOCKS_PER_SM : FWD_F32_BLOCKS_PER_SM);
+  kernel<<<(unsigned)(blocks < resident ? blocks : resident), FWD_THREADS,
+           (size_t)fwd_warp_smem<ServedNet>(n_layers, MMA).total, s>>>(in, n_layers, w, act_s,
+                                                                        act_v, out);
   return (int)cudaGetLastError();
 }
 
@@ -1793,14 +2422,26 @@ int launch_bwd_mma(const Inputs& in, const Shape& sh, int n_w, const float* w, i
 extern "C" {
 
 // Bytes of shared memory a block of K5 fwd (backward == 0) or K5 bwd
-// (backward != 0; its kernel depends on the compute dtype, cdt_bf16) needs
-// for this shape; -1 for a shape it does not take. dims: (h, so, vo) of each
-// of the n_layers layers, on the host.
+// (backward != 0) needs for this shape; the kernel that runs depends on the
+// compute dtype (cdt_bf16). -1 for a shape it does not take. dims: (h, so,
+// vo) of each of the n_layers layers, on the host.
 long long k5_smem_bytes(const int* dims, int n_layers, int ns, int nv, int se, int ve,
                         int backward, int cdt_bf16) {
   const Shape sh = {n_layers, ns, nv, se, ve};
   if (!valid(dims, sh)) return -1;
-  return backward ? bwd_smem_bytes(dims, sh, cdt_bf16) : fwd_smem(widths(dims, sh));
+  return backward ? bwd_smem_bytes(dims, sh, cdt_bf16) : fwd_smem_bytes(dims, sh, cdt_bf16);
+}
+
+// The kernel K5 fwd runs for this shape, compute dtype, activations and
+// dtypes (both_bf16 | es_bf16 << 1 | ev_bf16 << 2): 0 the block-tile kernel,
+// 1 a warp-tile kernel (mma.sync for bf16, FFMA for f32), 2 its served
+// instance (the served model's activations with the dtypes of its bf16 step
+// or of f32 serving).
+int k5_fwd_kernel(const int* dims, int n_layers, int ns, int nv, int se, int ve, int cdt_bf16,
+                  int act_s, int act_v, int dtypes) {
+  const Shape sh = {n_layers, ns, nv, se, ve};
+  if (!valid(dims, sh)) return 0;
+  return fwd_route(dims, sh, cdt_bf16, act_s, act_v, dtypes);
 }
 
 // The kernel K5 bwd runs for this shape, compute dtype, activations and
@@ -1836,11 +2477,26 @@ int k5_message_fwd(const void* both, const void* es, const void* ev, const float
   const Shape sh = {n_layers, ns, nv, se, ve};
   if (!valid(dims_host, sh) || B < 1 || E < 1) return (int)cudaErrorInvalidValue;
   const Widths wd = widths(dims_host, sh);
-  if (wd.n_w != n_w || fwd_smem(wd) > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (wd.n_w != n_w || fwd_smem_bytes(dims_host, sh, cdt_bf16) > MAX_SMEM) {
+    return (int)cudaErrorInvalidValue;
+  }
   const Inputs in = {both, es, ev, both_bf16, es_bf16, ev_bf16, (int64_t)B * E, E};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return cdt_bf16 ? launch_fwd<true>(in, sh, dims_dev, wd, w, act_s, act_v, out, both_bf16, s)
-                  : launch_fwd<false>(in, sh, dims_dev, wd, w, act_s, act_v, out, both_bf16, s);
+  const int dt = both_bf16 | es_bf16 << 1 | ev_bf16 << 2;
+  switch (fwd_route(dims_host, sh, cdt_bf16, act_s, act_v, dt)) {
+    case 2:
+      return cdt_bf16
+                 ? launch_fwd_warp<true, ACT_RELU, ACT_NONE, DT_STEP>(in, n_layers, w, act_s,
+                                                                      act_v, out, s)
+                 : launch_fwd_warp<false, ACT_RELU, ACT_NONE, DT_F32>(in, n_layers, w, act_s,
+                                                                      act_v, out, s);
+    case 1:
+      return cdt_bf16 ? launch_fwd_warp<true, -1, -1, -1>(in, n_layers, w, act_s, act_v, out, s)
+                      : launch_fwd_warp<false, -1, -1, -1>(in, n_layers, w, act_s, act_v, out, s);
+    default:
+      return cdt_bf16 ? launch_fwd<true>(in, sh, dims_dev, wd, w, act_s, act_v, out, both_bf16, s)
+                      : launch_fwd<false>(in, sh, dims_dev, wd, w, act_s, act_v, out, both_bf16, s);
+  }
 }
 
 // The inputs as for k5_message_fwd, plus dout [B, E, so + 3vo] (f32, or bf16

@@ -66,6 +66,8 @@ def load_library() -> build.Built:
         lib.k5_smem_bytes.restype = ll
         lib.k5_bwd_kernel.argtypes = [vp] + [i] * 9
         lib.k5_bwd_kernel.restype = i
+        lib.k5_fwd_kernel.argtypes = [vp] + [i] * 9
+        lib.k5_fwd_kernel.restype = i
         lib.k5_bwd_blocks.argtypes = [vp, i, i, i, i, i, i, ll]
         lib.k5_bwd_blocks.restype = ll
         lib.k5_message_fwd.argtypes = [vp] * 7 + [i] * 14 + [vp]
@@ -298,6 +300,18 @@ def _check_smem(lib, name, dims, dims_host, spec, se, ve, backward) -> None:
 
 
 BWD_KERNELS = ("block tiles", "warp tiles", "warp tiles, bf16 step")
+FWD_KERNELS = ("block tiles", "warp tiles", "warp tiles, served")
+
+
+def _route(query, tensors, weights, spec: MessageSpec) -> int:
+    """A C query of the kernel a call runs: tensors are (both, es, ev, ...)."""
+    es, ev = tensors[1], tensors[2]
+    dims = _layer_dims(weights, spec, es.shape[-1], ev.shape[-1] // 3)
+    flat = [x for d in dims for x in d]
+    dtypes = sum(_is_bf16(t) << k for k, t in enumerate(tensors))
+    return query((ctypes.c_int * len(flat))(*flat), len(dims), spec.ns, spec.nv, es.shape[-1],
+                 ev.shape[-1] // 3, _cdt_bf16(spec), _ACT_CODES[spec.act_s],
+                 _ACT_CODES[spec.act_v], dtypes)
 
 
 def bwd_kernel(both, es, ev, weights, dout, spec: MessageSpec) -> str:
@@ -306,13 +320,18 @@ def bwd_kernel(both, es, ev, weights, dout, spec: MessageSpec) -> str:
     warp-tile instance), the warp-tile kernel (mma.sync, bf16 products), or
     its instance for the served model's bf16 training step ((relu, none)
     activations; both, es and dout f32, ev bf16). Builds the library."""
-    dims = _layer_dims(weights, spec, es.shape[-1], ev.shape[-1] // 3)
-    flat = [x for d in dims for x in d]
-    dtypes = sum(_is_bf16(t) << k for k, t in enumerate((both, es, ev, dout)))
-    return BWD_KERNELS[load_library().lib.k5_bwd_kernel(
-        (ctypes.c_int * len(flat))(*flat), len(dims), spec.ns, spec.nv, es.shape[-1],
-        ev.shape[-1] // 3, _cdt_bf16(spec), _ACT_CODES[spec.act_s], _ACT_CODES[spec.act_v],
-        dtypes)]
+    return BWD_KERNELS[_route(load_library().lib.k5_bwd_kernel, (both, es, ev, dout), weights,
+                              spec)]
+
+
+def fwd_kernel(both, es, ev, weights, spec: MessageSpec) -> str:
+    """Which kernel ``message_fwd`` runs for these arguments (one of
+    FWD_KERNELS): the block-tile kernel (widths without a warp-tile
+    instance), a warp-tile kernel (mma.sync for bf16 products, FFMA for
+    f32), or its served instance: (relu, none) activations with the bf16
+    training step's dtypes (both and es f32, ev bf16) or f32 serving's (all
+    f32). Builds the library."""
+    return FWD_KERNELS[_route(load_library().lib.k5_fwd_kernel, (both, es, ev), weights, spec)]
 
 
 def _pack(weights) -> torch.Tensor:
@@ -333,7 +352,9 @@ def message_fwd(both: torch.Tensor, es: torch.Tensor, ev: torch.Tensor,
     ``layer_weights`` gives them. -> [B, E, so + 3vo] in both's dtype.
 
     Replaces caster_dta_tpu/ops/pallas_gvp_message.py::_fwd_kernel (via
-    fused_message_mlp). Bound by memory bytes on the H100 (see the source)."""
+    fused_message_mlp). Bound by memory bytes on the H100 (see the source);
+    at the served model's widths it runs on warp tiles of edges, mma.sync
+    for the bf16 compute dtype and FFMA for f32 (``fwd_kernel``)."""
     if both.device.type == "cpu":
         return message_fwd_plain(both, es, ev, weights, spec)
     if both.device.type != "cuda":

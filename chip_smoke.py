@@ -18,9 +18,11 @@ Phases, each printed before it starts and after it ends with its wall time:
    the card, and bit for bit the plain version's on the CPU (both sum every
    row in edge order), the same bits on a second call. K5 (the fused GVP
    message MLP, forward and backward, with the trained model's message
-   weights; K5 bwd on its warp-tile kernel where bf16 is the compute dtype,
-   on its block-tile kernel in f32) and K6 (copy-cast, every f32/bf16 pair,
-   on the node table and on an odd-length slice off 16-byte alignment)
+   weights; K5 fwd on its warp-tile kernels, mma.sync for the bf16 step and
+   FFMA for f32, each case printing which; K5 bwd on its warp-tile kernel
+   where bf16 is the compute dtype, on its block-tile kernel in f32) and K6
+   (copy-cast, every f32/bf16 pair, on the node table and on an odd-length
+   slice off 16-byte alignment)
    against theirs at the flagship and Davis shapes, f32 and with the bf16
    step's dtypes, within K5_TOL; K6 bit for bit. Edge cases: E off the
    tiles, one layer, a fused conv whose edges are all masked (its output and
@@ -46,7 +48,8 @@ Phases, each printed before it starts and after it ends with its wall time:
    serve-fused: the same with the fused message path on
    (``with caster_dta_torch.nn.gvp.fused_message():``): launches per forward
    (K6 and K5 fwd once per GVP conv), card against the port's CPU run with
-   the switch on, and against the unfused card answers within AFFINITY_ATOL.
+   the switch on, and against the unfused card answers within AFFINITY_ATOL;
+   the profiler's kernel names must show K5 fwd's served f32 instance.
    serve-blockwise: the same with ``use_pallas`` set on the model's two
    MultiheadAttention modules (the blockwise K4 path), over the same
    requests and one large-protein request (LARGE): launches per forward (K4
@@ -73,7 +76,8 @@ Phases, each printed before it starts and after it ends with its wall time:
    plus STEP_GRAD_ATOL of the largest over all.
    train-fused: the same with the fused message path on (TRAIN_STEPS_FUSED
    steps; K5 fwd and bwd per GVP conv, K6 twice per GVP conv), its numbers
-   printed beside the unfused step's.
+   printed beside the unfused step's; the profiler's kernel names must show
+   K5 fwd's served bf16-step instance (mma.sync).
 8. fit: two epochs of ``fit`` on a seeded synthetic dataset of FIT_PAIRS
    pairs in two buckets near the flagship sizes, checkpoints and run
    artifacts in a temporary directory, then ``load_run`` serves the best-val
@@ -112,6 +116,7 @@ import json
 from concurrent.futures import ThreadPoolExecutor
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -188,6 +193,11 @@ K1_REPLACES = "caster_dta_tpu/ops/pallas_segment.py:131"   # _segment_kernel_t
 K2_REPLACES = "caster_dta_tpu/ops/pallas_segment.py:540"   # _onehot_gather_kernel
 K3_REPLACES = "caster_dta_tpu/ops/pallas_segment.py:268"   # _scatter_fullN_kernel
 K5F_REPLACES = "caster_dta_tpu/ops/pallas_gvp_message.py:267"   # _fwd_kernel
+# K5 fwd's served instances, as torch.profiler names them: f32 serving on the
+# f32 kernel, the bf16 step on the mma.sync kernel, each with (relu, none) and
+# its dtypes fixed at compile time (template arguments ACT_S, ACT_V, DT)
+K5F_SERVED = {"f32": re.compile(r"message_fwd_f32_kernel<.*MmaNet<[^>]*>, 1, 0, 0>"),
+              "bf16 step": re.compile(r"message_fwd_mma_kernel<.*MmaNet<[^>]*>, 1, 0, 4>")}
 K5B_REPLACES = "caster_dta_tpu/ops/pallas_gvp_message.py:284"   # _bwd_kernel
 K6_REPLACES = "caster_dta_tpu/ops/pallas_gvp_message.py:217"    # _cast_kernel
 K4_REPLACES = "caster_dta_tpu/ops/pallas_attention.py:41"       # _mha_kernel
@@ -506,6 +516,19 @@ def k5_check(torch, cgm, what, inputs, weights, spec, max_err):
           f"{err_i:.3e}, weight grads {err_w:.3e}; a second run gave the same bits")
 
 
+def check_k5f_served(tag: str, per_kernel: dict, kind: str) -> None:
+    """Print the K5 fwd kernels that the profiler saw; raise unless they are
+    all the served instance for ``kind`` (K5F_SERVED)."""
+    k5f = {name: ms for name, ms in per_kernel.items() if "message_fwd" in name}
+    print(f"{tag}K5 fwd kernels: " + "; ".join(
+        f"{name.replace('(anonymous namespace)::', '').split('(')[0]} {ms:.3f} ms"
+        for name, ms in k5f.items()))
+    if not k5f or not all(K5F_SERVED[kind].search(name.replace("(anonymous namespace)::", ""))
+                          for name in k5f):
+        raise AssertionError(f"{tag}K5 fwd did not run its served {kind} instance: "
+                             f"{sorted(k5f)}")
+
+
 def k5_flops(dims, si: int, vi: int) -> int:
     """Operations of K5 fwd per edge: 2 per multiply-add of the products
     (vh, spre, vraw, z) of every layer; the elementwise work is left out."""
@@ -731,8 +754,11 @@ def main() -> int:
                                        getattr(torch, K5_DTYPES[kind][3]))
                 inputs = k5_inputs(torch, gen, b, e, kind)
                 route = cgm.bwd_kernel(*inputs[:3], weights, inputs[3], spec)
-                k5_check(torch, cgm, f"{label} {kind} (K5 bwd on {route})", inputs, weights,
-                         spec, max_err)
+                route_f = cgm.fwd_kernel(*inputs[:3], weights, spec)
+                if route_f != "warp tiles, served":
+                    raise AssertionError(f"K5 fwd {label} {kind} runs on {route_f}")
+                k5_check(torch, cgm, f"{label} {kind} (K5 fwd on {route_f}, K5 bwd on {route})",
+                         inputs, weights, spec, max_err)
             table = torch.randn(b, batch.protein.n_pad, 28, generator=gen, device="cuda")
             flat = table.reshape(-1)
             f32, bf16 = torch.float32, torch.bfloat16
@@ -855,10 +881,11 @@ def main() -> int:
               f"part {phase_launches}")
 
     def serve_path(tag: str, run, run_cpu, per_forward: dict, reqs=requests,
-                   timed=(requests[0], requests[-1])) -> tuple:
+                   timed=(requests[0], requests[-1]), k5f_kind=None) -> tuple:
         """Answer every request of ``reqs`` on the card with the launches per
         forward that the code gives, hold each answer against the port's CPU
-        run, time and profile the forward at the ``timed`` buckets -> (the
+        run, time and profile the forward at the ``timed`` buckets (and, with
+        ``k5f_kind``, check that K5 fwd ran that served instance) -> (the
         card answers, the launches of answering them)."""
         answers = []
         reset_launches()
@@ -918,6 +945,8 @@ def main() -> int:
                   f"median {statistics.median(copy):.3f} ms and forward on a card-resident "
                   f"batch median {statistics.median(forward):.3f} ms (CUDA events)")
             per_kernel, n_kernels = profile_forward(torch, lambda: predict(run, on_card))
+            if k5f_kind is not None:
+                check_k5f_served(f"{tag}{label} ", per_kernel, k5f_kind)
             busy = sum(per_kernel.values())
             if busy == 0:
                 print(f"{tag}device time {label}: not measured (the profiler saw no kernel)")
@@ -947,7 +976,8 @@ def main() -> int:
         # K5 fwd; the gathers and aggregations stay as they were
         per_forward_fused = {**per_forward, cgm.K5F: n_p, cgm.K6: n_p}
         with gvp.fused_message():
-            fused_answers, _ = serve_path("fused ", run, run_cpu, per_forward_fused)
+            fused_answers, _ = serve_path("fused ", run, run_cpu, per_forward_fused,
+                                          k5f_kind="f32")
         worst = 0.0
         for (label, batch), (aff, _), (aff_fused, _) in zip(requests, answers, fused_answers):
             d = (aff_fused - aff).abs().max().item()
@@ -1055,11 +1085,12 @@ def main() -> int:
     label, batch = requests[0]
     on_card = batch.to("cuda")
 
-    def train_path(tag: str, per_step: dict, n_steps: int) -> dict:
+    def train_path(tag: str, per_step: dict, n_steps: int, fused: bool = False) -> dict:
         """n_steps bf16 Adam steps (lr 1e-4) from the trained weights on the
         flagship batch: launches per step as the code gives them, the eval
         loss before and after (it must fall), step time, kernel time and
-        idle share -> those numbers."""
+        idle share (fused: K5 fwd on its served bf16-step instance) -> those
+        numbers."""
         model = load_run(RUN_DIR, device="cuda").model
         trainer = Trainer(model, TrainConfig(compute_dtype="bfloat16", optimizer="adam",
                                              lr=1e-4, seed=0), device="cuda")
@@ -1093,6 +1124,8 @@ def main() -> int:
         out = {"step median ms": step_ms, "kernel ms per step": None,
                "kernels per step": None, "device idle": None}
         per_kernel, n_kernels = profile_forward(torch, lambda: trainer.train_step(on_card))
+        if fused:
+            check_k5f_served(tag, per_kernel, "bf16 step")
         busy = sum(per_kernel.values())
         if busy == 0:
             print(f"{tag}train device time: not measured (the profiler saw no kernel)")
@@ -1158,7 +1191,7 @@ def main() -> int:
         # MLP; backward K5 bwd, and K6 copies the node table's cotangent back
         per_step_fused = {**per_step, cgm.K5F: n_p, cgm.K5B: n_p, cgm.K6: 2 * n_p}
         with gvp.fused_message():
-            fused_train = train_path("fused ", per_step_fused, TRAIN_STEPS_FUSED)
+            fused_train = train_path("fused ", per_step_fused, TRAIN_STEPS_FUSED, fused=True)
             check_step_grads("fused ")
         print("train step, fused vs unfused message path: " + "; ".join(
             f"{k} {fused_train[k]} vs {unfused_train[k]}" for k in unfused_train))
@@ -1447,6 +1480,11 @@ def main() -> int:
         entry("K8", "K8 row-major sorted segment-sum", cs.K8, K8_REPLACES,
               "protein aggregation"),
     ]
+    # the kernels line holds K5 fwd's f32 case; the fused step runs its bf16 one
+    for label in ("flagship #0", "davis"):
+        ms, plain, _, nbytes, ops, rate = rows[("K5 fwd", label, "bf16 step")]
+        print(f"K5 fwd {label} bf16 step (the fused training step's forward): {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {max(nbytes / HBM_BYTES_PER_S, ops / rate) * 1e3:.4f} ms")
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel never launched over the phases that run it "
                              f"(training for K1-K3, K5, K6; serve-blockwise for K4; kernels "

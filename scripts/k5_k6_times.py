@@ -6,11 +6,11 @@
 
 Each ``--source`` (default ``caster_dta_torch/csrc/gvp_message.cu``) is built
 with nvcc into ``caster_dta_torch/_build/k5_k6/`` (all builds at once), and
-its ptxas lines (registers, stack
-frame, spills, shared memory) for K5 bwd, the weight-gradient sum and K6 are
-printed. A source from before the warp-tile K5 bwd (one without
-``k5_bwd_kernel``) is called through its own C interface. Then, at each
-case, every version is timed as ``chip_smoke.py`` times kernels (20 launches
+its ptxas lines (registers, stack frame, spills, shared memory) for K5 fwd,
+K5 bwd, the weight-gradient sum and K6 are printed. A source from before the
+warp-tile K5 bwd (one without ``k5_bwd_kernel``) or the warp-tile K5 fwd
+(without ``k5_fwd_kernel``) is called through its own C interface. Then, at
+each case, every version is timed as ``chip_smoke.py`` times kernels (20 launches
 in a CUDA graph, replays timed with CUDA events, L2 warm), in the order
 first, second, ..., second, first:
 
@@ -20,15 +20,17 @@ first, second, ..., second, first:
   bf16 training step's dtypes (both, es f32; ev bf16; bf16 products), beside
   its bound (its inputs and dout read once,
   its gradients written once, at 3.35 TB/s);
-- K5 fwd at the same cases;
+- K5 fwd at the same cases, with the kernel each version runs and its
+  shared memory a block;
 - K6 on the flagship and Davis node tables [B, N, 28], every dtype pair,
   beside ``Tensor.to(dtype, copy=True)`` on the same table, whose kernels
   torch.profiler lists once;
 - an empty kernel (one block of 32 threads), the launch floor of a replayed
   graph.
 
-With ``--sass``, each version's warp-tile K5 bwd kernel (where it has one)
-is disassembled with ``cuobjdump`` and its instructions counted by opcode.
+With ``--sass``, each version's warp-tile K5 bwd and K5 fwd kernels (where
+it has them) are disassembled with ``cuobjdump`` and their instructions
+counted by opcode, each instance apart.
 Prints the card's name and power limit first.
 """
 from __future__ import annotations
@@ -59,7 +61,8 @@ extern "C" int k0_empty(void* stream) {
   return (int)cudaGetLastError();
 }
 """
-PTXAS_KERNELS = ("message_bwd", "reduce_rows", "cast_vec", "cast_copy", "copy16")
+PTXAS_KERNELS = ("message_fwd", "message_bwd", "reduce_rows", "cast_vec", "cast_copy", "copy16")
+SASS_KERNELS = ("message_bwd_mma_kernel", "message_fwd_mma_kernel", "message_fwd_f32_kernel")
 
 
 def nvcc(source: str, so: str) -> str:
@@ -122,9 +125,12 @@ class Version:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         self.tag, self.lib = tag, lib
         self.new_api = hasattr(lib, "k5_bwd_kernel")
+        self.fwd_api = hasattr(lib, "k5_fwd_kernel")
         lib.k5_message_fwd.argtypes = [vp] * 7 + [i] * 14 + [vp]
         lib.k5_message_bwd.argtypes = [vp] * 12 + [i] * 15 + [vp]
         lib.k6_cast_copy.argtypes = [vp, vp, ll, i, i, vp]
+        if self.fwd_api:
+            lib.k5_fwd_kernel.argtypes = [vp] + [i] * 9
         if self.new_api:
             lib.k5_bwd_blocks.argtypes = [vp, i, i, i, i, i, i, ll]
             lib.k5_bwd_kernel.argtypes = [vp] + [i] * 9
@@ -145,6 +151,17 @@ class Version:
             return self.lib.k5_smem_bytes(dims_host, n_layers, 16, 4, 32, 1, 1, cdt_bf16)
         return self.lib.k5_smem_bytes(dims_host, n_layers, 16, 4, 32, 1, 1)
 
+    def fwd_smem(self, dims_host, n_layers, cdt_bf16) -> int:
+        if self.new_api:
+            return self.lib.k5_smem_bytes(dims_host, n_layers, 16, 4, 32, 1, 0, cdt_bf16)
+        return self.lib.k5_smem_bytes(dims_host, n_layers, 16, 4, 32, 1, 0)
+
+    def fwd_kernel(self, dims_host, n_layers, cdt_bf16, acts, dtypes) -> str:
+        if not self.fwd_api:
+            return "block tiles"
+        return cgm.FWD_KERNELS[self.lib.k5_fwd_kernel(dims_host, n_layers, 16, 4, 32, 1,
+                                                      cdt_bf16, *acts, dtypes & 7)]
+
     def bwd_kernel(self, dims_host, n_layers, cdt_bf16, acts, dtypes) -> str:
         if not self.new_api:
             return "block tiles"
@@ -157,7 +174,7 @@ def main() -> int:
     ap.add_argument("--source", action="append", default=[])
     ap.add_argument("--tag", action="append", default=[])
     ap.add_argument("--sass", action="store_true",
-                    help="count the warp-tile K5 bwd kernel's SASS instructions by opcode")
+                    help="count the warp-tile K5 kernels' SASS instructions by opcode")
     args = ap.parse_args()
     sources = args.source or [os.path.join(build.CSRC_DIR, "gvp_message.cu")]
     tags = args.tag + [f"v{k}" for k in range(len(args.tag), len(sources))]
@@ -180,7 +197,8 @@ def main() -> int:
             print(f"  {tag} {line}")
         versions.append(Version(tag, ctypes.CDLL(so)))
         if args.sass:
-            print(f"  {tag} {sass_histogram(so, 'message_bwd_mma_kernel')}")
+            for kernel in SASS_KERNELS:
+                print(f"  {tag} {sass_histogram(so, kernel)}")
     empty = ctypes.CDLL(jobs[-1][1])
     empty.k0_empty.argtypes = [ctypes.c_void_p]
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
@@ -255,8 +273,12 @@ def main() -> int:
                 print(f"  {v.tag} K5 bwd launches (torch.profiler, ms a call): " + ", ".join(
                     f"{kernel_name(name)} {ms:.4f}" for name, ms in per_kernel.items()))
             bound_f = (in_bytes + out_bytes) / chip_smoke.HBM_BYTES_PER_S * 1e3
+            kernels_f = ", ".join(
+                f"{v.tag} {v.fwd_kernel(dims_host, len(dims), cdt, codes, dtypes)} "
+                f"({v.fwd_smem(dims_host, len(dims), cdt)} bytes of shared memory a block)"
+                for v in versions)
             timed(f"K5 fwd {label} {kind} B={b} E={e}", {v.tag: fwd(v) for v in versions},
-                  f"bound {bound_f:.4f} ms (bytes)")
+                  f"bound {bound_f:.4f} ms (bytes); kernels: {kernels_f}")
         table = torch.randn(b, size["n_p"], 28, generator=gen, device="cuda")
         for src, dst in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
                          (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)):

@@ -492,6 +492,86 @@ def test_k5_bwd_warp_tiles_other_depths(cuda, n_layers, acts):
         _k5_close(g, ref, BF16, f"output {i}", weight=i >= 3)
 
 
+# K5 fwd's warp-tile kernels at the flagship and Davis protein edges, in the
+# two kinds of chip_smoke.K5_DTYPES: f32 serving (the f32 kernel) and the
+# bf16 step (mma.sync), each in its served instance; one launch a call and
+# the same bits twice.
+@pytest.mark.parametrize("b", [32, 128], ids=["flagship", "davis"])
+@pytest.mark.parametrize("dtypes,cdt", [((F32, F32, F32), F32), ((F32, F32, BF16), BF16)],
+                         ids=["f32", "bf16 step"])
+def test_k5_fwd_warp_tiles_match_plain(cuda, b, dtypes, cdt):
+    both, es, ev, weights, _ = _k5_case(cuda, b, 4096, 3, ("relu", None), dtypes)
+    spec = cgm.MessageSpec(16, 4, "relu", None, cdt)
+    assert cgm.fwd_kernel(both, es, ev, weights, spec) == "warp tiles, served"
+    before = cgm.LAUNCHES[cgm.K5F]
+    runs = [cgm.message_fwd(both, es, ev, weights, spec) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert cgm.LAUNCHES[cgm.K5F] == before + 2
+    assert torch.equal(runs[0], runs[1])
+    want = cgm.message_fwd_plain(both, es, ev, weights, spec)
+    assert runs[0].dtype == want.dtype and runs[0].shape == want.shape
+    _k5_close(runs[0], want, cdt, "out")
+
+
+# which kernel K5 fwd runs: the served instances, the warp-tile kernels'
+# run-time instances for other activations and dtypes, and the block-tile
+# kernel at widths without a warp-tile instance (each held to the plain version)
+@pytest.mark.parametrize("widths,acts,dtypes,cdt,kernel", [
+    ((16, 4, 32, 1), ("relu", None), (F32, F32, F32), F32, "warp tiles, served"),
+    ((16, 4, 32, 1), ("relu", None), (F32, F32, BF16), BF16, "warp tiles, served"),
+    ((16, 4, 32, 1), ("sigmoid", "sigmoid"), (F32, F32, F32), F32, "warp tiles"),
+    ((16, 4, 32, 1), ("relu", None), (BF16, F32, BF16), F32, "warp tiles"),
+    ((16, 4, 32, 1), ("relu", "sigmoid"), (BF16, BF16, BF16), BF16, "warp tiles"),
+    ((8, 2, 16, 1), ("relu", None), (F32, F32, F32), F32, "block tiles"),
+    ((8, 2, 16, 1), ("relu", None), (F32, F32, BF16), BF16, "block tiles"),
+])
+def test_k5_fwd_kernel_route(cuda, widths, acts, dtypes, cdt, kernel):
+    ns, nv, se, ve = widths
+    both, es, ev, weights, _ = _k5_case(cuda, 2, 300, 3, acts, dtypes, ns=ns, nv=nv, se=se, ve=ve)
+    spec = cgm.MessageSpec(ns, nv, acts[0], acts[1], cdt)
+    assert cgm.fwd_kernel(both, es, ev, weights, spec) == kernel
+    out = cgm.message_fwd(both, es, ev, weights, spec)
+    torch.cuda.synchronize()
+    _k5_close(out, cgm.message_fwd_plain(both, es, ev, weights, spec), cdt, "out")
+
+
+# K5 fwd's edge cases on its warp tiles: E off the tiles (16 and 32 edges),
+# one layer, a handful of edges, tiles across graphs (E < 32)
+@pytest.mark.parametrize("b,e,n_layers", [(3, 1000, 3), (2, 77, 1), (1, 1, 3), (5, 7, 3),
+                                          (3, 16 * 85 + 7, 2)])
+@pytest.mark.parametrize("dtypes,cdt", [((F32, F32, F32), F32), ((F32, F32, BF16), BF16)],
+                         ids=["f32", "bf16 step"])
+def test_k5_fwd_off_the_tiles(cuda, b, e, n_layers, dtypes, cdt):
+    both, es, ev, weights, _ = _k5_case(cuda, b, e, n_layers, ("relu", None), dtypes)
+    spec = cgm.MessageSpec(16, 4, "relu", None, cdt)
+    assert cgm.fwd_kernel(both, es, ev, weights, spec) == "warp tiles, served"
+    out = cgm.message_fwd(both, es, ev, weights, spec)
+    torch.cuda.synchronize()
+    _k5_close(out, cgm.message_fwd_plain(both, es, ev, weights, spec), cdt, "out")
+
+
+# a fused conv whose edges are all masked: K5 fwd runs on every edge and the
+# aggregation drops them all, so the conv's output is exactly 0
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_k5_fwd_all_edges_masked(cuda, dtype):
+    from caster_dta_torch.nn.common import compute_dtype
+    g = torch.Generator().manual_seed(3)
+    conv = gvp.GVPConv((16, 4), (16, 4), (32, 1), n_layers=3, aggr="sum",
+                       activations=("relu", None), vector_gate=True, generator=g).to(cuda)
+    b, n, e = 2, 40, 300
+    x = (torch.randn(b, n, 16, generator=g).to(cuda), torch.randn(b, n, 4, 3, generator=g).to(cuda))
+    ea = (torch.randn(b, e, 32, generator=g).to(cuda),
+          torch.randn(b, e, 1, 3, generator=g).to(cuda))
+    src = torch.randint(0, n, (b, e), generator=g).to(cuda, torch.int32)
+    dst = torch.sort(torch.randint(0, n, (b, e), generator=g), dim=1).values.to(cuda, torch.int32)
+    before = cgm.LAUNCHES[cgm.K5F]
+    with torch.no_grad(), gvp.fused_message(), compute_dtype(dtype):
+        out_s, out_v = conv(x, src, dst, torch.zeros(b, e, dtype=torch.bool, device=cuda), ea)
+    torch.cuda.synchronize()
+    assert cgm.LAUNCHES[cgm.K5F] == before + 1
+    assert torch.all(out_s == 0) and torch.all(out_v == 0)
+
+
 def test_k5_refuses_what_it_does_not_take(cuda):
     both, es, ev, weights, dout = _k5_case(cuda, 2, 64, 3, ("relu", None), (F32, F32, F32))
     spec = cgm.MessageSpec(16, 4, "relu", None, F32)
