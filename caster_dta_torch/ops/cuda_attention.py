@@ -11,7 +11,10 @@ fallback. Each launch adds one to ``LAUNCHES[K4]``.
 K4 replaces caster_dta_tpu/ops/pallas_attention.py::_mha_kernel (via _mha and
 masked_mha). At the served shapes (hd = 16) it is bound by f32 operations on
 the H100: two products of 2 operations per multiply-add, against 16 bytes of
-k and v per key that a whole tile of query rows shares.
+k and v per key that a whole tile of query rows shares. Head dims up to 16
+run ``masked_mha_rows_kernel`` (query rows held in registers, a chunked
+online softmax), wider heads ``masked_mha_kernel`` (``tiling`` says which);
+both are one launch a call.
 """
 from __future__ import annotations
 
@@ -27,12 +30,22 @@ K4 = "k4_masked_mha"
 LAUNCHES = {K4: 0}
 
 NEG = -1e9            # a masked key's logit, as the JAX kernel's _NEG
-HD_MAX = 128          # 16 head dims a lane, at most 8 lanes a query row
+HD_MAX = 128          # the wide kernel: 16 head dims a lane, at most 8 lanes a query row
+ROWS_HD_MAX = 16      # the row kernel: every head dim of a row in one lane
 _THREADS = 128        # at most, per block
 _MAX_SPLITS = 32
 _FILL_BLOCKS = 2 * 132  # two blocks per SM of the H100
+_CHUNK = 128          # keys the row kernel stages at a time (RT_CHUNK)
+_PARTIAL = ROWS_HD_MAX + 2   # a row's partial softmax: max, sum, accumulators
+_MAX_SPLITS_OUT = 16
+# The row kernel's instance, (R, KS, MINB): 2 query rows a lane, 8 keys a
+# softmax step, 4 blocks of 4 warps an SM (its __launch_bounds__: 128
+# registers; K4_ROWS_INSTANCES in csrc/attention.cu). The fastest at every
+# served shape of those scripts/k4_times.py timed (PERF.md, section 6).
+_ROWS = (2, 8, 4)
 
 _built: build.Built | None = None
+_counters: dict = {}  # device index -> int32 tickets, 0 between launches
 
 
 def reset_launches() -> None:
@@ -46,8 +59,12 @@ def load_library() -> build.Built:
     if _built is None:
         built = build.build("attention.cu")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        built.lib.k4_masked_mha.argtypes = [vp] * 5 + [i] * 5 + [ctypes.c_float] + [i] * 3 + [vp]
-        built.lib.k4_masked_mha.restype = i
+        built.lib.k4_masked_mha_rows.argtypes = ([vp] * 7 + [i] * 5 + [ctypes.c_float]
+                                                 + [i] * 5 + [vp])
+        built.lib.k4_masked_mha_wide.argtypes = ([vp] * 5 + [i] * 5 + [ctypes.c_float]
+                                                 + [i] * 3 + [vp])
+        built.lib.k4_masked_mha_rows.restype = i
+        built.lib.k4_masked_mha_wide.restype = i
         _built = built
     return _built
 
@@ -71,11 +88,34 @@ def masked_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1), v)
 
 
-def tiling(bh: int, lq: int, hd: int) -> tuple:
-    """(lanes per query row, query rows per block, key splits per row): the
-    fewest splits that give the card two blocks per SM, each block at most
-    128 threads. A function of the shapes alone, so a shape always sums in
-    the same order."""
+def tiling(bh: int, lq: int, lk: int, hd: int) -> tuple:
+    """The kernel and its tiling, a function of the shapes alone (so a shape
+    always sums in the same order):
+
+    - hd <= 16: ``("rows", R, KS, MINB, s_in, s_out)``, the row kernel's
+      instance (R query rows a lane, KS keys a softmax step, MINB blocks an
+      SM) and splits. A block of 4 warps covers 4 / s_in warps' rows (32 R
+      each), and its s_in warps of a row split the keys: as many as the rows
+      leave. Where graph-heads times query tiles leave the card under one
+      block an SM, s_out blocks (a power of two, at most 16, each over at
+      least two staged chunks of keys) share a tile's keys, up to two blocks
+      an SM.
+    - hd > 16: ``("wide", lanes, rows, splits)``: lanes per query row (16 head
+      dims a lane), query rows per block and key splits per row, the fewest
+      splits that give the card two blocks per SM, each block at most 128
+      threads.
+    """
+    if hd <= ROWS_HD_MAX:
+        r = _ROWS[0]
+        groups = -(-lq // (32 * r))                      # warps of rows
+        per_block = min(_THREADS // 32, 1 << (groups - 1).bit_length())
+        s_in = _THREADS // 32 // per_block
+        blocks = bh * -(-groups // per_block)
+        s_out = 1
+        while (s_out < _MAX_SPLITS_OUT and blocks * s_out * 2 <= _FILL_BLOCKS
+               and lk >= 2 * _CHUNK * 2 * s_out):
+            s_out *= 2
+        return ("rows",) + _ROWS + (s_in, s_out)
     lanes = 1 << max(0, (hd - 1).bit_length() - 4)      # 16 head dims a lane
     rows = min(_THREADS // lanes, 1 << max(0, (lq - 1).bit_length()))
     splits = _THREADS // lanes // rows
@@ -83,7 +123,20 @@ def tiling(bh: int, lq: int, hd: int) -> tuple:
            and -(-lq // rows) * bh < _FILL_BLOCKS):
         rows //= 2
         splits *= 2
-    return lanes, rows, min(splits, _MAX_SPLITS)
+    return "wide", lanes, rows, min(splits, _MAX_SPLITS)
+
+
+def _tickets(device: torch.device) -> torch.Tensor:
+    """The row kernel's per-tile counters on this card: zeroed once, then set
+    back to 0 by the kernel itself. A split launch needs one a tile, at most
+    _FILL_BLOCKS / 2 (it splits only below that many)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _counters:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{K4}: the first call on cuda:{index} is inside a CUDA graph "
+                               "capture; call it once before capturing")
+        _counters[index] = torch.zeros(_FILL_BLOCKS, dtype=torch.int32, device=device)
+    return _counters[index]
 
 
 def masked_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -120,14 +173,31 @@ def masked_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(b, h, lq, hd, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
-    lanes, rows, splits = tiling(b * h, lq, hd)
+    kind, *tile = tiling(b * h, lq, lk, hd)
     lib = load_library().lib
     mask_ptr = None if key_padding_mask is None else key_padding_mask.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.k4_masked_mha(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
-                                out.data_ptr(), b * h, h, lq, lk, hd, scale_of(hd), lanes,
-                                rows, splits, stream)
+        if kind == "rows":
+            r, ks, per_sm, s_in, s_out = tile
+            partial = counters = None
+            if s_out > 1:
+                rows_block = 32 * r * (_THREADS // 32 // s_in)
+                tiles = -(-lq // rows_block)
+                partial = torch.empty(b * h * tiles * s_out * _PARTIAL * rows_block,
+                                      dtype=torch.float32, device=q.device)
+                counters = _tickets(q.device)
+                assert b * h * tiles <= counters.numel()
+            err = lib.k4_masked_mha_rows(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+                None if partial is None else partial.data_ptr(),
+                None if counters is None else counters.data_ptr(), b * h, h, lq, lk, hd,
+                scale_of(hd), r, ks, per_sm, s_in, s_out, stream)
+        else:
+            lanes, rows, splits = tile
+            err = lib.k4_masked_mha_wide(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+                                         out.data_ptr(), b * h, h, lq, lk, hd, scale_of(hd),
+                                         lanes, rows, splits, stream)
     _raise_on(err, K4)
     LAUNCHES[K4] += 1
     return out

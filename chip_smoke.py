@@ -31,10 +31,10 @@ Phases, each printed before it starts and after it ends with its wall time:
    at the cross-attention shapes of the flagship, Davis and large-protein
    requests, both directions, with their masks, against its plain version
    within K4_TOL and bit for bit on a second run; edge cases: a fully masked
-   graph (the mean of v), one key, 130 x 33, hd 8 and 32, no mask, bf16
-   inputs. K7 (windowed gather) against K2 and its plain version, exact, at
-   the flagship and Davis dst (sorted), src and shuffled indices, f32 and
-   bf16. K8 (row-major segment-sum) against its plain version within
+   graph (the mean of v), one key, 130 x 33, hd 8, 5 and 32, no mask, Lq 67
+   over 1000 keys (blocks split the keys), bf16 inputs. K7 (windowed
+   gather) against K2 and its plain version, exact, at the flagship and
+   Davis dst (sorted), src and shuffled indices, f32 and bf16. K8 (row-major segment-sum) against its plain version within
    K8_RTOL/K8_ATOL at the flagship, Davis and large-protein protein
    aggregations, bit for bit the CPU's plain version and K1 on the same
    masked rows, and its refusal of bf16. K7 and K8 lie on no path: their
@@ -55,7 +55,9 @@ Phases, each printed before it starts and after it ends with its wall time:
    requests and one large-protein request (LARGE): launches per forward (K4
    twice, K1 and K2 as unfused), card against the port's CPU run, attention
    (None, None), each answer against the dense card answer within
-   AFFINITY_ATOL, latency and device time by group at three buckets.
+   AFFINITY_ATOL, latency and device time by group at three buckets; the
+   profiler's kernel names must show K4's row kernel in the instance that
+   ``cuda_attention.tiling`` takes (K4_SERVED).
 5. k3: K3 (unsorted scatter-add, the gathers' backward) against its plain
    version on the CPU (same edge order) at the merged src||dst backward of
    the flagship, Davis and large-protein buckets and the molecule widths, f32
@@ -201,6 +203,9 @@ K5F_SERVED = {"f32": re.compile(r"message_fwd_f32_kernel<.*MmaNet<[^>]*>, 1, 0, 
 K5B_REPLACES = "caster_dta_tpu/ops/pallas_gvp_message.py:284"   # _bwd_kernel
 K6_REPLACES = "caster_dta_tpu/ops/pallas_gvp_message.py:217"    # _cast_kernel
 K4_REPLACES = "caster_dta_tpu/ops/pallas_attention.py:41"       # _mha_kernel
+# K4's kernel at the served head width (hd = 16), as torch.profiler names it:
+# the row kernel, in the instance (R, KS, MINB) of cuda_attention._ROWS
+K4_SERVED = "masked_mha_rows_kernel<{}, {}, {}>"
 K7_REPLACES = "caster_dta_tpu/ops/pallas_segment.py:639"        # _gather_window_kernel
 K8_REPLACES = "caster_dta_tpu/ops/pallas_segment.py:72"         # _segment_kernel
 SOURCE = "caster_dta_torch/csrc/segment.cu"
@@ -407,14 +412,15 @@ def k4_cases(torch, batch, gen, heads: int, hd: int, dev="cuda"):
 
 
 def k4_edge_cases(torch, gen, dev="cuda"):
-    """A fully masked graph, one key, Lq and Lk off any tile, hd 8 and 32, no
-    mask: (what, q, k, v, mask)."""
+    """A fully masked graph, one key, Lq and Lk off any tile, hd 8, 5 and 32,
+    no mask, a grid whose blocks split the keys: (what, q, k, v, mask)."""
     out = []
     for what, (b, h, lq, lk, hd), kind in [
             ("a fully masked graph", (2, 8, 50, 70, 16), "graph 0 masked"),
             ("one key", (2, 8, 7, 1, 16), "padding"), ("130 x 33", (1, 2, 130, 33, 16), None),
-            ("hd 8", (2, 4, 60, 90, 8), "padding"), ("hd 32", (2, 4, 60, 90, 32), "padding"),
-            ("no mask", (4, 8, 96, 40, 16), None)]:
+            ("hd 8", (2, 4, 60, 90, 8), "padding"), ("hd 5", (3, 2, 200, 150, 5), "padding"),
+            ("hd 32", (2, 4, 60, 90, 32), "padding"), ("no mask", (4, 8, 96, 40, 16), None),
+            ("blocks split the keys", (2, 8, 67, 1000, 16), "padding")]:
         q, k, v = (torch.randn(b, h, n, hd, generator=gen, device=dev) for n in (lq, lk, lk))
         mask = None
         if kind is not None:
@@ -527,6 +533,17 @@ def check_k5f_served(tag: str, per_kernel: dict, kind: str) -> None:
                           for name in k5f):
         raise AssertionError(f"{tag}K5 fwd did not run its served {kind} instance: "
                              f"{sorted(k5f)}")
+
+
+def check_k4_served(tag: str, per_kernel: dict, rows: tuple) -> None:
+    """Print the K4 kernels that the profiler saw; raise unless they are all
+    the row kernel's instance ``rows`` (K4_SERVED)."""
+    want = K4_SERVED.format(*rows)
+    k4 = {name.replace("(anonymous namespace)::", "").split("(")[0]: ms
+          for name, ms in per_kernel.items() if "masked_mha" in name}
+    print(f"{tag}K4 kernels: " + "; ".join(f"{name} {ms:.3f} ms" for name, ms in k4.items()))
+    if not k4 or not all(want in name for name in k4):
+        raise AssertionError(f"{tag}K4 did not run {want}: {sorted(k4)}")
 
 
 def k5_flops(dims, si: int, vi: int) -> int:
@@ -881,11 +898,12 @@ def main() -> int:
               f"part {phase_launches}")
 
     def serve_path(tag: str, run, run_cpu, per_forward: dict, reqs=requests,
-                   timed=(requests[0], requests[-1]), k5f_kind=None) -> tuple:
+                   timed=(requests[0], requests[-1]), k5f_kind=None, k4_rows=None) -> tuple:
         """Answer every request of ``reqs`` on the card with the launches per
         forward that the code gives, hold each answer against the port's CPU
         run, time and profile the forward at the ``timed`` buckets (and, with
-        ``k5f_kind``, check that K5 fwd ran that served instance) -> (the
+        ``k5f_kind``, check that K5 fwd ran that served instance; with
+        ``k4_rows``, that K4 ran that instance of its row kernel) -> (the
         card answers, the launches of answering them)."""
         answers = []
         reset_launches()
@@ -947,6 +965,8 @@ def main() -> int:
             per_kernel, n_kernels = profile_forward(torch, lambda: predict(run, on_card))
             if k5f_kind is not None:
                 check_k5f_served(f"{tag}{label} ", per_kernel, k5f_kind)
+            if k4_rows is not None:
+                check_k4_served(f"{tag}{label} ", per_kernel, k4_rows)
             busy = sum(per_kernel.values())
             if busy == 0:
                 print(f"{tag}device time {label}: not measured (the profiler saw no kernel)")
@@ -999,7 +1019,7 @@ def main() -> int:
             set_use_pallas(r.model, True)
         blockwise_answers, launches = serve_path(
             "blockwise ", run, run_cpu, per_forward_blockwise, requests + [large],
-            (requests[0], requests[-1], large))
+            (requests[0], requests[-1], large), k4_rows=ca._ROWS)
         for r in (run, run_cpu):
             set_use_pallas(r.model, False)
         phase_launches[ca.K4] = launches[ca.K4]

@@ -629,6 +629,9 @@ def _k4_case(gen, b, h, lq, lk, hd, mask_kind, dev):
     mask = torch.rand(b, lk, generator=gen, device=dev) < 0.3
     if mask_kind == "a fully masked graph":
         mask[0] = True
+    elif mask_kind == "trailing":      # each graph's padding after its real keys
+        n_real = torch.randint(1, lk + 1, (b, 1), generator=gen, device=dev)
+        mask = torch.arange(lk, device=dev)[None, :] >= n_real
     return q, k, v, mask
 
 
@@ -637,6 +640,11 @@ def _k4_case(gen, b, h, lq, lk, hd, mask_kind, dev):
     (32, 8, 64, 512, 16, "padding"),        # flagship atoms -> residues
     (4, 8, 128, 4608, 16, "padding"),       # large protein, atoms -> residues
     (4, 8, 4608, 128, 16, "padding"),       # large protein, residues -> atoms
+    (128, 8, 768, 64, 16, "padding"),       # Davis residues -> atoms
+    (128, 8, 64, 768, 16, "padding"),       # Davis atoms -> residues
+    (2, 8, 67, 1000, 16, "padding"),        # Lq off the tiles, split blocks
+    (6, 8, 67, 600, 16, "trailing"),        # padding keys last, as batched
+    (3, 2, 200, 150, 5, "a fully masked graph"),
     (1, 2, 130, 33, 16, None),              # off any tile
     (2, 2, 7, 1, 16, "padding"),            # one key
     (2, 3, 50, 70, 8, "a fully masked graph"),
@@ -660,6 +668,25 @@ def test_k4_matches_plain(cuda, b, h, lq, lk, hd, mask_kind):
                                    **K4_TOL)
 
 
+# K4's kernel and tiling at the served cross-attention shapes (graph-heads,
+# Lq, Lk, hd): the row kernel's one instance (2 query rows a lane, 8 keys a
+# step, 4 blocks an SM); where Lq is 64 or 128 the warps of a block split
+# the keys, and where the grid leaves the card under one block an SM, blocks
+# split them too (the large protein's 32 graph-heads).
+@pytest.mark.parametrize("shape,want", [
+    ((256, 512, 64, 16), ("rows", 2, 8, 4, 1, 1)),    # flagship residues -> atoms
+    ((256, 64, 512, 16), ("rows", 2, 8, 4, 4, 1)),    # flagship atoms -> residues
+    ((1024, 768, 64, 16), ("rows", 2, 8, 4, 1, 1)),   # Davis residues -> atoms
+    ((1024, 64, 768, 16), ("rows", 2, 8, 4, 4, 1)),   # Davis atoms -> residues
+    ((32, 4608, 128, 16), ("rows", 2, 8, 4, 1, 1)),   # large protein residues -> atoms
+    ((32, 128, 4608, 16), ("rows", 2, 8, 4, 2, 8)),   # large protein atoms -> residues
+    ((6, 50, 70, 8), ("rows", 2, 8, 4, 4, 1)),        # every hd up to 16
+    ((8, 60, 90, 32), ("wide", 2, 2, 32)),            # wider heads: the first kernel
+])
+def test_k4_tiling_at_the_served_shapes(shape, want):
+    assert ca.tiling(*shape) == want
+
+
 def test_k4_takes_bf16_through_the_f32_cast(cuda):
     """ops.attention.masked_mha casts bf16 (and strided) inputs to contiguous
     f32, as the JAX masked_mha does, then launches K4."""
@@ -680,7 +707,8 @@ def test_k4_takes_bf16_through_the_f32_cast(cuda):
 def test_k4_gives_the_same_bits_twice(cuda):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(6)
-    for shape in ((32, 8, 512, 64, 16), (32, 8, 64, 512, 16), (4, 8, 128, 4608, 16)):
+    for shape in ((32, 8, 512, 64, 16), (32, 8, 64, 512, 16), (4, 8, 128, 4608, 16),
+                  (128, 8, 64, 768, 16), (2, 8, 67, 1000, 16)):
         q, k, v, mask = _k4_case(gen, *shape, "padding", cuda)
         assert torch.equal(ca.masked_mha(q, k, v, mask), ca.masked_mha(q, k, v, mask))
 
