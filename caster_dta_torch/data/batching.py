@@ -129,6 +129,10 @@ class _LRUPadCache:
             _, old = self._d.popitem(last=False)
             self.nbytes -= sum(v.nbytes for v in old.values())
 
+    def clear(self) -> None:
+        self._d.clear()
+        self.nbytes = 0
+
 
 class BucketedLoader:
     """Iterates PairBatches of static shape per bucket.
@@ -270,7 +274,9 @@ class PairDataset:
     ``scale_output`` (a list of 'standardize', 'minmax', 'log', applied in
     order) rescales the targets as the reference's dataset does;
     ``unscale_target`` undoes it and ``rescale_params`` gives the
-    ``dataset_rescale_params.json`` schema."""
+    ``dataset_rescale_params.json`` schema. ``metadata_dict`` gives the
+    feature widths and type counts as the JAX package's
+    ``ProteinMoleculeDataset`` does."""
 
     def __init__(self, proteins: dict, molecules: dict, pairs: Sequence, targets,
                  scale_output: Optional[Sequence[str]] = None):
@@ -298,6 +304,24 @@ class PairDataset:
             else:
                 raise ValueError(f"unknown scale_output {kind!r}")
         self.affinity_data = np.asarray(a, np.float32)
+        self.metadata_dict = self._feature_metadata()
+
+    def _feature_metadata(self) -> dict:
+        def widths(g):
+            s, v, es, ev = (_width(g[k]) for k in ("node_s", "node_v", "edge_s", "edge_v"))
+            return (s, v) if v else s, (es, ev) if ev else es
+
+        def n_types(store, key):
+            return int(max(int(g[key].max()) if g[key].size else 0 for g in store.values())) + 1
+
+        p_node, p_edge = widths(next(iter(self.protein_data.values())))
+        m_node, m_edge = widths(next(iter(self.molecule_data.values())))
+        return {"protein_node_features": p_node, "protein_edge_features": p_edge,
+                "molecule_node_features": m_node, "molecule_edge_features": m_edge,
+                "protein_node_types": n_types(self.protein_data, "node_type"),
+                "protein_edge_types": n_types(self.protein_data, "edge_type"),
+                "molecule_node_types": n_types(self.molecule_data, "node_type"),
+                "molecule_edge_types": n_types(self.molecule_data, "edge_type")}
 
     def __len__(self) -> int:
         return len(self.affinity_data)
@@ -323,6 +347,11 @@ class PairDataset:
     def rescale_params(self) -> dict:
         return {"scale_output": list(self.scale_output),
                 **{k: dict(v) for k, v in self._factors.items()}}
+
+
+def _width(x) -> int:
+    """The channels of a feature array ([n, c] or [n, c, 3]); 0 for None."""
+    return 0 if x is None else int(np.asarray(x).shape[1])
 
 
 def _protein(rng: np.random.Generator, n_nodes: int, n_edges: int) -> dict:

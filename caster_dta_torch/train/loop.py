@@ -12,10 +12,17 @@ the JAX policy of nn/common.py, entered around each step; parameters,
 gradients and optimizer moments stay f32. Dropout is drawn from the trainer's
 own generator on its device.
 
+The JAX package's defaults hold: the device-resident graph store
+(data/device_cache.py, ``device_data_budget``) and scan-over-steps
+(``scan_steps``). A bucket's batches of an epoch then run as one megabatch in
+the epoch's order, buckets in a seeded order. On the card each bucket's train
+step and eval forward are CUDA graphs (train/graphs.py), captured once after a
+few eager warm-up steps and replayed for every later batch; on the CPU the
+same megabatches run eagerly.
+
 Not ported yet, each refused by ``TrainConfig``: train-state checkpoints and
-resume, the device-resident data store and scan-over-steps, data and graph
-parallelism. The JAX-only knobs ``prng_impl`` and ``flat_params`` have no
-counterpart here.
+resume, data and graph parallelism. The JAX-only knobs ``prng_impl``,
+``log_every`` and ``flat_params`` have no counterpart here.
 """
 from __future__ import annotations
 
@@ -28,10 +35,12 @@ import numpy as np
 import torch
 
 from caster_dta_torch.data.batching import BucketedLoader, PairBatch
+from caster_dta_torch.data.device_cache import DeviceResidentLoader, MegaBatch, take, upload
 from caster_dta_torch.device import resolve_device
 from caster_dta_torch.interop.from_jax import load_jax_params, to_jax_params
+from caster_dta_torch.nn import gvp
 from caster_dta_torch.nn.common import compute_dtype, f32_precision
-from caster_dta_torch.train import checkpoints, metrics as metrics_mod
+from caster_dta_torch.train import checkpoints, graphs, metrics as metrics_mod
 from caster_dta_torch.train.optim import (BATCH_SCHEDULERS, make_optimizer, make_scheduler,
                                           set_learning_rate)
 
@@ -42,8 +51,6 @@ _COMPUTE_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloa
 _NOT_PORTED = {
     "save_state_every": (0, "Queue 1 item 4 (train-state checkpoints and resume)"),
     "resume": (False, "Queue 1 item 4 (train-state checkpoints and resume)"),
-    "device_data_budget": (None, "Queue 1 item 2 (the device-resident store)"),
-    "scan_steps": (False, "Queue 1 item 2 (scan_steps as a CUDA graph of the step)"),
     "n_dp": (None, "Queue 1 item 11 (multi-device)"),
     "gp": (None, "Queue 1 item 11 (multi-device)"),
 }
@@ -52,8 +59,9 @@ _NOT_PORTED = {
 @dataclass
 class TrainConfig:
     """The reference's training constants (train_model.py:392-419), as in
-    caster_dta_tpu. The fields after ``print_unscaled_loss`` are not ported
-    yet: any value but their default raises NotImplementedError."""
+    caster_dta_tpu. ``save_state_every``, ``resume``, ``n_dp`` and ``gp`` are
+    not ported yet: any value but their default (or 1 for the last two)
+    raises NotImplementedError."""
 
     n_epochs: int = 2000
     optimizer: str = "adam"
@@ -72,8 +80,12 @@ class TrainConfig:
     print_unscaled_loss: bool = True
     save_state_every: int = 0
     resume: bool = False
-    device_data_budget: Optional[int] = None
-    scan_steps: bool = False
+    # the device-resident graph store (data/device_cache.py): the byte budget
+    # of the stores; None (or a loader over budget) assembles on the host
+    device_data_budget: Optional[int] = 4_000_000_000
+    # a store-backed epoch runs bucket by bucket (train_megabatch): on the
+    # card as CUDA-graph replays of the step
+    scan_steps: bool = True
     n_dp: Optional[int] = None
     gp: Optional[int] = None
 
@@ -134,9 +146,24 @@ class ThroughputMeter:
                 "total_steps": self.total_steps}
 
 
+def _max_batch_width(loader) -> int:
+    """The largest batch size over the loader's buckets."""
+    bl = getattr(loader, "loader", loader)   # unwrap DeviceResidentLoader
+    bks = bl.buckets()
+    if not bks:
+        return 1
+    return max(bl.bucket_batch_size(b) for b in bks)
+
+
 class Trainer:
     """Trains ``model`` (a JointGNN) in place on ``device``: the card unless
-    the caller passes ``device='cpu'``."""
+    the caller passes ``device='cpu'``.
+
+    On the card with ``scan_steps`` the optimizer is capturable
+    (train/optim.py), so that a CUDA graph of the step (the scan path) and an
+    eager step (``train_step``) take the same step, bit for bit; with
+    ``scan_steps=False`` it is the eager form. Learning rates are rounded to
+    f32, as the JAX step injects them."""
 
     def __init__(self, model: torch.nn.Module, config: TrainConfig,
                  device: str | torch.device = "cuda"):
@@ -145,12 +172,17 @@ class Trainer:
         self.model = model.to(self.device)
         self.dtype = _COMPUTE_DTYPES[config.compute_dtype]
         self.params = [p for p in self.model.parameters() if p.requires_grad]
+        on_card = self.device.type == "cuda"
         self.optimizer = make_optimizer(config.optimizer, self.params, config.lr,
-                                        config.weight_decay)
+                                        config.weight_decay,
+                                        capturable=on_card and config.scan_steps)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
         self._mini_step = 0
         self._acc: Optional[list] = None
+        # the accumulation divisor of an eager step, a device tensor as in the graphs
+        self._div = torch.zeros((), device=self.device)
+        self._graphs = graphs.GraphCache(self.device) if on_card and config.scan_steps else None
 
     # ----------------------------------------------------------- params
     def params_tree(self) -> dict:
@@ -158,85 +190,202 @@ class Trainer:
         return to_jax_params(self.model)
 
     def set_params(self, tree: dict) -> None:
-        """Adopt a JAX-format param tree (for example a checkpoint)."""
+        """Adopt a JAX-format param tree (for example a checkpoint), copied
+        into the parameters in place."""
         load_jax_params(self.model, tree)
 
     # ------------------------------------------------------------ steps
+    def _set_mode(self, train: bool) -> None:
+        if self.model.training != train:
+            self.model.train(train)
+
+    def _loss(self, protein, molecule, target, weight):
+        with f32_precision(), compute_dtype(self.dtype):
+            pred, _ = self.model(protein, molecule, return_attention=False,
+                                 generator=self.generator)
+        pred = pred[:, 0].to(torch.float32)
+        loss = torch.sum(weight * (pred - target) ** 2) / torch.clamp(weight.sum(), min=1.0)
+        return loss, pred
+
     def loss(self, batch: PairBatch):
         """(masked loss, pred [B] f32) of a batch on the device, with the
         model in its current mode and the trainer's compute dtype."""
-        with f32_precision(), compute_dtype(self.dtype):
-            pred, _ = self.model(batch.protein, batch.molecule, return_attention=False,
-                                 generator=self.generator)
-        pred = pred[:, 0].to(torch.float32)
-        w = batch.weight
-        loss = torch.sum(w * (pred - batch.target) ** 2) / torch.clamp(w.sum(), min=1.0)
-        return loss, pred
+        return self._loss(batch.protein, batch.molecule, batch.target, batch.weight)
 
-    def train_step(self, batch: PairBatch, lr: Optional[float] = None):
-        """One training step on ``batch`` at learning rate ``lr`` (the
-        config's when None) -> (loss, pred [B] f32), both left on the device
-        unsynchronised."""
-        batch = batch.to(self.device)
-        if not self.model.training:
-            self.model.train()
+    def _step(self, protein, molecule, target, weight, lr, div, apply: bool):
+        """The train step's work on the device: loss, gradients, optax's
+        MultiSteps running mean ``acc + (g - acc) / div`` when accumulating
+        (``apply`` on the k-th mini step, which also zeroes the accumulators),
+        clip, and the optimizer at learning rate ``lr`` (a number or a device
+        tensor) -> (loss, pred [B]). The same calls run eagerly and under CUDA
+        graph capture."""
+        set_learning_rate(self.optimizer, lr)
         with f32_precision():
-            loss, pred = self.loss(batch)
-            grads = torch.autograd.grad(loss, self.params)
-            self._apply(list(grads), self.config.lr if lr is None else lr)
+            loss, pred = self._loss(protein, molecule, target, weight)
+            grads = list(torch.autograd.grad(loss, self.params))
+            accumulate = self.config.grad_accum > 1
+            if accumulate:
+                if self._acc is None:
+                    self._acc = [torch.zeros_like(g) for g in grads]
+                for a, g in zip(self._acc, grads):
+                    a.add_((g - a) / div)
+                if not apply:
+                    return loss.detach(), pred.detach()
+                grads = self._acc
+            if self.config.clip_norm is not None:
+                grads = clip_by_global_norm(grads, self.config.clip_norm)
+            for p, g in zip(self.params, grads):
+                p.grad = g
+            self.optimizer.step()
+            for p in self.params:
+                p.grad = None
+            if accumulate:
+                torch._foreach_zero_(self._acc)
         return loss.detach(), pred.detach()
 
-    def _apply(self, grads: list, lr: float) -> None:
-        k = self.config.grad_accum
-        if k > 1:
-            # optax.MultiSteps: running mean acc + (g - acc) / (n + 1); the
-            # optimizer sees it on the k-th mini step only
-            if self._acc is None:
-                self._acc = [torch.zeros_like(g) for g in grads]
-            n = self._mini_step
-            for a, g in zip(self._acc, grads):
-                a.add_((g - a) / (n + 1))
-            self._mini_step += 1
-            if self._mini_step < k:
-                return
-            grads, self._acc, self._mini_step = self._acc, None, 0
-        if self.config.clip_norm is not None:
-            grads = clip_by_global_norm(grads, self.config.clip_norm)
-        for p, g in zip(self.params, grads):
-            p.grad = g
-        set_learning_rate(self.optimizer, lr)
-        self.optimizer.step()
-        for p in self.params:
-            p.grad = None
+    def _next_mini_step(self) -> tuple:
+        """(divisor, apply) of the next mini step, and advance the count."""
+        n = self._mini_step
+        self._mini_step = (n + 1) % self.config.grad_accum
+        return n + 1, n + 1 == self.config.grad_accum
+
+    def train_step(self, batch, lr: Optional[float] = None):
+        """One training step on ``batch`` (a PairBatch or StoreBatch) at
+        learning rate ``lr`` (the config's when None) -> (loss, pred [B] f32),
+        both left on the device unsynchronised."""
+        batch = batch.to(self.device)
+        self._set_mode(True)
+        lr = float(np.float32(self.config.lr if lr is None else lr))
+        div, apply = self._next_mini_step()
+        if self.config.grad_accum > 1:
+            self._div.fill_(div)
+        return self._step(batch.protein, batch.molecule, batch.target, batch.weight, lr,
+                          self._div, apply)
+
+    def train_megabatch(self, mega: MegaBatch, lrs) -> tuple:
+        """The k = ``mega.n_steps`` training steps of one bucket's megabatch,
+        step j at learning rate ``lrs[j]`` -> (losses [k], preds [k, B]) f32
+        on the device, unsynchronised.
+
+        The rows, targets, weights, learning rates and divisors go to the
+        device in one copy. On the card with ``scan_steps`` the bucket's step
+        runs as CUDA graph replays: before the bucket's graphs exist, its
+        first steps run eagerly as warm-up (graphs.WARMUP_STEPS, and until the
+        optimizer has its state), then the step is captured (with grad_accum >
+        1 twice: accumulate only, accumulate and apply) and each later step
+        copies its row into the graph's static row and replays. Otherwise
+        every step runs eagerly, through the same code."""
+        k, b = mega.p_rows.shape
+        divs, applies = zip(*(self._next_mini_step() for _ in range(k)))
+        packed = upload(graphs.pack_rows(mega.p_rows, mega.m_rows, mega.target, mega.weight,
+                                         lr=lrs, div=divs), self.device)
+        self._set_mode(True)
+
+        def body(row, apply):
+            step = graphs.unpack_row(row, b)
+            loss, pred = self._step(take(mega.p_store, step.p_rows),
+                                    take(mega.m_store, step.m_rows), step.target, step.weight,
+                                    step.lr, step.div, apply)
+            return torch.cat([pred, loss.reshape(1)])
+
+        out = self._run_steps(
+            "train", mega, packed, torch.empty(k, b + 1, device=self.device), body, applies,
+            lambda warm: warm < graphs.WARMUP_STEPS or not self._ready(),
+            (False, True) if self.config.grad_accum > 1 else (True,))
+        return out[:, b], out[:, :b]
+
+    def _run_steps(self, kind, mega, packed, out, body, variants, warming, captured):
+        """``out[j] = body(packed[j], variants[j])`` for each step j. Without
+        a graph cache (the CPU, ``scan_steps=False``) eagerly; else eagerly on
+        the capture stream while ``warming(steps warmed so far)`` holds and
+        the bucket's step is not captured yet, then by replays of its
+        ``captured`` variants, captured once -> out."""
+        if self._graphs is None:
+            for j, variant in enumerate(variants):
+                out[j] = body(packed[j], variant)
+            return out
+        key = self._graph_key(kind, mega)
+        warm = 0
+        for j, variant in enumerate(variants):
+            entry = self._graphs.get(key)
+            if entry is None and warming(warm):
+                with self._graphs.side_stream():
+                    out[j] = body(packed[j], variant)
+                warm += 1
+                continue
+            if entry is None:
+                entry = self._graphs.capture(
+                    key, (mega.p_store, mega.m_store), packed.shape[1],
+                    {v: (lambda row, v=v: body(row, v)) for v in captured},
+                    generator=self.generator if kind == "train" else None)
+            out[j] = entry.run(packed[j], variant)
+        return out
+
+    def captured_step(self, kind: str, mega: MegaBatch) -> Optional[graphs.CapturedStep]:
+        """The captured ``kind`` ('train' or 'eval') step of ``mega``'s bucket
+        and stores on the model's current path; None before its capture, on
+        the CPU and with ``scan_steps=False``."""
+        return None if self._graphs is None else self._graphs.get(self._graph_key(kind, mega))
+
+    def _graph_key(self, kind: str, mega: MegaBatch) -> tuple:
+        """A captured step reads its bucket's stores and runs the model's
+        path as it was at capture: one graph per kind, store and path (the
+        fused message switch, each attention module's ``use_pallas``)."""
+        return (kind, mega.bucket, id(mega.p_store), id(mega.m_store),
+                gvp._FUSED_MESSAGE.get(),
+                tuple(m.use_pallas for m in self.model.modules() if hasattr(m, "use_pallas")))
+
+    def _ready(self) -> bool:
+        """Whether a capture would find every state it updates: the
+        optimizer's state for each parameter and the accumulators."""
+        return (all(p in self.optimizer.state for p in self.params)
+                and (self.config.grad_accum == 1 or self._acc is not None))
 
     @torch.no_grad()
-    def eval_step(self, batch: PairBatch) -> torch.Tensor:
+    def eval_step(self, batch) -> torch.Tensor:
         """Predictions [B] f32 in eval mode (no dropout), on the device."""
         batch = batch.to(self.device)
-        if self.model.training:
-            self.model.eval()
+        self._set_mode(False)
+        return self._eval_body(batch.protein, batch.molecule)
+
+    def _eval_body(self, protein, molecule) -> torch.Tensor:
         with f32_precision(), compute_dtype(self.dtype):
-            pred, _ = self.model(batch.protein, batch.molecule, return_attention=False)
+            pred, _ = self.model(protein, molecule, return_attention=False)
         return pred[:, 0].to(torch.float32)
+
+    @torch.no_grad()
+    def eval_megabatch(self, mega: MegaBatch) -> torch.Tensor:
+        """Eval-mode predictions [k, B] f32 of one bucket's megabatch, on the
+        device: on the card with ``scan_steps`` the first batch eagerly, then
+        replays of the bucket's captured forward, as ``train_megabatch``."""
+        k, b = mega.p_rows.shape
+        packed = upload(graphs.pack_rows(mega.p_rows, mega.m_rows, mega.target, mega.weight),
+                        self.device)
+        self._set_mode(False)
+
+        def body(row, _):
+            step = graphs.unpack_row(row, b)
+            return self._eval_body(take(mega.p_store, step.p_rows),
+                                   take(mega.m_store, step.m_rows))
+
+        return self._run_steps("eval", mega, packed, torch.empty(k, b, device=self.device),
+                               body, [True] * k, lambda warm: warm < graphs.EVAL_WARMUP_STEPS,
+                               (True,))
 
     @torch.no_grad()
     def eval_loss(self, batch: PairBatch) -> torch.Tensor:
         """The masked loss of ``batch`` in eval mode, on the device."""
-        if self.model.training:
-            self.model.eval()
+        self._set_mode(False)
         return self.loss(batch.to(self.device))[0]
 
     # ----------------------------------------------------------- epochs
     @staticmethod
-    def _batch_losses(preds: list, deferred: list, unscale):
-        """Per-batch MSE of the real pairs (after ``unscale``), with the
-        predictions fetched from the device in one transfer."""
-        host = torch.cat(preds).cpu().numpy() if preds else np.zeros(0, np.float32)
+    def _batch_losses(rows, deferred: list, unscale):
+        """Per-batch MSE of the real pairs (after ``unscale``), from each
+        batch's host predictions ``rows`` (at least B values each)."""
         losses, sizes, out = [], [], []
-        start = 0
-        for mask, target, pair_idx in deferred:
-            pred_np = host[start:start + len(mask)][mask]
-            start += len(mask)
+        for row, (mask, target, pair_idx) in zip(rows, deferred):
+            pred_np = row[:len(mask)][mask]
             target_np = target[mask]
             if unscale is not None:
                 pred_np, target_np = unscale(pred_np), unscale(target_np)
@@ -245,10 +394,63 @@ class Trainer:
             out.append((pred_np, target_np, pair_idx[mask]))
         return losses, sizes, out
 
-    def train_epoch(self, loader: BucketedLoader, lr: float, scheduler=None, epoch: int = 0,
+    @staticmethod
+    def _split(preds: list, deferred: list) -> list:
+        """Per-batch predictions on the host, in one device-to-host copy."""
+        host = torch.cat(preds).cpu().numpy() if preds else np.zeros(0, np.float32)
+        return np.split(host, np.cumsum([len(d[0]) for d in deferred])[:-1]) if deferred else []
+
+    def _use_scan(self, loader) -> bool:
+        return self.config.scan_steps and hasattr(loader, "iter_megabatches")
+
+    def _scan_epoch(self, loader, run):
+        """``run(mega, edges) -> preds [k, B]`` over the loader's megabatches,
+        each written into one [batches, widest B] device buffer that is
+        fetched once at the end (the JAX package's ``_acc_block``) -> (host
+        rows, (mask, target, pair_idx) of each batch)."""
+        buf = torch.zeros(max(len(loader), 1), _max_batch_width(loader), device=self.device)
+        k0, deferred = 0, []
+        for mega, edges in loader.iter_megabatches():
+            preds = run(mega, edges)
+            buf[k0:k0 + mega.n_steps, :preds.shape[1]] = preds
+            k0 += mega.n_steps
+            deferred += [(mega.weight[j] > 0, mega.target[j], mega.pair_idx[j])
+                         for j in range(mega.n_steps)]
+        return buf.cpu().numpy(), deferred
+
+    def _train_epoch_scan(self, loader, lr, scheduler, epoch, total_train, unscale, meter):
+        """One pass bucket by bucket (``train_megabatch``). Each megabatch's
+        learning rates are computed on the host before it runs: the batch
+        scheduler depends only on the pairs processed."""
+        n_processed = 0
+
+        def run(mega, edges):
+            nonlocal lr, n_processed
+            lrs, n_mega = [], 0
+            for j in range(mega.n_steps):
+                lrs.append(lr)
+                n_real = int((mega.weight[j] > 0).sum())
+                n_processed += n_real
+                n_mega += n_real
+                if scheduler is not None and total_train:
+                    lr = scheduler.step(epoch + n_processed / total_train)
+            preds = self.train_megabatch(mega, lrs)[1]
+            if meter is not None:
+                meter.step(sum(edges), n_mega)
+            return preds
+
+        rows, deferred = self._scan_epoch(loader, run)
+        losses, sizes, _ = self._batch_losses(rows, deferred, unscale)
+        return float(np.average(losses, weights=sizes)), lr
+
+    def train_epoch(self, loader, lr: float, scheduler=None, epoch: int = 0,
                     total_train: int = 0, unscale=None, meter: Optional[ThroughputMeter] = None):
         """One pass over ``loader`` -> (mean unscaled train MSE, lr). A batch
-        scheduler steps on the fractional epoch after every batch."""
+        scheduler steps on the fractional epoch after every batch. A
+        device-resident loader with ``scan_steps`` runs bucket by bucket."""
+        if self._use_scan(loader):
+            return self._train_epoch_scan(loader, lr, scheduler, epoch, total_train, unscale,
+                                          meter)
         n_processed = 0
         preds, deferred = [], []
         for batch in loader:
@@ -262,18 +464,23 @@ class Trainer:
             deferred.append((mask, batch.target.numpy(), batch.pair_idx.numpy()))
             if scheduler is not None and total_train:
                 lr = scheduler.step(epoch + n_processed / total_train)
-        losses, sizes, _ = self._batch_losses(preds, deferred, unscale)
+        losses, sizes, _ = self._batch_losses(self._split(preds, deferred), deferred, unscale)
         return float(np.average(losses, weights=sizes)), lr
 
-    def eval_epoch(self, loader: BucketedLoader, unscale=None):
+    def eval_epoch(self, loader, unscale=None):
         """-> (mean unscaled MSE, predictions, targets, pair indices) over the
-        real pairs of ``loader``."""
-        preds, deferred = [], []
-        for batch in loader:
-            preds.append(self.eval_step(batch))
-            deferred.append(((batch.weight > 0).numpy(), batch.target.numpy(),
-                             batch.pair_idx.numpy()))
-        losses, sizes, out = self._batch_losses(preds, deferred, unscale)
+        real pairs of ``loader`` (bucket by bucket with a device-resident
+        loader and ``scan_steps``)."""
+        if self._use_scan(loader):
+            rows, deferred = self._scan_epoch(loader, lambda mega, _: self.eval_megabatch(mega))
+        else:
+            preds, deferred = [], []
+            for batch in loader:
+                preds.append(self.eval_step(batch))
+                deferred.append(((batch.weight > 0).numpy(), batch.target.numpy(),
+                                 batch.pair_idx.numpy()))
+            rows = self._split(preds, deferred)
+        losses, sizes, out = self._batch_losses(rows, deferred, unscale)
         pred, target, idx = (np.concatenate(x) for x in zip(*out))
         return float(np.average(losses, weights=sizes)), pred, target, idx
 
@@ -323,15 +530,22 @@ def fit(model, dataset, dataset_name: str, output_folder: str, config: TrainConf
 
     ``dataset`` holds ``(protein graph, molecule graph, target)`` pairs with
     ``pair_indices`` (data/batching.PairDataset); its ``unscale_target``, when
-    present, reports losses in the original units."""
+    present, reports losses in the original units. As in the JAX package,
+    each loader becomes a device-resident store (``DeviceResidentLoader.maybe``)
+    when ``config.device_data_budget`` is set and its stores fit the budget."""
     os.makedirs(output_folder, exist_ok=True)
     n_epochs = config.n_epochs if n_epochs is None else n_epochs
     ladder_kwargs = {k: v for k, v in (ladder_kwargs or {}).items() if k in _LADDER_KEYS}
     train_idx, val_idx, test_idx = split_dataset(dataset, config.seed)
 
+    device = resolve_device(device)
+
     def mk_loader(idxs, shuffle, seed):
-        return BucketedLoader(dataset, idxs, max_num=max_num, max_batch_size=max_batch_size,
-                              shuffle=shuffle, seed=seed, **ladder_kwargs)
+        dl = BucketedLoader(dataset, idxs, max_num=max_num, max_batch_size=max_batch_size,
+                            shuffle=shuffle, seed=seed, **ladder_kwargs)
+        if config.device_data_budget is not None:
+            dl = DeviceResidentLoader.maybe(dl, config.device_data_budget, device=device)
+        return dl
 
     train_dl = mk_loader(train_idx, True, config.seed)
     val_dl = mk_loader(val_idx, False, config.seed + 1)

@@ -1,12 +1,13 @@
 """Optimizers and learning-rate schedules (counterpart of
 caster_dta_tpu/train/optim.py).
 
-The optimizers are ``torch.optim``'s with the reference's settings
-(train_model.py:429-451); the learning rate is set per batch through
-``param_groups``. The schedulers are copies of the JAX package's classes, not
-``torch.optim.lr_scheduler``: they are driven from Python with fractional
-epochs or the validation metric, and torch's ReduceLROnPlateau (relative
-threshold 1e-4) would step at other epochs than ``metric < best``.
+The optimizers have the reference's settings (train_model.py:429-451):
+Adam and AdamW are ``torch.optim``'s, SGD is ``CapturableSGD``; the learning
+rate is set per batch through ``param_groups``. The schedulers are copies of
+the JAX package's classes, not ``torch.optim.lr_scheduler``: they are driven
+from Python with fractional epochs or the validation metric, and torch's
+ReduceLROnPlateau (relative threshold 1e-4) would step at other epochs than
+``metric < best``.
 """
 from __future__ import annotations
 
@@ -16,29 +17,76 @@ from typing import Optional
 import torch
 
 
-def make_optimizer(name: str, params, lr: float,
-                   weight_decay: float = 0.0) -> torch.optim.Optimizer:
+def make_optimizer(name: str, params, lr: float, weight_decay: float = 0.0,
+                   capturable: bool = False) -> torch.optim.Optimizer:
     """adam (weight decay as L2 into the gradient, as torch's Adam and the
     JAX package's ``adam_l2``), adamw, sgd (momentum 0.9, Nesterov) or
-    sgd_nomomentum."""
+    sgd_nomomentum.
+
+    SGD is ``CapturableSGD`` on every device, its learning rate an f32 []
+    tensor on the parameters' device. ``capturable=True`` (parameters on the
+    card, for a CUDA graph of the step) builds torch's Adam and AdamW with
+    ``capturable=True`` and a device learning rate: bias correction on the
+    device, so their bits differ from the non-capturable step's."""
     name = name.lower()
     params = list(params)
-    if name == "adamw":
-        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=weight_decay)
-    if name == "adam":
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=weight_decay)
+    if name not in ("adam", "adamw", "sgd", "sgd_nomomentum"):
+        raise ValueError(f"unknown optimizer {name!r}")
+    if name.startswith("sgd") or capturable:
+        lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
     if name == "sgd":
-        return torch.optim.SGD(params, lr=lr, momentum=0.9, nesterov=True)
+        return CapturableSGD(params, lr, momentum=0.9, nesterov=True)
     if name == "sgd_nomomentum":
-        return torch.optim.SGD(params, lr=lr)
-    raise ValueError(f"unknown optimizer {name!r}")
+        return CapturableSGD(params, lr)
+    adam = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    if capturable:
+        adam.update(capturable=True, foreach=True)
+    return (torch.optim.AdamW if name == "adamw" else torch.optim.Adam)(params, **adam)
 
 
-def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+class CapturableSGD(torch.optim.Optimizer):
+    """torch.optim.SGD's update (momentum without dampening, Nesterov or not,
+    no weight decay) in device tensor ops only, the learning rate a tensor,
+    so that a CUDA graph can capture it (torch's SGD turns a tensor learning
+    rate into a host number); eagerly the same on any device. The update is
+    ``p - lr * g`` rounded after the product, where torch's
+    ``p.add_(g, alpha=-lr)`` may fuse the two."""
+
+    def __init__(self, params, lr: torch.Tensor, momentum: float = 0.0, nesterov: bool = False):
+        super().__init__(params, {"lr": lr, "momentum": momentum, "nesterov": nesterov})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            grads = [p.grad for p in params]
+            momentum = group["momentum"]
+            if momentum:
+                bufs = []
+                for p, g in zip(params, grads):
+                    state = self.state[p]
+                    if "momentum_buffer" in state:
+                        state["momentum_buffer"].mul_(momentum).add_(g)
+                    else:
+                        state["momentum_buffer"] = g.detach().clone()
+                    bufs.append(state["momentum_buffer"])
+                grads = torch._foreach_add(grads, bufs, alpha=momentum) if group["nesterov"] \
+                    else bufs
+            torch._foreach_sub_(params, torch._foreach_mul(grads, group["lr"]))
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr) -> None:
+    """Set every group's learning rate to ``lr`` (a number, or an f32 []
+    tensor on the device). A capturable optimizer's tensor is written in
+    place, so a captured graph reads the new value."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if torch.is_tensor(group["lr"]):
+            if torch.is_tensor(lr):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"].fill_(lr)
+        else:
+            group["lr"] = float(lr)
 
 
 class Scheduler:

@@ -80,10 +80,26 @@ Phases, each printed before it starts and after it ends with its wall time:
    steps; K5 fwd and bwd per GVP conv, K6 twice per GVP conv), its numbers
    printed beside the unfused step's; the profiler's kernel names must show
    K5 fwd's served bf16-step instance (mma.sync).
+   train-graph: the scan path's CUDA graphs (train/graphs.py). A
+   device-resident store (data/device_cache.py) fills the flagship bucket
+   with three full batches and a partial one; from the trained weights, bf16
+   Adam, dropout on, both trainers with scan_steps on and so with the
+   capturable optimizer, GRAPH_PASSES passes of eager steps (``train_step``,
+   one batch at a time) against ``train_megabatch`` (warm-up steps, the capture, replays): losses,
+   predictions and parameters bit for bit, launches per step those of the
+   train phase (the capture's counts taken back, each replay's added), and
+   the eval graph's predictions bit for bit ``eval_step``'s; then the
+   replayed step (CUDA events around the row copy and the replay) and the
+   eager store step, each with protein edges/s, kernel time, idle share and
+   its longest kernels (torch.profiler), and nvidia-smi's SM clock and power
+   draw over the timed steps; unfused, then fused (K5 fwd's bf16-step
+   instance from the profiler's kernel names).
 8. fit: two epochs of ``fit`` on a seeded synthetic dataset of FIT_PAIRS
    pairs in two buckets near the flagship sizes, checkpoints and run
    artifacts in a temporary directory, then ``load_run`` serves the best-val
-   checkpoint on the card.
+   checkpoint on the card; once with the default config (the store and the
+   graph path) and once with ``scan_steps=False, device_data_budget=None``
+   (host batches, eager steps), each with its wall time and steps/s.
 9. times: each kernel (K3 also at the large protein's merged backward), its
    plain version and the one PyTorch call that
    computes the same function, replayed from CUDA graphs and timed with CUDA
@@ -106,8 +122,8 @@ and taken only when the two runs give the same bits (``cpu_reference``).
 
 Any failure raises and the script exits non-zero. On success the line before
 the last is ``{"kernels": [...]}``, whose launch counts are each kernel's over
-the phases that run it: the training phases (train, fit, train-fused) for
-K1-K3, K5 and K6, serve-blockwise for K4, kernels for K7 and K8; and the last
+the phases that run it: the training phases (train, train-fused, train-graph,
+fit) for K1-K3, K5 and K6, serve-blockwise for K4, kernels for K7 and K8; and the last
 is ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
 """
@@ -174,6 +190,14 @@ GRAD_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2 ** -7
 STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-4, 1e-8
 TRAIN_STEPS = 20
 TRAIN_STEPS_FUSED = 20
+# train-graph: pairs of the flagship bucket from a store (3 full batches of
+# 32 and a partial one), passes over them compared eager against replays,
+# the steps timed on each path, and the longest kernels printed
+GRAPH_PAIRS = 3 * 32 + 10
+GRAPH_PASSES = 3
+GRAPH_TIMED_STEPS = 20
+GRAPH_TIMED_REPLAYS = 100
+GRAPH_TOP_KERNELS = 8
 FIT_PAIRS = 320
 # K5 against its plain version on the card: f32 sums the same products in
 # another order (outputs and input gradients within 1e-5 + 1e-5 x the
@@ -226,6 +250,26 @@ def nvidia_smi() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def smi_samples(samples: list):
+    """nvidia-smi's SM clock (MHz) and power draw (W), sampled every 50 ms
+    while the block runs, appended to ``samples`` as (clock, power)."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "50"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+        for line in out.splitlines():
+            try:
+                clock, power = (float(x) for x in line.split(","))
+            except ValueError:
+                continue
+            samples.append((clock, power))
 
 
 def graph_time_ms(torch, fn, launches: int = 20, replays: int = 7) -> float:
@@ -281,9 +325,12 @@ KERNEL_GROUPS = (("K4 attention", "masked_mha"),
                  ("copy", "Memcpy"))
 
 
-def profile_forward(torch, forward, n: int = 5):
+def profile_forward(torch, forward, n: int = 5, counts: dict | None = None):
     """Device kernels of ``n`` calls of ``forward`` under torch.profiler
-    -> ({kernel name: device ms per call}, kernel launches per call)."""
+    -> ({kernel name: device ms per call}, kernel launches per call); with
+    ``counts``, each name's launches per call go there too. A user
+    annotation's span on the device (``Optimizer.step#Adam.step``: from its
+    first kernel to its last, the gaps included) is not a kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     forward()
@@ -294,9 +341,12 @@ def profile_forward(torch, forward, n: int = 5):
         torch.cuda.synchronize()
     per_kernel, launches = {}, 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
             launches += 1
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1 / n
     return per_kernel, launches / n
 
 
@@ -606,8 +656,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    import numpy as np
+
     from caster_dta_torch.data.batching import (BucketedLoader, dataset_budgets,
                                                 synthetic_pair_batch, synthetic_pair_dataset)
+    from caster_dta_torch.data.device_cache import DeviceResidentLoader, upload
     from caster_dta_torch.inference.serve import load_run, predict
     from caster_dta_torch.models.joint import make_joint_gnn
     from caster_dta_torch.nn import gvp
@@ -616,8 +669,9 @@ def main() -> int:
     from caster_dta_torch.ops import cuda_attention as ca
     from caster_dta_torch.ops import cuda_gvp_message as cgm
     from caster_dta_torch.ops import cuda_segment as cs
+    from caster_dta_torch.ops import launches as launch_counts
     from caster_dta_torch.ops import segment
-    from caster_dta_torch.train import checkpoints
+    from caster_dta_torch.train import checkpoints, graphs
     from caster_dta_torch.train.loop import Trainer, TrainConfig, fit, split_dataset
 
     with phase("device"):
@@ -643,13 +697,7 @@ def main() -> int:
             print(f"built {os.path.relpath(built.path, HERE)} in {built.seconds:.2f} s "
                   f"({'cached' if built.seconds == 0 else 'nvcc'})")
 
-    def reset_launches():
-        cs.reset_launches()
-        cgm.reset_launches()
-        ca.reset_launches()
-
-    def launches_now() -> dict:
-        return {**cs.LAUNCHES, **cgm.LAUNCHES, **ca.LAUNCHES}
+    reset_launches, launches_now = launch_counts.reset, launch_counts.snapshot
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1216,6 +1264,148 @@ def main() -> int:
         print("train step, fused vs unfused message path: " + "; ".join(
             f"{k} {fused_train[k]} vs {unfused_train[k]}" for k in unfused_train))
 
+    def graph_path(tag: str, per_step: dict, mega, lrs, fused: bool = False) -> dict:
+        """bf16 Adam from the trained weights, dropout on, both trainers with
+        scan_steps on and so the card's capturable optimizer: GRAPH_PASSES
+        passes over the flagship megabatch one eager step at a time
+        (``train_step``) and as the graph path's ``train_megabatch``
+        (warm-up steps, the capture, replays). Losses, predictions and
+        parameters must agree bit for bit, the eval
+        graph's predictions equal ``eval_step``'s, and launches per step equal
+        the eager step's. Then the replayed step and the eager store step are
+        timed (CUDA events) and profiled -> their numbers."""
+        cfg = dict(compute_dtype="bfloat16", optimizer="adam", lr=1e-4, seed=0)
+        eager = Trainer(load_run(RUN_DIR, device="cuda").model, TrainConfig(**cfg),
+                        device="cuda")
+        graph = Trainer(load_run(RUN_DIR, device="cuda").model, TrainConfig(**cfg),
+                        device="cuda")
+        k = mega.n_steps
+        for n in range(GRAPH_PASSES):
+            want = [eager.train_step(mega.batch(j), float(lrs[j])) for j in range(k)]
+            reset_launches()
+            losses, preds = graph.train_megabatch(mega, lrs)
+            torch.cuda.synchronize()
+            launches = launches_now()
+            expect = {name: v * k for name, v in per_step.items()}
+            if launches != expect:
+                raise AssertionError(f"{tag}graph path, pass {n}: launch counts {launches} != "
+                                     f"expected {expect} ({per_step} per step)")
+            for name, v in launches.items():
+                train_launches[name] += v
+            for what, got, ref in (("losses", losses, torch.stack([w[0] for w in want])),
+                                   ("predictions", preds, torch.stack([w[1] for w in want]))):
+                if not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"{tag}graph path, pass {n}: {what} differ from the eager steps' by "
+                        f"{((got - ref).abs() / ref.abs().clamp(min=1e-30)).max().item():.3e} "
+                        "relative at most")
+            print(f"{tag}graph path pass {n} ({'warm-up, capture, replays' if n == 0 else 'replays'}"
+                  f"): {k} steps, losses {[round(x, 6) for x in losses.tolist()]} bit for bit "
+                  f"the eager steps'; launches {launches} = {k} x the eager step's")
+        captured = graph.captured_step("train", mega)
+        if captured is None or captured.launches[True] != {
+                name: v for name, v in per_step.items() if v}:
+            raise AssertionError(f"{tag}the train step was not captured with the step's launches")
+        differ = [name for (name, a), b in zip(eager.model.named_parameters(), graph.params)
+                  if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"{tag}graph path: parameters differ from the eager steps': "
+                                 f"{differ[:5]} ({len(differ)} of {len(graph.params)})")
+        print(f"{tag}graph path: all {len(graph.params)} parameters bit for bit the eager "
+              f"steps' after {GRAPH_PASSES * k} steps")
+        got = graph.eval_megabatch(mega)
+        want = torch.stack([eager.eval_step(mega.batch(j)) for j in range(k)])
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag}eval graph: predictions differ from eval_step's by "
+                                 f"{(got - want).abs().max().item():.3e}")
+        if graph.captured_step("eval", mega) is None:
+            raise AssertionError(f"{tag}the eval forward was not captured")
+        print(f"{tag}eval graph: {k} x {got.shape[1]} predictions bit for bit eval_step's")
+
+        # the replayed step: copy of the packed row in, replay, output out
+        packed = upload(graphs.pack_rows(mega.p_rows, mega.m_rows, mega.target, mega.weight,
+                                         lr=lrs, div=np.ones(k, np.float32)),
+                        torch.device("cuda"))
+        out = torch.empty_like(captured.outs[True])
+        turn = iter(range(1 << 30))
+
+        def replay():
+            out.copy_(captured.run(packed[next(turn) % k]))
+
+        def eager_step():
+            j = next(turn) % k
+            eager.train_step(mega.batch(j), float(lrs[j]))
+
+        # real protein edges a step, over the k steps the timing cycles through
+        row_edges = mega.p_store.edge_mask.sum(1).cpu().numpy()
+        p_edges = float(np.mean([row_edges[mega.p_rows[j]][mega.weight[j] > 0].sum()
+                                 for j in range(k)]))
+        result = {}
+        for path, fn, reps in (("replayed", replay, GRAPH_TIMED_REPLAYS),
+                               ("eager", eager_step, GRAPH_TIMED_STEPS)):
+            smi = []
+            with smi_samples(smi):
+                steps = event_times_ms(torch, fn, reps=reps)
+            step_ms = statistics.median(steps)
+            print(f"{tag}{path} steps: nvidia-smi over the timed steps, " + (
+                f"{len(smi)} samples: SM clock median {statistics.median(c for c, _ in smi):.0f} "
+                f"MHz (min {min(c for c, _ in smi):.0f}), power draw median "
+                f"{statistics.median(w for _, w in smi):.1f} W" if smi else "not measured"))
+            counts = {}
+            per_kernel, n_kernels = profile_forward(torch, fn, counts=counts)
+            busy = sum(per_kernel.values())
+            idle = 1 - busy / step_ms if busy else None
+            print(f"{tag}{path} step {mega.bucket} B={mega.p_rows.shape[1]} bf16 Adam: median "
+                  f"{step_ms:.3f} ms (min {steps[0]:.3f}, max {steps[-1]:.3f}) over {len(steps)} "
+                  f"steps (CUDA events{' around the row copy and the replay' if path == 'replayed' else ''}); "
+                  f"protein edges/s {p_edges / step_ms * 1e3:.1f} ({p_edges:.1f} real protein "
+                  f"edges a step); "
+                  + (f"{busy:.3f} ms of kernels in {n_kernels:.0f} kernels per step, device idle "
+                     f"{idle:.1%} of the median step (torch.profiler)" if busy else
+                     "kernel time not measured (the profiler saw no kernel)"))
+            if busy:
+                print(f"{tag}{path} step device time by group: " + ", ".join(
+                    f"{g} {ms:.3f} ms ({ms / busy:.1%})"
+                    for g, ms in kernel_groups(per_kernel).items()))
+                top = sorted(per_kernel, key=per_kernel.get, reverse=True)[:GRAPH_TOP_KERNELS]
+                print(f"{tag}{path} step, its {GRAPH_TOP_KERNELS} longest kernels (ms per step, "
+                      "launches per step): " + "; ".join(
+                          f"{name.replace('(anonymous namespace)::', '')[:90]} "
+                          f"{per_kernel[name]:.3f} ms x {counts[name]:.0f}" for name in top))
+            if fused and path == "replayed" and busy:
+                check_k5f_served(f"{tag}replayed ", per_kernel, "bf16 step")
+            result[path] = {"step median ms": step_ms, "kernel ms per step": busy or None,
+                            "kernels per step": n_kernels, "device idle": idle,
+                            "protein edges/s": p_edges / step_ms * 1e3}
+        print(f"{tag}replayed vs eager store step: " + "; ".join(
+            f"{name} {result['replayed'][name]} vs {result['eager'][name]}"
+            for name in result["eager"]))
+        return result
+
+    with phase("train-graph"):
+        # the flagship bucket filled from a store: proteins of 400-500
+        # residues (512 nodes; 8 edges a residue, 4096 edges), molecules of
+        # 20-64 atoms on a one-rung ladder of 64 (4 edges an atom: 256 edges);
+        # three full batches of 32 and a partial one
+        flagship = tuple(FLAGSHIP[x] for x in ("n_p", "e_p", "n_m", "e_m"))
+        pairs = synthetic_pair_dataset(GRAPH_PAIRS, 24, 16, [(400, 500)], (20, 64), seed=1)
+        store = DeviceResidentLoader(BucketedLoader(
+            pairs, None, max_num=dataset_budgets("davis")[0], max_batch_size=FLAGSHIP["b"],
+            seed=0, molecule_node_ladder=(FLAGSHIP["n_m"],)), device="cuda")
+        (mega, _), = store.iter_megabatches()
+        real = mega.weight.sum(axis=1)
+        if mega.bucket != flagship or mega.n_steps < 4 or not 0 < real[-1] < FLAGSHIP["b"]:
+            raise AssertionError(f"the store should fill the flagship bucket {flagship} with 3 "
+                                 f"full batches and a partial one: {mega.bucket}, {real}")
+        print(f"train-graph store: bucket {mega.bucket}, {mega.n_steps} batches of "
+              f"{mega.p_rows.shape[1]} ({real.astype(int).tolist()} real pairs), "
+              f"{mega.p_store.batch_size} proteins and {mega.m_store.batch_size} molecules "
+              f"on the card")
+        lrs = np.linspace(1e-4, 5e-5, mega.n_steps, dtype=np.float32)
+        unfused_graph = graph_path("", per_step, mega, lrs)
+        with gvp.fused_message():
+            fused_graph = graph_path("fused ", per_step_fused, mega, lrs, fused=True)
+
     with phase("fit"):
         # half the proteins 400-500 residues (the 512-node, 4096-edge bucket),
         # half 200-250 (256 nodes, 2048 edges); molecules of 20-46 atoms
@@ -1229,36 +1419,51 @@ def main() -> int:
               f"{ {b: len(i) for b, i in sorted(buckets.items())} }")
         if len(buckets) < 2:
             raise AssertionError("the fit dataset should fill at least two buckets")
-        reset_launches()
-        with tempfile.TemporaryDirectory() as out:
-            checkpoints.save_run_artifacts(out, {"dataset": "synthetic", "n_pairs": FIT_PAIRS},
-                                           dataset.rescale_params(), kw["protein_gnn_kwargs"],
-                                           kw["molecule_gnn_kwargs"], kw["joint_gnn_kwargs"])
-            model = make_joint_gnn(kw["protein_gnn_kwargs"], kw["molecule_gnn_kwargs"],
-                                   generator=torch.Generator().manual_seed(0),
-                                   **kw["joint_gnn_kwargs"])
-            t0 = time.perf_counter()
-            res = fit(model, dataset, "synthetic", out,
-                      TrainConfig(n_epochs=2, compute_dtype="bfloat16", seed=0),
-                      max_num=max_num, max_batch_size=FLAGSHIP["b"], device="cuda",
-                      ladder_kwargs={"coalesce_min_batches": 2})
-            torch.cuda.synchronize()
-            fit_s = time.perf_counter() - t0
-            print(f"fit: 2 epochs in {fit_s:.2f} s, {res['throughput']['total_steps']} steps, "
-                  f"history {[(h['train'], h['val']) for h in res['history']]}, test "
-                  f"{res['test_metrics']}")
-            for k, v in launches_now().items():
-                train_launches[k] += v
-            names = sorted(os.listdir(out))
-            print(f"fit wrote {names}")
-            run = load_run(out, device="cuda")
-            aff, _ = predict(run, batch)
-            aff = aff.cpu()
-            if aff.shape != (batch.protein.batch_size,) or not torch.isfinite(aff).all():
-                raise AssertionError(f"served fit checkpoint: affinities {tuple(aff.shape)} "
-                                     "not finite")
-            print(f"load_run served {os.path.basename(run.param_file)} on the card: "
-                  f"affinities [{aff.min().item():.4f}, {aff.max().item():.4f}] finite")
+        n_steps = 2 * len(BucketedLoader(dataset, train_idx, max_num=max_num,
+                                         max_batch_size=FLAGSHIP["b"], coalesce_min_batches=2))
+        fit_runs = {}
+        # the default config (the store and the graph path), then batches
+        # assembled on the host and eager steps
+        for how, cfg in (("store + graphs (default)", {}),
+                         ("per batch (scan_steps=False, device_data_budget=None)",
+                          dict(scan_steps=False, device_data_budget=None))):
+            reset_launches()
+            with tempfile.TemporaryDirectory() as out:
+                checkpoints.save_run_artifacts(
+                    out, {"dataset": "synthetic", "n_pairs": FIT_PAIRS}, dataset.rescale_params(),
+                    kw["protein_gnn_kwargs"], kw["molecule_gnn_kwargs"], kw["joint_gnn_kwargs"])
+                model = make_joint_gnn(kw["protein_gnn_kwargs"], kw["molecule_gnn_kwargs"],
+                                       generator=torch.Generator().manual_seed(0),
+                                       **kw["joint_gnn_kwargs"])
+                t0 = time.perf_counter()
+                res = fit(model, dataset, "synthetic", out,
+                          TrainConfig(n_epochs=2, compute_dtype="bfloat16", seed=0, **cfg),
+                          max_num=max_num, max_batch_size=FLAGSHIP["b"], device="cuda",
+                          ladder_kwargs={"coalesce_min_batches": 2})
+                torch.cuda.synchronize()
+                fit_s = time.perf_counter() - t0
+                fit_runs[how] = (fit_s, n_steps / fit_s)
+                print(f"fit {how}: 2 epochs in {fit_s:.2f} s, {n_steps} steps, "
+                      f"{n_steps / fit_s:.2f} steps/s (wall clock, evaluation and checkpoints "
+                      f"included), history {[(h['train'], h['val']) for h in res['history']]}, "
+                      f"test {res['test_metrics']}")
+                if not all(math.isfinite(h["train"]) and math.isfinite(h["val"])
+                           for h in res["history"]):
+                    raise AssertionError(f"fit {how}: a loss is not finite")
+                for k, v in launches_now().items():
+                    train_launches[k] += v
+                names = sorted(os.listdir(out))
+                print(f"fit wrote {names}")
+                run = load_run(out, device="cuda")
+                aff, _ = predict(run, batch)
+                aff = aff.cpu()
+                if aff.shape != (batch.protein.batch_size,) or not torch.isfinite(aff).all():
+                    raise AssertionError(f"served fit checkpoint: affinities {tuple(aff.shape)} "
+                                         "not finite")
+                print(f"load_run served {os.path.basename(run.param_file)} on the card: "
+                      f"affinities [{aff.min().item():.4f}, {aff.max().item():.4f}] finite")
+        print("fit wall time, store + graphs vs per batch: " + " vs ".join(
+            f"{s_:.2f} s ({rate:.2f} steps/s)" for s_, rate in fit_runs.values()))
         print(f"launches over the training phases: {train_launches}")
 
     with phase("times"), torch.no_grad():

@@ -8,8 +8,10 @@ caster_dta_torch and chip_smoke, serves one tiny batch from runs/davis_seed9
 on the CPU, serves it again with the fused message path switched on
 (``caster_dta_torch.nn.gvp.fused_message``) and with the blockwise attention
 path (``use_pallas`` on both MultiheadAttention modules), takes one bf16 training step
-from those weights and writes a checkpoint that the port reads back, and
-checks that none of the hidden names was loaded. A second case runs
+from those weights and writes a checkpoint that the port reads back, trains
+and evaluates one epoch bucket by bucket over a device-resident store (the
+scan path, eager on the CPU), and checks that none of the hidden names was
+loaded. A second case runs
 chip_smoke.py without a card: it must fail and print no result, since
 nothing falls back to the CPU.
 """
@@ -68,7 +70,7 @@ assert float((aff_blockwise - aff).abs().max()) < 1e-4, (aff_blockwise, aff)
 for m in mhas:
     m.use_pallas = False
 
-import os, tempfile
+import math, os, tempfile
 from caster_dta_torch.train import checkpoints
 from caster_dta_torch.train.loop import Trainer, TrainConfig
 trainer = Trainer(run.model, TrainConfig(compute_dtype="bfloat16"), device="cpu")
@@ -79,6 +81,16 @@ with tempfile.TemporaryDirectory() as tmp:
     checkpoints.save_params(trainer.params_tree(), path)
     back = checkpoints.load_params(path)
 assert back["output_layer"]["kernel"].shape == (256, 1)
+
+from caster_dta_torch.data.batching import BucketedLoader, synthetic_pair_dataset
+from caster_dta_torch.data.device_cache import DeviceResidentLoader
+pairs = synthetic_pair_dataset(10, 3, 3, [(10, 20)], (6, 10), seed=0)
+store = DeviceResidentLoader(BucketedLoader(pairs, None, max_batch_size=4, seed=0), device="cpu")
+assert trainer._use_scan(store)
+epoch_loss, _ = trainer.train_epoch(store, 1e-4)
+val_loss, val_pred, _, val_idx = trainer.eval_epoch(store)
+assert math.isfinite(epoch_loss) and math.isfinite(val_loss), (epoch_loss, val_loss)
+assert sorted(val_idx.tolist()) == list(range(10)) and val_pred.shape == (10,)
 loaded = sorted(n for n in sys.modules if n.partition(".")[0] in HIDDEN)
 assert not loaded, loaded
 print("standalone ok", aff.tolist())
