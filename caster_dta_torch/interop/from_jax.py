@@ -188,7 +188,14 @@ def to_jax_params(model: JointGNN) -> dict:
     """The model's weights as the JAX package's JointGNN param tree: nested
     dicts of f32 numpy arrays, the tree ``checkpoints.save_params`` writes
     and ``caster_dta_tpu`` reads. Every tensor of the state dict is used."""
-    sd = {k: v.detach().to("cpu", torch.float32).numpy() for k, v in model.state_dict().items()}
+    return tree_from_tensors(model, model.state_dict())
+
+
+def tree_from_tensors(model: JointGNN, tensors: dict) -> dict:
+    """Tensors named and shaped as ``model``'s state dict (its weights, or
+    per-parameter optimizer moments) as the JAX param tree's leaves, in that
+    tree's layout. Every tensor is used."""
+    sd = {k: v.detach().to("cpu", torch.float32).numpy() for k, v in tensors.items()}
     read: set = set()
     params: dict = {}
     _Bridge(to_torch=False, sd=_TrackingDict(sd, read)).joint(params, model)

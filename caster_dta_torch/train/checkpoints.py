@@ -215,6 +215,68 @@ def load_params(path: str) -> dict:
         return unpackb(f.read())
 
 
+TRAIN_STATE_FILE = "train_state.msgpack"
+
+
+def save_train_state(output_folder: str, *, params: dict, opt_state: dict, rng: dict,
+                     epoch: int, best_train: float, best_val: float, n_since_best_val: int,
+                     lr: float, history: list, scheduler=None) -> None:
+    """Write everything a run needs to continue bit for bit, as
+    ``output_folder/train_state.msgpack`` (tmp file, then rename: a failure
+    mid-write never corrupts the resume point). The msgpack map holds:
+
+    - ``params``: the JAX param tree (``Trainer.params_tree``);
+    - ``opt_state``: ``Trainer.opt_state_tree``: ``mu`` and ``nu`` (Adam,
+      AdamW) or ``trace`` (SGD with momentum), param trees under the same
+      names; ``count``, the optimizer steps taken; ``mini_step``, and with
+      gradient accumulation ``acc``, the running mean of the gradients;
+    - ``rng``: ``Trainer.rng_state``: ``dropout``, the dropout generator's
+      ``get_state()`` bytes (uint8), and ``device``, 'cuda' or 'cpu';
+    - ``meta``: ``epoch`` (the last epoch run), ``best_train``, ``best_val``,
+      ``n_since_best_val``, ``lr``, ``history`` (JSON text) and ``scheduler``
+      (JSON text of the scheduler's plain fields, or null), as the JAX
+      package writes them.
+
+    The layout follows caster_dta_tpu's train_state.msgpack, but the JAX
+    package does not resume a port run (its dropout stream is a JAX key)."""
+    state = {
+        "params": params,
+        "opt_state": opt_state,
+        "rng": rng,
+        "meta": {
+            "epoch": int(epoch), "best_train": float(best_train), "best_val": float(best_val),
+            "n_since_best_val": int(n_since_best_val), "lr": float(lr),
+            "history": json.dumps(history),
+            "scheduler": json.dumps(
+                {k: v for k, v in vars(scheduler).items()
+                 if isinstance(v, (int, float, str, bool))}
+                if scheduler is not None else None),
+        },
+    }
+    path = os.path.join(output_folder, TRAIN_STATE_FILE)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(packb(state))
+    os.replace(tmp, path)
+
+
+def load_train_state(output_folder: str) -> Optional[dict]:
+    """``save_train_state``'s contents (the meta fields at the top level,
+    history and scheduler parsed), or None when the folder has none."""
+    path = os.path.join(output_folder, TRAIN_STATE_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        raw = unpackb(f.read())
+    meta = raw["meta"]
+    return {"params": raw["params"], "opt_state": raw["opt_state"], "rng": raw["rng"],
+            "epoch": int(meta["epoch"]), "best_train": float(meta["best_train"]),
+            "best_val": float(meta["best_val"]),
+            "n_since_best_val": int(meta["n_since_best_val"]), "lr": float(meta["lr"]),
+            "history": json.loads(meta["history"]),
+            "scheduler": json.loads(meta["scheduler"])}
+
+
 def get_best_model(checkpoint_path: str, use_best: str = "val") -> str:
     """The best checkpoint file of a run directory, by the reference's name
     prefixes (sorted, first wins), or the path itself when it is a file."""

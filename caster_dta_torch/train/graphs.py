@@ -107,6 +107,10 @@ class GraphCache:
     def get(self, key) -> Optional[CapturedStep]:
         return self._steps.get(key)
 
+    def keys(self) -> list:
+        """The keys of the captured steps, in capture order."""
+        return list(self._steps)
+
     def _side(self) -> torch.cuda.Stream:
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)

@@ -20,9 +20,12 @@ step and eval forward are CUDA graphs (train/graphs.py), captured once after a
 few eager warm-up steps and replayed for every later batch; on the CPU the
 same megabatches run eagerly.
 
-Not ported yet, each refused by ``TrainConfig``: train-state checkpoints and
-resume, data and graph parallelism. The JAX-only knobs ``prng_impl``,
-``log_every`` and ``flat_params`` have no counterpart here.
+``fit`` writes the train state (train/checkpoints.py ``save_train_state``:
+parameters, optimizer state, the dropout generator, the scheduler, the best
+losses and the history) every ``save_state_every`` epochs and at the end, and
+``resume`` continues a run from it, bit for bit the straight run's. Not
+ported yet, refused by ``TrainConfig``: data and graph parallelism. The
+JAX-only knobs ``prng_impl`` and ``flat_params`` have no counterpart here.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ import torch
 from caster_dta_torch.data.batching import BucketedLoader, PairBatch
 from caster_dta_torch.data.device_cache import DeviceResidentLoader, MegaBatch, take, upload
 from caster_dta_torch.device import resolve_device
-from caster_dta_torch.interop.from_jax import load_jax_params, to_jax_params
+from caster_dta_torch.interop.from_jax import (load_jax_params, state_dict_from_jax,
+                                               to_jax_params, tree_from_tensors)
 from caster_dta_torch.nn import gvp
 from caster_dta_torch.nn.common import compute_dtype, f32_precision
 from caster_dta_torch.train import checkpoints, graphs, metrics as metrics_mod
@@ -49,19 +53,18 @@ _COMPUTE_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloa
 
 # field: (the value that means "off", the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "save_state_every": (0, "Queue 1 item 4 (train-state checkpoints and resume)"),
-    "resume": (False, "Queue 1 item 4 (train-state checkpoints and resume)"),
     "n_dp": (None, "Queue 1 item 11 (multi-device)"),
     "gp": (None, "Queue 1 item 11 (multi-device)"),
 }
+# torch optimizer state -> its name in the JAX package's optax state
+_OPT_STATE_NAMES = {"exp_avg": "mu", "exp_avg_sq": "nu", "momentum_buffer": "trace"}
 
 
 @dataclass
 class TrainConfig:
     """The reference's training constants (train_model.py:392-419), as in
-    caster_dta_tpu. ``save_state_every``, ``resume``, ``n_dp`` and ``gp`` are
-    not ported yet: any value but their default (or 1 for the last two)
-    raises NotImplementedError."""
+    caster_dta_tpu. ``n_dp`` and ``gp`` are not ported yet: any value but
+    None or 1 raises NotImplementedError."""
 
     n_epochs: int = 2000
     optimizer: str = "adam"
@@ -78,8 +81,12 @@ class TrainConfig:
     # None (or "float32") is pure f32
     compute_dtype: Optional[str] = None
     print_unscaled_loss: bool = True
-    save_state_every: int = 0
+    # full train-state checkpointing (train/checkpoints.py): write
+    # train_state.msgpack every k epochs and at the end (0 = never);
+    # resume=True continues an interrupted run from it, bit for bit
+    save_state_every: int = 25
     resume: bool = False
+    log_every: int = 0           # print per-batch progress if > 0
     # the device-resident graph store (data/device_cache.py): the byte budget
     # of the stores; None (or a loader over budget) assembles on the host
     device_data_budget: Optional[int] = 4_000_000_000
@@ -92,13 +99,21 @@ class TrainConfig:
     def __post_init__(self):
         for name, (off, item) in _NOT_PORTED.items():
             value = getattr(self, name)
-            if value != off and not (name in ("n_dp", "gp") and value == 1):
+            if value != off and value != 1:
                 raise NotImplementedError(f"TrainConfig.{name}={value!r} is not ported yet: "
                                           f"ROADMAP {item}")
         if self.compute_dtype not in _COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(map(str, _COMPUTE_DTYPES))}")
         if self.grad_accum < 1:
             raise ValueError("grad_accum must be >= 1")
+
+
+def _put(state: dict, key: str, value: torch.Tensor) -> None:
+    """state[key] = value, copied into the existing tensor when there is one."""
+    if key in state:
+        state[key].copy_(value)
+    else:
+        state[key] = value.clone()
 
 
 def clip_by_global_norm(grads: list, max_norm: float) -> list:
@@ -193,6 +208,78 @@ class Trainer:
         """Adopt a JAX-format param tree (for example a checkpoint), copied
         into the parameters in place."""
         load_jax_params(self.model, tree)
+
+    # ------------------------------------------------------- train state
+    def _param_names(self) -> list:
+        return [n for n, p in self.model.named_parameters() if p.requires_grad]
+
+    def opt_state_tree(self) -> dict:
+        """The optimizer's state under the JAX package's optax names: ``mu``
+        and ``nu`` (Adam's moments) or ``trace`` (SGD's momentum), each a
+        param tree; ``count``, the optimizer steps taken; ``mini_step`` and,
+        with gradient accumulation, ``acc`` (the running mean of the
+        gradients so far)."""
+        names = self._param_names()
+        state = [self.optimizer.state.get(p, {}) for p in self.params]
+        out: dict = {}
+        for key, jax_name in _OPT_STATE_NAMES.items():
+            if any(key in st for st in state):
+                out[jax_name] = tree_from_tensors(
+                    self.model, {n: st[key] for n, st in zip(names, state)})
+        steps = {int(st["step"]) for st in state if "step" in st}
+        if len(steps) > 1:
+            raise RuntimeError(f"parameters took different numbers of optimizer steps: {steps}")
+        out["count"] = steps.pop() if steps else 0
+        out["mini_step"] = self._mini_step
+        if self._acc is not None:
+            out["acc"] = tree_from_tensors(self.model, dict(zip(names, self._acc)))
+        return out
+
+    def load_opt_state_tree(self, tree: dict) -> None:
+        """Adopt ``opt_state_tree``'s output, copied into the optimizer's
+        state tensors in place where they exist (a captured step reads those
+        very tensors), else into new ones on the parameters' devices; the
+        step counts of a capturable optimizer on the card, of an eager one on
+        the CPU, as torch keeps them."""
+        names = self._param_names()
+        count = torch.tensor(float(tree["count"]), dtype=torch.float32)
+        stepped = isinstance(self.optimizer, (torch.optim.Adam, torch.optim.AdamW))
+        on_device = bool(self.optimizer.defaults.get("capturable"))
+        for key, jax_name in _OPT_STATE_NAMES.items():
+            if jax_name not in tree:
+                continue
+            sd = state_dict_from_jax(tree[jax_name], self.model)
+            for n, p in zip(names, self.params):
+                st = self.optimizer.state[p]
+                _put(st, key, sd[n].to(p.device))
+                if stepped:
+                    _put(st, "step", count.to(p.device) if on_device else count)
+        self._mini_step = int(tree.get("mini_step", 0))
+        if "acc" in tree:
+            sd = state_dict_from_jax(tree["acc"], self.model)
+            acc = [sd[n].to(p.device) for n, p in zip(names, self.params)]
+            if self._acc is None:
+                self._acc = acc
+            else:
+                for a, v in zip(self._acc, acc):
+                    a.copy_(v)
+
+    def rng_state(self) -> dict:
+        """The dropout generator's state (torch's ``Generator.get_state``: on
+        the card its seed and Philox offset, which every replay of a train
+        graph registered with it advances, so this is the state a run
+        without graphs holds at the same step) and its device type."""
+        return {"dropout": self.generator.get_state().numpy().copy(),
+                "device": self.device.type}
+
+    def load_rng_state(self, state: dict) -> None:
+        """Adopt ``rng_state``'s output. ``Generator.set_state`` writes the
+        generator's state object in place, the object every train graph
+        registers; ``fit`` restores it before any graph is captured."""
+        if state["device"] != self.device.type:
+            raise ValueError(f"a dropout generator state saved on {state['device']} cannot "
+                             f"resume on {self.device.type}")
+        self.generator.set_state(torch.from_numpy(np.array(state["dropout"], np.uint8)))
 
     # ------------------------------------------------------------ steps
     def _set_mode(self, train: bool) -> None:
@@ -422,10 +509,10 @@ class Trainer:
         """One pass bucket by bucket (``train_megabatch``). Each megabatch's
         learning rates are computed on the host before it runs: the batch
         scheduler depends only on the pairs processed."""
-        n_processed = 0
+        n_processed = n_steps = 0
 
         def run(mega, edges):
-            nonlocal lr, n_processed
+            nonlocal lr, n_processed, n_steps
             lrs, n_mega = [], 0
             for j in range(mega.n_steps):
                 lrs.append(lr)
@@ -437,11 +524,23 @@ class Trainer:
             preds = self.train_megabatch(mega, lrs)[1]
             if meter is not None:
                 meter.step(sum(edges), n_mega)
+            self._log_progress(epoch, n_steps, n_steps + mega.n_steps, len(loader),
+                               n_processed, lr)
+            n_steps += mega.n_steps
             return preds
 
         rows, deferred = self._scan_epoch(loader, run)
         losses, sizes, _ = self._batch_losses(rows, deferred, unscale)
         return float(np.average(losses, weights=sizes)), lr
+
+    def _log_progress(self, epoch: int, before: int, after: int, total: int, n_pairs: int,
+                      lr: float) -> None:
+        """With ``config.log_every`` = k > 0, one line when the steps done in
+        the epoch pass a multiple of k (from the host's counts: no sync)."""
+        k = self.config.log_every
+        if k > 0 and after // k > before // k:
+            print(f"  E {epoch} batch {after}/{total} | pairs {n_pairs} | LR {lr:.2E}",
+                  flush=True)
 
     def train_epoch(self, loader, lr: float, scheduler=None, epoch: int = 0,
                     total_train: int = 0, unscale=None, meter: Optional[ThroughputMeter] = None):
@@ -453,7 +552,7 @@ class Trainer:
                                           meter)
         n_processed = 0
         preds, deferred = [], []
-        for batch in loader:
+        for i, batch in enumerate(loader):
             _, pred = self.train_step(batch, lr)
             mask = (batch.weight > 0).numpy()
             n_real = int(mask.sum())
@@ -464,6 +563,7 @@ class Trainer:
             deferred.append((mask, batch.target.numpy(), batch.pair_idx.numpy()))
             if scheduler is not None and total_train:
                 lr = scheduler.step(epoch + n_processed / total_train)
+            self._log_progress(epoch, i, i + 1, len(loader), n_processed, lr)
         losses, sizes, _ = self._batch_losses(self._split(preds, deferred), deferred, unscale)
         return float(np.average(losses, weights=sizes)), lr
 
@@ -586,8 +686,51 @@ def fit(model, dataset, dataset_name: str, output_folder: str, config: TrainConf
     lr = config.lr
     mean_val = np.inf
     history = []
-    epoch = -1
-    for epoch in range(n_epochs):
+    start_epoch = 0
+    if config.resume:
+        st = checkpoints.load_train_state(output_folder)
+        if st is not None:
+            # before any graph is captured: the dropout generator's state
+            # object and the optimizer's state tensors, written in place
+            trainer.set_params(st["params"])
+            trainer.load_opt_state_tree(st["opt_state"])
+            trainer.load_rng_state(st["rng"])
+            start_epoch = st["epoch"] + 1
+            best["train"], best["val"] = st["best_train"], st["best_val"]
+            n_since_best_val = st["n_since_best_val"]
+            lr = st["lr"]
+            history = st["history"]
+            if scheduler is not None and st["scheduler"]:
+                vars(scheduler).update(st["scheduler"])
+            # the epoch-indexed shuffles and bucket orders a straight run
+            # would use from this epoch (the val loader runs once an epoch)
+            for dl in (train_dl, val_dl):
+                getattr(dl, "loader", dl).epoch = start_epoch
+            # adopt the interrupted run's best files so retention supersedes
+            # them in place rather than keeping a second pile
+            for kind in ("train", "val"):
+                try:
+                    best_paths[kind] = checkpoints.get_best_model(output_folder, kind)
+                except FileNotFoundError:
+                    pass
+            if verbose:
+                print(f"Resumed from epoch {st['epoch']} "
+                      f"(best {best['train']:.4f}/{best['val']:.4f})", flush=True)
+
+    def save_state(epoch):
+        checkpoints.save_train_state(
+            output_folder, params=trainer.params_tree(), opt_state=trainer.opt_state_tree(),
+            rng=trainer.rng_state(), epoch=epoch, best_train=best["train"],
+            best_val=best["val"], n_since_best_val=n_since_best_val, lr=lr, history=history,
+            scheduler=scheduler)
+
+    # a resume with n_epochs <= the reached epoch runs no epoch and goes
+    # straight to the final checkpoint and the test metrics (finishing a
+    # bounded run that timed out)
+    epoch = start_epoch - 1
+    if history:
+        mean_val = history[-1]["val"]
+    for epoch in range(start_epoch, n_epochs):
         t0 = time.time()
         mean_train, lr = ((np.inf, lr) if len(train_dl) == 0 else trainer.train_epoch(
             train_dl, lr, scheduler=batch_sched, epoch=epoch, total_train=len(train_idx),
@@ -617,6 +760,13 @@ def fit(model, dataset, dataset_name: str, output_folder: str, config: TrainConf
                 lr = scheduler.step(metric=mean_val)
             elif batch_sched is None:
                 lr = scheduler.step(epoch - config.warmup_epochs + 1)
+        if config.save_state_every and (epoch + 1) % config.save_state_every == 0:
+            save_state(epoch)
+
+    # the last resume point: a bounded run resumes even when n_epochs is not
+    # a multiple of save_state_every
+    if config.save_state_every:
+        save_state(epoch)
 
     checkpoints.save_params(trainer.params_tree(), os.path.join(
         output_folder, checkpoints.best_checkpoint_name("final", dataset_name, mean_val, epoch)))

@@ -100,7 +100,19 @@ Phases, each printed before it starts and after it ends with its wall time:
    checkpoint on the card; once with the default config (the store and the
    graph path) and once with ``scan_steps=False, device_data_budget=None``
    (host batches, eager steps), each with its wall time and steps/s.
-9. times: each kernel (K3 also at the large protein's merged backward), its
+9. cli: the training CLI (``caster_dta_torch.train.driver.main``) in this
+   process with the default config (store + CUDA graphs, bf16 Adam, dropout
+   on), from a fresh data root: ``--dataset synthetic`` writes its PDB files,
+   the host layers featurize them and the SMILES (native host library built
+   with g++, spawned workers), then (a) CLI_EPOCHS epochs straight, (b)
+   CLI_INTERRUPT epochs, the best and final checkpoints deleted, and
+   ``--resume`` to CLI_EPOCHS: the histories must be equal and the final
+   checkpoints the same bytes; (c) ``--skip-training`` on (a)'s checkpoint.
+   Each training run must capture its train and eval graphs, and K1, K2 and
+   K3 must launch. Prints the featurization time and graphs/s (in the CLI and
+   again in this process without a pool), each run's wall time and epochs/s,
+   and the parameters' device.
+10. times: each kernel (K3 also at the large protein's merged backward), its
    plain version and the one PyTorch call that
    computes the same function, replayed from CUDA graphs and timed with CUDA
    events, beside the least time the card could take (the larger of bytes
@@ -123,7 +135,7 @@ and taken only when the two runs give the same bits (``cpu_reference``).
 Any failure raises and the script exits non-zero. On success the line before
 the last is ``{"kernels": [...]}``, whose launch counts are each kernel's over
 the phases that run it: the training phases (train, train-fused, train-graph,
-fit) for K1-K3, K5 and K6, serve-blockwise for K4, kernels for K7 and K8; and the last
+fit, cli) for K1-K3, K5 and K6, serve-blockwise for K4, kernels for K7 and K8; and the last
 is ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
 """
@@ -199,6 +211,16 @@ GRAPH_TIMED_STEPS = 20
 GRAPH_TIMED_REPLAYS = 100
 GRAPH_TOP_KERNELS = 8
 FIT_PAIRS = 320
+# cli: the synthetic set the training CLI featurizes (data/synthetic.py, seed
+# 0): 3,000 draws over 40 proteins of 20-60 residues and 30 molecules, 1,099
+# distinct pairs; at the CLI's batch size of 128 the train split fills a
+# bucket of 5 batches (its step is captured after 2 warm-up steps, in the
+# first epoch of each run) and one of 2, and the val split 2 batches (its
+# forward captured after 1). Epochs of the straight run, of the interrupted
+# run and of the resumed one.
+CLI_SYNTHETIC = ["--synthetic-pairs", "3000", "--synthetic-proteins", "40",
+                 "--synthetic-molecules", "30"]
+CLI_EPOCHS, CLI_INTERRUPT = 4, 2
 # K5 against its plain version on the card: f32 sums the same products in
 # another order (outputs and input gradients within 1e-5 + 1e-5 x the
 # tensor's largest entry, weight gradients, sums over every edge, within
@@ -638,6 +660,107 @@ def cpu_reference(torch, fn, what: str):
     CPU_REFERENCES["third run"] += 1
     print(f"{what}: two CPU runs differed; a third agreed with one of them", file=sys.stderr)
     return third
+
+
+def cli_phase(torch, train_launches: dict) -> None:
+    """The training CLI (caster_dta_torch/train/driver.py ``main``) in this
+    process on the card, default config (store + CUDA graphs, dropout on),
+    from a fresh data root of synthetic PDB files and SMILES: (a) CLI_EPOCHS
+    epochs straight; (b) CLI_INTERRUPT epochs, the best and final checkpoints
+    deleted, then ``--resume`` to CLI_EPOCHS: histories equal and the final
+    checkpoints the same bytes; (c) ``--skip-training`` on (a)'s checkpoint.
+    K1, K2 and K3 must launch, and each run must capture train and eval
+    graphs. Adds the phase's launches to ``train_launches``."""
+    import pickle
+
+    from caster_dta_torch.data.pairs import ProteinMoleculeDataset
+    from caster_dta_torch.native import host
+    from caster_dta_torch.ops import cuda_segment as cs
+    from caster_dta_torch.ops import launches as launch_counts
+    from caster_dta_torch.train import checkpoints, driver
+
+    t0 = time.perf_counter()
+    host.load_library()   # the CLI's dataset build would build it; timed apart here
+    host_build = time.perf_counter() - t0
+    launch_counts.reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["--dataset", "synthetic", "--data-root", os.path.join(tmp, "data"),
+                "--seed", "9", *CLI_SYNTHETIC]
+        out = {k: os.path.join(tmp, k) for k in ("a", "b", "c")}
+
+        def run(argv, what):
+            t0 = time.perf_counter()
+            res = driver.main(base + argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            trainer = res["trainer"]
+            kinds = sorted({key[0] for key in trainer._graphs.keys()}) if trainer._graphs else []
+            n_epochs = len(res["history"])
+            print(f"cli {what}: {seconds:.2f} s, {n_epochs} epochs in the history; captured "
+                  f"{kinds}; parameters on {next(trainer.model.parameters()).device}; "
+                  f"test {res['test_metrics']}")
+            if kinds != ["eval", "train"]:
+                raise AssertionError(f"cli {what}: captured {kinds}, not the train and eval "
+                                     "graphs of the default config")
+            return res, seconds
+
+        res_a, sec_a = run(["--out-folder", out["a"], "--n-epochs", str(CLI_EPOCHS)], "(a) straight")
+        dataset = res_a["dataset"]
+        cached = [n for n in os.listdir(os.path.join(tmp, "data", "cache"))
+                  if n.startswith(driver.CACHE_PREFIX)]
+        print(f"cli dataset: {len(dataset)} pairs, {len(dataset.protein_data)} proteins, "
+              f"{len(dataset.molecule_data)} molecules; "
+              f"featurized in {dataset.featurize_seconds:.3f} s with the native host "
+              f"library (built and loaded in {host_build:.2f} s before) and spawned workers, "
+              f"{dataset.n_graphs / dataset.featurize_seconds:.1f} graphs/s; cache {cached}")
+        t0 = time.perf_counter()
+        again = ProteinMoleculeDataset(dataset.records, n_workers=0,
+                                       **driver.DEFAULT_DATASET_KWARGS)
+        in_process = time.perf_counter() - t0
+        if not all(pickle.dumps(again.protein_data[k]) == pickle.dumps(dataset.protein_data[k])
+                   for k in dataset.protein_data):
+            raise AssertionError("cli: featurizing in this process gave other protein graphs")
+        print(f"cli featurization in this process (no pool): {in_process:.3f} s, "
+              f"{again.n_graphs / in_process:.1f} graphs/s")
+        _, sec_b1 = run(["--out-folder", out["b"], "--n-epochs", str(CLI_INTERRUPT)],
+                        "(b) interrupted")
+        removed = [f for f in os.listdir(out["b"]) if f.startswith(("bestval", "besttrain", "final"))]
+        for f in removed:
+            os.remove(os.path.join(out["b"], f))
+        res_b, sec_b2 = run(["--out-folder", out["b"], "--n-epochs", str(CLI_EPOCHS), "--resume"],
+                            "(b) resumed")
+        for what, seconds, epochs in (("(a)", sec_a, CLI_EPOCHS), ("(b) interrupted", sec_b1,
+                                                                    CLI_INTERRUPT),
+                                      ("(b) resumed", sec_b2, CLI_EPOCHS - CLI_INTERRUPT)):
+            print(f"cli {what}: {seconds:.2f} s wall clock (dataset load, model build, "
+                  f"captures, checkpoints and the test evaluation included), "
+                  f"{epochs / seconds:.3f} epochs/s")
+        hist = [[(h["epoch"], h["lr"], h["train"], h["val"]) for h in r["history"]]
+                for r in (res_a, res_b)]
+        print(f"cli histories (epoch, lr, train, val): straight {hist[0]}; resumed {hist[1]}")
+        if hist[0] != hist[1]:
+            raise AssertionError("cli: the resumed run's history differs from the straight run's")
+        finals = []
+        for d in (out["a"], out["b"]):
+            with open(checkpoints.get_best_model(d, "final"), "rb") as f:
+                finals.append(f.read())
+        if finals[0] != finals[1]:
+            raise AssertionError("cli: the resumed run's final checkpoint differs from the "
+                                 "straight run's")
+        print(f"cli: resumed = straight bit for bit (history and the final checkpoint, "
+              f"{len(finals[0])} bytes); deleted before resuming: {sorted(removed)}")
+        report = driver.main(base + ["--out-folder", out["c"], "--skip-training",
+                                     "--checkpoint", out["a"]])
+        print(f"cli (c) --skip-training on (a)'s checkpoint: {report}")
+        if not all(math.isfinite(report[k]) for k in ("mse", "rmse", "mae")):
+            raise AssertionError(f"cli (c): metrics not finite: {report}")
+    counts = launch_counts.snapshot()
+    print(f"cli launches: {counts}")
+    for k in (cs.K1, cs.K2, cs.K3):
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"cli: {k} never launched in the CLI's runs: {counts}")
+    for k, v in counts.items():
+        train_launches[k] = train_launches.get(k, 0) + v
 
 
 def main() -> int:
@@ -1465,6 +1588,9 @@ def main() -> int:
         print("fit wall time, store + graphs vs per batch: " + " vs ".join(
             f"{s_:.2f} s ({rate:.2f} steps/s)" for s_, rate in fit_runs.values()))
         print(f"launches over the training phases: {train_launches}")
+
+    with phase("cli"):
+        cli_phase(torch, train_launches)
 
     with phase("times"), torch.no_grad():
         rows, module_ms, extra = {}, {}, {}

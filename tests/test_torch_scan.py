@@ -104,14 +104,15 @@ def _jax_trainer(store, model, **cfg):
 
 
 def test_train_config_defaults_are_jaxs():
-    """Every field both configs have defaults alike, but the four the port
-    still refuses (train-state checkpoints, resume, data and graph
-    parallelism)."""
+    """Every field both configs have defaults alike (train-state checkpoints
+    every 25 epochs, no resume, no per-batch log), but the two the port still
+    refuses (data and graph parallelism)."""
     mine = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxTrainConfig)}
-    refused = {"save_state_every", "resume", "n_dp", "gp"}
+    refused = {"n_dp", "gp"}
     shared = (mine.keys() & theirs.keys()) - refused
-    assert {"device_data_budget", "scan_steps", "lr", "grad_accum"} <= shared
+    assert {"device_data_budget", "scan_steps", "lr", "grad_accum", "save_state_every",
+            "resume", "log_every"} <= shared
     assert {k: mine[k] for k in shared} == {k: theirs[k] for k in shared}
     assert TrainConfig().device_data_budget == 4_000_000_000 and TrainConfig().scan_steps
 

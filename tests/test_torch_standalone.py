@@ -1,17 +1,19 @@
 """The port runs where only PyTorch is installed.
 
 The machine with the card has no flax and need not have JAX, msgpack,
-pandas or Triton. Each case runs a fresh interpreter from the repo root with
-those names hidden behind a ``sys.meta_path`` finder whose loader refuses
-them (an import raises ImportError), imports every module of
+pandas, networkx or Triton. Each case runs a fresh interpreter from the repo
+root with those names hidden behind a ``sys.meta_path`` finder whose loader
+refuses them (an import raises ImportError), imports every module of
 caster_dta_torch and chip_smoke, serves one tiny batch from runs/davis_seed9
 on the CPU, serves it again with the fused message path switched on
 (``caster_dta_torch.nn.gvp.fused_message``) and with the blockwise attention
 path (``use_pallas`` on both MultiheadAttention modules), takes one bf16 training step
 from those weights and writes a checkpoint that the port reads back, trains
 and evaluates one epoch bucket by bucket over a device-resident store (the
-scan path, eager on the CPU), and checks that none of the hidden names was
-loaded. A second case runs
+scan path, eager on the CPU), featurizes a Davis structure and a SMILES
+(rings without networkx, the native host library built here), runs the
+training CLI for one epoch on ``--dataset synthetic`` from its PDB files and
+SMILES, and checks that none of the hidden names was loaded. A second case runs
 chip_smoke.py without a card: it must fail and print no result, since
 nothing falls back to the CPU.
 """
@@ -20,7 +22,8 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-HIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "triton", "caster_dta_tpu")
+HIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "networkx", "triton",
+          "caster_dta_tpu")
 
 SCRIPT = """
 import importlib, importlib.abc, importlib.machinery, pkgutil, sys
@@ -91,6 +94,20 @@ epoch_loss, _ = trainer.train_epoch(store, 1e-4)
 val_loss, val_pred, _, val_idx = trainer.eval_epoch(store)
 assert math.isfinite(epoch_loss) and math.isfinite(val_loss), (epoch_loss, val_loss)
 assert sorted(val_idx.tolist()) == list(range(10)) and val_pred.shape == (10,)
+
+from caster_dta_torch.data import build
+from caster_dta_torch.train import driver
+g = build.protein_file_to_graph("data/structures_davis/AAK1.pdb", "angstroms", 4, "dist", True,
+                                True, False, False, True)
+assert g["node_s"].shape == (g["n_nodes"], 17) and g["edge_v"].shape == (g["n_edges"], 1, 3)
+m = build.molecule_smiles_to_graph("c1ccc2c(c1)oc1ccccc12", False, False, True)
+assert m["node_s"].shape == (13, 41)
+with tempfile.TemporaryDirectory() as tmp:
+    res = driver.main(["--dataset", "synthetic", "--data-root", tmp + "/data",
+                       "--out-folder", tmp + "/out", "--n-epochs", "1", "--device", "cpu",
+                       "--n-workers", "0"])
+    assert len(res["history"]) == 1 and math.isfinite(res["history"][0]["train"])
+    assert os.path.exists(tmp + "/out/train_state.msgpack")
 loaded = sorted(n for n in sys.modules if n.partition(".")[0] in HIDDEN)
 assert not loaded, loaded
 print("standalone ok", aff.tolist())

@@ -291,12 +291,18 @@ def test_split_matches_jax(dataset):
     assert split_dataset(dataset, 9) == jax_split(WithFrame(), 9)
 
 
-@pytest.mark.parametrize("field,value", [("resume", True), ("save_state_every", 25),
-                                         ("n_dp", 2), ("gp", 2)])
+@pytest.mark.parametrize("field,value", [("n_dp", 2), ("gp", 2)])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainConfig(**{field: value})
     TrainConfig(n_dp=1, gp=1)
+
+
+@pytest.mark.parametrize("field,value", [("resume", True), ("save_state_every", 25)])
+def test_ported_config_fields_accepted(field, value):
+    """Train-state checkpoints and resume are ported (train/checkpoints.py
+    save_train_state, fit's resume): the fields take any value."""
+    assert getattr(TrainConfig(**{field: value}), field) == value
 
 
 def test_trainer_needs_a_card_unless_asked_for_the_cpu():
