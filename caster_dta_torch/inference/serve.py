@@ -17,9 +17,9 @@ import torch
 
 from caster_dta_torch.data.batching import PairBatch
 from caster_dta_torch.device import resolve_device
+from caster_dta_torch.inference import replay
 from caster_dta_torch.interop.from_jax import load_jax_params
 from caster_dta_torch.models.joint import JointGNN, make_joint_gnn
-from caster_dta_torch.nn.common import f32_precision
 from caster_dta_torch.train import checkpoints
 
 
@@ -65,17 +65,23 @@ def unscale_target(values: torch.Tensor, rescale: dict) -> torch.Tensor:
     return values
 
 
-@torch.no_grad()
-def predict(run: LoadedRun, batch: PairBatch):
+def predict(run: LoadedRun, batch: PairBatch, eager: bool = False):
     """-> (affinities [B] unscaled, (residues->atoms [B, R, A],
     atoms->residues [B, A, R]) attention of the first cross-attention
     layer). With ``use_pallas`` set on the model's MultiheadAttention modules
     (the blockwise K4 path), the attention comes back as (None, None). The
     outputs stay on the run's device; nothing synchronises.
+
+    On the card the forward is a CUDA-graph replay per bucket and model path,
+    fed from a pinned host buffer (inference/replay.py); ``eager=True`` runs
+    it eagerly on a batch copied from pageable memory, as on the CPU.
     Serving is f32 end to end: the forward runs under ``f32_precision``, so
     the card's scores stay comparable with the CPU's and the JAX package's,
     and the process's TF32 settings are as they were afterwards."""
-    batch = batch.to(run.device)
-    with f32_precision():
-        score, attn = run.model(batch.protein, batch.molecule)
-    return unscale_target(score[:, 0], run.rescale), attn[0]
+    if run.device.type == "cuda" and not eager:
+        (score, w_rd, w_dr), _ = replay.replayed_forward(run.model)(batch.protein,
+                                                                    batch.molecule)
+    else:
+        batch = batch.to(run.device)
+        score, w_rd, w_dr = replay.forward(run.model, batch.protein, batch.molecule)
+    return unscale_target(score, run.rescale), (w_rd, w_dr)

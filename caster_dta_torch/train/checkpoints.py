@@ -237,8 +237,10 @@ def save_train_state(output_folder: str, *, params: dict, opt_state: dict, rng: 
       (JSON text of the scheduler's plain fields, or null), as the JAX
       package writes them.
 
-    The layout follows caster_dta_tpu's train_state.msgpack, but the JAX
-    package does not resume a port run (its dropout stream is a JAX key)."""
+    Only ``meta`` has the JAX package's layout. Its ``opt_state`` is optax's
+    own state tree and its ``rng`` a JAX key; ``load_train_state`` and
+    ``adam_state_from_jax`` read those too, so the port resumes a JAX run,
+    but the JAX package does not resume a port run."""
     state = {
         "params": params,
         "opt_state": opt_state,
@@ -262,19 +264,108 @@ def save_train_state(output_folder: str, *, params: dict, opt_state: dict, rng: 
 
 def load_train_state(output_folder: str) -> Optional[dict]:
     """``save_train_state``'s contents (the meta fields at the top level,
-    history and scheduler parsed), or None when the folder has none."""
+    history and scheduler parsed), or None when the folder has none. A file
+    the JAX package wrote has its ``opt_state`` as optax wrote it (see
+    ``is_jax_opt_state``) and its ``rng`` as ``{"jax_key": uint32 key data,
+    "rng_impl": the impl tag or ""}``."""
     path = os.path.join(output_folder, TRAIN_STATE_FILE)
     if not os.path.exists(path):
         return None
     with open(path, "rb") as f:
         raw = unpackb(f.read())
     meta = raw["meta"]
-    return {"params": raw["params"], "opt_state": raw["opt_state"], "rng": raw["rng"],
+    rng = raw["rng"]
+    if not isinstance(rng, dict):   # a JAX key: its raw key data and impl tag
+        rng = {"jax_key": np.asarray(rng, np.uint32), "rng_impl": raw.get("rng_impl") or ""}
+    return {"params": raw["params"], "opt_state": raw["opt_state"], "rng": rng,
             "epoch": int(meta["epoch"]), "best_train": float(meta["best_train"]),
             "best_val": float(meta["best_val"]),
             "n_since_best_val": int(meta["n_since_best_val"]), "lr": float(meta["lr"]),
             "history": json.loads(meta["history"]),
             "scheduler": json.loads(meta["scheduler"])}
+
+
+def is_jax_opt_state(tree: dict) -> bool:
+    """Whether an ``opt_state`` is optax's state tree as the JAX package
+    writes it (``flax.serialization.to_state_dict``) rather than the port's
+    ``Trainer.opt_state_tree``, which has ``count`` and no optax members."""
+    return not ("count" in tree and "inner_state" not in tree and "hyperparams" not in tree)
+
+
+def adam_state_from_jax(tree: dict) -> dict:
+    """The Adam state in a JAX train state's ``opt_state`` -> ``{"kind":
+    "adam" | "adamw", "hyperparams": {name: float}, "count": int, "mu":
+    moment, "nu": moment}``, each moment a flat f32 vector (optax.flatten,
+    the JAX trainer's layout) or a param tree.
+
+    The layouts read are the JAX package's ``make_optimizer`` for "adam"
+    without weight decay and "adamw": ``inject_hyperparams`` over a chain
+    whose first state holds ``count``, ``mu`` and ``nu`` and whose other
+    states are empty, optionally inside ``chain(clip_by_global_norm, ...)``.
+    Any other layout (the "adam" chain with L2 weight decay, SGD, MultiSteps
+    gradient accumulation) raises ValueError: nothing of it is read."""
+    def empty(t):
+        return isinstance(t, dict) and all(empty(v) for v in t.values())
+
+    def refuse(why):
+        raise ValueError(f"cannot resume from this JAX optimizer state ({why}); the port reads "
+                         "optax's Adam and AdamW under inject_hyperparams, optionally after "
+                         "clip_by_global_norm")
+
+    if "inner_opt_state" in tree or "acc_grads" in tree:
+        refuse("optax.MultiSteps gradient accumulation")
+    if set(tree) == {"0", "1"} and empty(tree["0"]):     # chain(clip_by_global_norm, tx)
+        tree = tree["1"]
+    if "inner_state" not in tree or "hyperparams" not in tree:
+        refuse(f"top-level keys {sorted(tree)}")
+    inner = tree["inner_state"]
+    first = inner.get("0")
+    if not isinstance(first, dict) or set(first) != {"count", "mu", "nu"}:
+        shown = sorted(first) if isinstance(first, dict) else first
+        refuse(f"the first inner state holds {shown}, not Adam's count, mu and nu")
+    rest = [k for k in inner if k != "0"]
+    if not all(empty(inner[k]) for k in rest) or len(rest) not in (1, 2):
+        refuse(f"inner states {sorted(inner)}")
+    hyper = {k: float(np.asarray(v)) for k, v in tree["hyperparams"].items()}
+    kind = "adamw" if len(rest) == 2 else "adam"
+    if ("weight_decay" in hyper) != (kind == "adamw"):
+        refuse(f"hyperparams {sorted(hyper)} with {len(inner)} inner states")
+    return {"kind": kind, "hyperparams": hyper, "count": int(np.asarray(first["count"])),
+            "mu": first["mu"], "nu": first["nu"]}
+
+
+def unravel_like(vector, template: dict) -> dict:
+    """``jax.flatten_util.ravel_pytree``'s unravel: split a flat vector into
+    the leaves of ``template`` (a nested dict of arrays) in ``jax.tree_util``
+    order, dict keys sorted at every level, each leaf row-major in its
+    template's shape. Raises ValueError unless the length is the template's
+    size."""
+    vector = np.asarray(vector)
+    if vector.ndim != 1:
+        raise ValueError(f"expected a flat vector, got shape {vector.shape}")
+    pos = 0
+
+    def walk(t):
+        nonlocal pos
+        out = {}
+        for k in sorted(t):
+            if isinstance(t[k], dict):
+                out[k] = walk(t[k])
+                continue
+            shape = np.shape(t[k])
+            n = int(np.prod(shape, dtype=np.int64))
+            if pos + n > vector.size:
+                raise ValueError(f"a flat vector of {vector.size} entries is shorter than "
+                                 "the model's parameters")
+            out[k] = vector[pos:pos + n].reshape(shape)
+            pos += n
+        return out
+
+    out = walk(template)
+    if pos != vector.size:
+        raise ValueError(f"a flat vector of {vector.size} entries does not match the model's "
+                         f"{pos} parameters")
+    return out
 
 
 def get_best_model(checkpoint_path: str, use_best: str = "val") -> str:

@@ -89,6 +89,11 @@ class CapturedStep:
         """Copy a packed step row into the static row and replay ``variant``
         -> its static output."""
         self.row.copy_(row)
+        return self.replay(variant)
+
+    def replay(self, variant: bool = True):
+        """Replay ``variant`` on what the static row holds -> its static
+        output, valid until the next replay."""
         self.graphs[variant].replay()
         launches.add(self.launches[variant])
         return self.outs[variant]

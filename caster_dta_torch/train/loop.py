@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import os
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Optional
 
@@ -235,12 +236,49 @@ class Trainer:
             out["acc"] = tree_from_tensors(self.model, dict(zip(names, self._acc)))
         return out
 
+    def opt_state_from_jax(self, tree: dict) -> dict:
+        """The optax state of a train state that the JAX package wrote, as
+        ``opt_state_tree`` gives it: Adam's moments from ``inner_state/0``
+        (a flat vector split in ``ravel_pytree``'s order, or a param tree),
+        its ``count`` as the step count. Raises ValueError, before anything
+        is written, on any layout but the one this trainer's optimizer and
+        ``grad_accum`` would have in JAX (checkpoints.adam_state_from_jax)."""
+        st = checkpoints.adam_state_from_jax(tree)
+        opt = self.optimizer
+        kind = {torch.optim.Adam: "adam", torch.optim.AdamW: "adamw"}.get(type(opt))
+        if kind != st["kind"]:
+            raise ValueError(f"the JAX train state holds {st['kind']}'s state; this trainer "
+                             f"runs {self.config.optimizer!r}")
+        if kind == "adam" and self.config.weight_decay:
+            raise ValueError("Adam with weight decay is the JAX package's adam_l2 chain, "
+                             "whose state this train state does not hold")
+        if self.config.grad_accum > 1:
+            raise ValueError("grad_accum > 1 is optax.MultiSteps in JAX, whose state this "
+                             "train state does not hold")
+        group = opt.defaults
+        want = {"b1": group["betas"][0], "b2": group["betas"][1], "eps": group["eps"],
+                "eps_root": 0.0, "weight_decay": group["weight_decay"]}
+        for name, value in st["hyperparams"].items():
+            if name in want and np.float32(want[name]) != np.float32(value):
+                raise ValueError(f"the JAX train state's {name}={value} differs from this "
+                                 f"trainer's {want[name]}")
+        template = self.params_tree()
+        out = {"count": st["count"], "mini_step": 0}
+        for name in ("mu", "nu"):
+            m = st[name]
+            out[name] = (m if isinstance(m, dict)
+                         else checkpoints.unravel_like(np.asarray(m, np.float32), template))
+        return out
+
     def load_opt_state_tree(self, tree: dict) -> None:
-        """Adopt ``opt_state_tree``'s output, copied into the optimizer's
+        """Adopt ``opt_state_tree``'s output, or the optax state of a JAX
+        train state (``opt_state_from_jax``), copied into the optimizer's
         state tensors in place where they exist (a captured step reads those
         very tensors), else into new ones on the parameters' devices; the
         step counts of a capturable optimizer on the card, of an eager one on
         the CPU, as torch keeps them."""
+        if checkpoints.is_jax_opt_state(tree):
+            tree = self.opt_state_from_jax(tree)
         names = self._param_names()
         count = torch.tensor(float(tree["count"]), dtype=torch.float32)
         stepped = isinstance(self.optimizer, (torch.optim.Adam, torch.optim.AdamW))
@@ -275,7 +313,19 @@ class Trainer:
     def load_rng_state(self, state: dict) -> None:
         """Adopt ``rng_state``'s output. ``Generator.set_state`` writes the
         generator's state object in place, the object every train graph
-        registers; ``fit`` restores it before any graph is captured."""
+        registers; ``fit`` restores it before any graph is captured.
+
+        A JAX key (``{"jax_key", "rng_impl"}``, checkpoints.load_train_state)
+        cannot drive torch's Philox generator: the generator is seeded from
+        the config's seed instead, with a warning that dropout after the
+        resume is not the JAX run's stream."""
+        if "jax_key" in state:
+            warnings.warn(f"resuming a JAX train state: its dropout key "
+                          f"({state['rng_impl'] or 'raw key data'}) cannot drive torch's "
+                          f"generator, so dropout from here on is torch's stream seeded with "
+                          f"{self.config.seed}, not the JAX run's", stacklevel=2)
+            self.generator.manual_seed(self.config.seed)
+            return
         if state["device"] != self.device.type:
             raise ValueError(f"a dropout generator state saved on {state['device']} cannot "
                              f"resume on {self.device.type}")
@@ -654,6 +704,10 @@ def fit(model, dataset, dataset_name: str, output_folder: str, config: TrainConf
     trainer = Trainer(model, config, device=device)
     if initial_params is not None:
         trainer.set_params(initial_params)
+    resume_state = checkpoints.load_train_state(output_folder) if config.resume else None
+    if resume_state is not None and checkpoints.is_jax_opt_state(resume_state["opt_state"]):
+        # a JAX run's optax state, read (or refused) before anything is written
+        resume_state["opt_state"] = trainer.opt_state_from_jax(resume_state["opt_state"])
     leakage = split_leakage_report(dataset, train_idx, val_idx, test_idx)
     with open(os.path.join(output_folder, "model_summary.txt"), "w") as f:
         f.write(checkpoints.param_summary(trainer.params_tree()))
@@ -688,7 +742,7 @@ def fit(model, dataset, dataset_name: str, output_folder: str, config: TrainConf
     history = []
     start_epoch = 0
     if config.resume:
-        st = checkpoints.load_train_state(output_folder)
+        st = resume_state
         if st is not None:
             # before any graph is captured: the dropout generator's state
             # object and the optimizer's state tensors, written in place

@@ -40,11 +40,17 @@ Phases, each printed before it starts and after it ends with its wall time:
    masked rows, and its refusal of bf16. K7 and K8 lie on no path: their
    launch counts are those of this phase.
 4. serve: loads the trained ``runs/davis_seed9`` model onto the card, answers
-   seeded synthetic requests at two buckets, checks that the K1 and K2 launch
+   seeded synthetic requests at two buckets twice: eagerly
+   (``predict(eager=True)``) and as CUDA-graph replays fed from a pinned
+   buffer (``predict``, inference/replay.py; each bucket captured first).
+   The replayed answers must equal the eager ones bit for bit (affinities
+   and attention maps) with equal launches; checks that the K1 and K2 launch
    counts rose by the expected launches per forward, that the affinities are
-   finite and that they match the port's CPU run, times each request (batch
-   copy and forward apart, CUDA events) and profiles the forward's kernels
-   (torch.profiler): device time per forward, idle share, time by group.
+   finite and that they match the port's CPU run, times each request eager
+   and replayed (median, min, max over 20; the batch copy pageable against
+   pinned; the forward alone; CUDA events), the card's idle share of each,
+   and profiles the forward's kernels (torch.profiler): device time per
+   forward, time by group.
    serve-fused: the same with the fused message path on
    (``with caster_dta_torch.nn.gvp.fused_message():``): launches per forward
    (K6 and K5 fwd once per GVP conv), card against the port's CPU run with
@@ -58,17 +64,27 @@ Phases, each printed before it starts and after it ends with its wall time:
    AFFINITY_ATOL, latency and device time by group at three buckets; the
    profiler's kernel names must show K4's row kernel in the instance that
    ``cuda_attention.tiling`` takes (K4_SERVED).
-5. k3: K3 (unsorted scatter-add, the gathers' backward) against its plain
+5. evaluate: ``run_model_on_dataset`` (inference/evaluation.py) on the card
+   with the ``runs/davis_seed9`` weights over EVAL_PAIRS seeded synthetic
+   pairs of Davis-like size, batches of up to 8: dense and fused with the
+   explainer (each bucket and tower's 10 Adam steps one CUDA graph), the
+   blockwise path without it. Each path runs by replays twice (the first
+   run captures) and eagerly: the records bit for bit equal, the launches
+   equal; the first EVAL_CPU_BATCHES batches' records against the port on
+   the CPU (AFFINITY_ATOL, ATTENTION_ATOL, EXPLAIN_ATOL); pairs/s with and
+   without the explainer, the explainer's seconds per batch, launches by
+   kernel (K3 must launch on the dense path, K5 bwd on the fused one).
+6. k3: K3 (unsorted scatter-add, the gathers' backward) against its plain
    version on the CPU (same edge order) at the merged src||dst backward of
    the flagship, Davis and large-protein buckets and the molecule widths, f32
    and bf16, and on edge cases (repeated ids, all ids on one row, empty rows,
    E and N off any block, N = 6000), within K3_RTOL/K3_ATOL and bit for bit;
    a second call must give the first call's bits, and K3's CSR launch alone
    (``scatter_csr``) must give ``scatter_csr_plain``'s row_ptr and perm.
-6. autograd: gather_nodes and segment_sum (ops/segment.py) at the flagship
+7. autograd: gather_nodes and segment_sum (ops/segment.py) at the flagship
    shapes: their gradients on the card against the same Functions on the
    CPU, f32 and bf16, within GRAD_TOL.
-7. train: a bf16 Adam Trainer (lr 1e-4) from the runs/davis_seed9 weights at
+8. train: a bf16 Adam Trainer (lr 1e-4) from the runs/davis_seed9 weights at
    the flagship bucket; median step time over TRAIN_STEPS steps (CUDA
    events), protein edges/s, kernel time per step, idle share and kernel
    groups (torch.profiler); K1/K2/K3 launches per step against the counts the
@@ -94,13 +110,13 @@ Phases, each printed before it starts and after it ends with its wall time:
    its longest kernels (torch.profiler), and nvidia-smi's SM clock and power
    draw over the timed steps; unfused, then fused (K5 fwd's bf16-step
    instance from the profiler's kernel names).
-8. fit: two epochs of ``fit`` on a seeded synthetic dataset of FIT_PAIRS
+9. fit: two epochs of ``fit`` on a seeded synthetic dataset of FIT_PAIRS
    pairs in two buckets near the flagship sizes, checkpoints and run
    artifacts in a temporary directory, then ``load_run`` serves the best-val
    checkpoint on the card; once with the default config (the store and the
    graph path) and once with ``scan_steps=False, device_data_budget=None``
    (host batches, eager steps), each with its wall time and steps/s.
-9. cli: the training CLI (``caster_dta_torch.train.driver.main``) in this
+10. cli: the training CLI (``caster_dta_torch.train.driver.main``) in this
    process with the default config (store + CUDA graphs, bf16 Adam, dropout
    on), from a fresh data root: ``--dataset synthetic`` writes its PDB files,
    the host layers featurize them and the SMILES (native host library built
@@ -112,7 +128,7 @@ Phases, each printed before it starts and after it ends with its wall time:
    K3 must launch. Prints the featurization time and graphs/s (in the CLI and
    again in this process without a pool), each run's wall time and epochs/s,
    and the parameters' device.
-10. times: each kernel (K3 also at the large protein's merged backward), its
+11. times: each kernel (K3 also at the large protein's merged backward), its
    plain version and the one PyTorch call that
    computes the same function, replayed from CUDA graphs and timed with CUDA
    events, beside the least time the card could take (the larger of bytes
@@ -130,12 +146,15 @@ Phases, each printed before it starts and after it ends with its wall time:
    row N-1 at every bucket).
 
 Every CPU reference that a card result is held against is computed twice
-and taken only when the two runs give the same bits (``cpu_reference``).
+and taken only when the two runs give the same bits (``cpu_reference``); when
+they differ, both answers go to a file in ``$CHIP_SMOKE_OUT`` (default
+``chip_smoke_out/``) and their first tensors to stderr.
 
 Any failure raises and the script exits non-zero. On success the line before
 the last is ``{"kernels": [...]}``, whose launch counts are each kernel's over
-the phases that run it: the training phases (train, train-fused, train-graph,
-fit, cli) for K1-K3, K5 and K6, serve-blockwise for K4, kernels for K7 and K8; and the last
+the phases that run it: evaluate's replayed runs and the training phases
+(train, train-fused, train-graph, fit, cli) for K1-K3, K5 and K6,
+serve-blockwise and evaluate for K4, kernels for K7 and K8; and the last
 is ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
 """
@@ -221,6 +240,26 @@ FIT_PAIRS = 320
 CLI_SYNTHETIC = ["--synthetic-pairs", "3000", "--synthetic-proteins", "40",
                  "--synthetic-molecules", "30"]
 CLI_EPOCHS, CLI_INTERRUPT = 4, 2
+# evaluate: run_model_on_dataset over seeded synthetic pairs of Davis-like
+# size (proteins of 200-700 residues with 8 edges each, molecules of 20-64
+# atoms) in batches of up to 8, the JAX function's default; its first
+# EVAL_CPU_BATCHES batches are held against the port on the CPU
+EVAL_PAIRS = 64
+EVAL_DATA = dict(n_proteins=16, n_molecules=16, protein_nodes=[(200, 700)],
+                 molecule_nodes=(20, 64), seed=16)
+EVAL_BATCH = 8
+EVAL_CPU_BATCHES = 2
+# explanations card vs CPU (node masks softmaxed over a graph's real nodes,
+# raw edge masks) after 10 Adam steps. The first step's gradients agree as
+# the train step's do (2e-7 against a largest entry of 0.1 on the evaluate
+# set's protein edges), but Adam divides each entry by its own running norm,
+# so an entry whose gradient nearly cancels carries the f32 sum-order
+# difference into its step at full size, and the masks drift apart step by
+# step: up to 1.9e-6 after 1 step, 1.1e-5 after 2, 4.3e-5 after 5 and 8.6e-5
+# after 10 on the evaluate set's first two batches (scripts/
+# explainer_card_cpu.py). Twice that. (The CPU tests hold the port to JAX
+# within 1e-5 at their smaller sizes.)
+EXPLAIN_ATOL = 2e-4
 # K5 against its plain version on the card: f32 sums the same products in
 # another order (outputs and input gradients within 1e-5 + 1e-5 x the
 # tensor's largest entry, weight gradients, sums over every edge, within
@@ -638,6 +677,15 @@ def _tensors(x):
     return [x]
 
 
+def _equal(torch, x, y) -> bool:
+    if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+        return isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor) and torch.equal(x, y)
+    if hasattr(x, "shape") or hasattr(y, "shape"):
+        import numpy as np
+        return np.array_equal(x, y)
+    return x == y
+
+
 CPU_REFERENCES = {"taken": 0, "third run": 0}
 
 
@@ -648,12 +696,23 @@ def cpu_reference(torch, fn, what: str):
     answers to it agreed bit for bit, and no later request or run repeated
     it. A third run breaks a tie; three different answers fail the check."""
     def same(a, b):
-        return all(torch.equal(x, y) for x, y in zip(_tensors(a), _tensors(b)))
+        a, b = _tensors(a), _tensors(b)
+        return len(a) == len(b) and all(_equal(torch, x, y) for x, y in zip(a, b))
 
     first, second = fn(), fn()
     CPU_REFERENCES["taken"] += 1
     if same(first, second):
         return first
+    # keep the differing answers beside the run's output, to hold them
+    # against another machine's CPU bits for the same input
+    out_dir = os.environ.get("CHIP_SMOKE_OUT", os.path.join(HERE, "chip_smoke_out"))
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "cpu_reference_" + re.sub(r"[^\w.-]+", "_", what) + ".pt")
+    torch.save({"what": what, "first": first, "second": second}, path)
+    heads = [getattr(t, "tolist", lambda t=t: t)() for t in
+             (_tensors(first)[:1] + _tensors(second)[:1])]
+    print(f"{what}: the two CPU answers written to {path}; their first parts: {heads}",
+          file=sys.stderr)
     third = fn()
     if not (same(third, first) or same(third, second)):
         raise AssertionError(f"{what}: the CPU reference differs on each of three runs")
@@ -763,6 +822,146 @@ def cli_phase(torch, train_launches: dict) -> None:
         train_launches[k] = train_launches.get(k, 0) + v
 
 
+def records_equal(a: dict, b: dict) -> bool:
+    """Two run_model_on_dataset results with the same bits in every cell."""
+    import numpy as np
+
+    def cell(x, y):
+        if x is None or y is None:
+            return x is None and y is None
+        return np.array_equal(x, y) if hasattr(x, "shape") else x == y
+
+    return a.keys() == b.keys() and all(
+        len(a[k]) == len(b[k]) and all(cell(x, y) for x, y in zip(a[k], b[k])) for k in a)
+
+
+def evaluate_phase(torch, run, run_cpu, eval_launches: dict) -> None:
+    """run_model_on_dataset (caster_dta_torch/inference/evaluation.py) on the
+    card with ``run``'s weights over EVAL_PAIRS seeded synthetic pairs, on
+    the dense and the fused path with the explainer on and on the blockwise
+    path without it. Each path runs three times: by replays (the first run
+    captures each bucket's forward and, with the explainer, each bucket and
+    tower's 10-step loop; the second only replays) and eagerly; every run
+    must give the eager run's records bit for bit and the same launches.
+    The first EVAL_CPU_BATCHES batches' records are held against the port on
+    the CPU. Prints pairs/s with and without the explainer, the explainer's
+    seconds per batch and the launches by kernel; K3 must launch on the
+    dense path and K5 bwd on the fused one. Adds the launches of the
+    replayed runs to ``eval_launches``."""
+    import numpy as np
+
+    from caster_dta_torch.data.batching import BucketedLoader, synthetic_pair_dataset
+    from caster_dta_torch.inference.evaluation import evaluate_batches
+    from caster_dta_torch.nn import gvp
+    from caster_dta_torch.ops import cuda_attention as ca
+    from caster_dta_torch.ops import cuda_gvp_message as cgm
+    from caster_dta_torch.ops import cuda_segment as cs
+    from caster_dta_torch.ops import launches as launch_counts
+
+    dataset = synthetic_pair_dataset(EVAL_PAIRS, **EVAL_DATA)
+    batches = list(BucketedLoader(dataset, max_num=4_000_000, max_batch_size=EVAL_BATCH,
+                                  shuffle=False))
+    print(f"evaluate: {EVAL_PAIRS} pairs in {len(batches)} batches of up to {EVAL_BATCH}, "
+          f"buckets (N_P, E_P, N_M, E_M) {sorted({b.bucket for b in batches})}, real protein "
+          f"edges {sum(int(b.protein.n_edge.sum()) for b in batches)}")
+    n_cpu = sum(int(b.weight.sum()) for b in batches[:EVAL_CPU_BATCHES])
+
+    def evaluate(model, **kw):
+        launch_counts.reset()
+        t0 = time.perf_counter()
+        records = evaluate_batches(model, dataset, batches, **kw)
+        torch.cuda.synchronize()
+        return records, time.perf_counter() - t0, launch_counts.snapshot()
+
+    for path, switch, pallas, explain in (("dense", contextlib.nullcontext, False, True),
+                                          ("fused", gvp.fused_message, False, True),
+                                          ("blockwise", contextlib.nullcontext, True, False)):
+        for r in (run, run_cpu):
+            set_use_pallas(r.model, pallas)
+        with switch():
+            first, s_first, l_first = evaluate(run.model, do_explainer=explain)
+            second, s_second, l_second = evaluate(run.model, do_explainer=explain)
+            eager, s_eager, l_eager = evaluate(run.model, do_explainer=explain, eager=True)
+            if not (records_equal(first, eager) and records_equal(second, eager)):
+                raise AssertionError(f"evaluate {path}: the replayed records are not the eager "
+                                     "ones bit for bit")
+            if not l_first == l_second == l_eager:
+                raise AssertionError(f"evaluate {path}: launches differ: first {l_first}, "
+                                     f"replays {l_second}, eager {l_eager}")
+            launched = {k: v for k, v in l_second.items() if v}
+            for k, v in l_second.items():
+                eval_launches[k] = eval_launches.get(k, 0) + l_first[k] + v
+            n = len(first["pair_idx"])
+            if n != EVAL_PAIRS or first["pair_idx"] != sorted(first["pair_idx"]):
+                raise AssertionError(f"evaluate {path}: {n} records, or not sorted")
+            if not all(math.isfinite(a) for a in first["affinity_score"]):
+                raise AssertionError(f"evaluate {path}: an affinity is not finite")
+            what = "with the explainer" if explain else "without the explainer"
+            print(f"evaluate {path} {what}: records bit for bit the eager run's (first run "
+                  f"with captures, second replays only); launches a run {launched}")
+            print(f"evaluate {path} {what}: first run {s_first:.3f} s ({n / s_first:.2f} "
+                  f"pairs/s), replays {s_second:.3f} s ({n / s_second:.2f} pairs/s), eager "
+                  f"{s_eager:.3f} s ({n / s_eager:.2f} pairs/s)")
+            if explain:
+                plain, s_plain, _ = evaluate(run.model, do_explainer=False)
+                print(f"evaluate {path} without the explainer (replays): {s_plain:.3f} s "
+                      f"({n / s_plain:.2f} pairs/s); the explainer's seconds per batch: "
+                      f"replayed {(s_second - s_plain) / len(batches):.4f}, eager "
+                      f"{(s_eager - s_plain) / len(batches):.4f} (the eager forward included)")
+                for k in ("affinity_score", "prot_mol_attention"):
+                    if not all(np.array_equal(a, b) for a, b in zip(plain[k], second[k])):
+                        raise AssertionError(f"evaluate {path}: {k} moved with the explainer")
+            need = {"dense": (cs.K1, cs.K2, cs.K3), "fused": (cgm.K5F, cgm.K5B, cgm.K6, cs.K3),
+                    "blockwise": (ca.K4,)}[path]
+            if not all(l_second[k] > 0 for k in need):
+                raise AssertionError(f"evaluate {path}: {need} must launch, launched {launched}")
+
+            cpu = cpu_reference(torch, lambda: evaluate_batches(
+                run_cpu.model, dataset, batches[:EVAL_CPU_BATCHES], do_explainer=explain),
+                f"evaluate {path}")
+            where = {p: i for i, p in enumerate(first["pair_idx"])}
+            kinds = {"affinity_score": AFFINITY_ATOL}
+            kinds.update({k: ATTENTION_ATOL for k in (
+                "protein_attention", "molecule_attention", "max_protein_attention",
+                "max_molecule_attention", "prot_mol_attention", "mol_prot_attention")})
+            kinds.update({k: EXPLAIN_ATOL for k in (
+                "protein_explanation", "molecule_explanation", "protein_edge_explanation",
+                "molecule_edge_explanation")})
+            worst = {k: (0.0, None) for k in kinds}     # column -> (max |d|, where)
+            over = {k: 0 for k in kinds}                 # entries beyond the tolerance
+            for j, p in enumerate(cpu["pair_idx"]):
+                i = where[p]
+                for k, tol in kinds.items():
+                    got, want = first[k][i], cpu[k][j]
+                    if (got is None) != (want is None):
+                        raise AssertionError(f"evaluate {path} pair {p} {k}: None on one "
+                                             "device only")
+                    if got is None:
+                        continue
+                    got, want = np.atleast_1d(got), np.atleast_1d(want)
+                    if got.shape != want.shape:
+                        raise AssertionError(f"evaluate {path} pair {p} {k}: shape "
+                                             f"{got.shape} against {want.shape}")
+                    d = np.abs(got - want)
+                    over[k] += int((d > tol).sum())
+                    if d.size and d.max() > worst[k][0]:
+                        at = int(d.argmax())
+                        worst[k] = (float(d.max()), f"pair {p} entry {at}: card "
+                                                    f"{got.flat[at]:.8g}, CPU {want.flat[at]:.8g}")
+            print(f"evaluate {path}: card vs CPU over the first {EVAL_CPU_BATCHES} batches "
+                  f"({n_cpu} pairs), max|d| by column (tolerance; entries beyond it; where "
+                  f"the largest is):")
+            for k, tol in kinds.items():
+                if worst[k][1] is not None:
+                    print(f"  {k}: {worst[k][0]:.3e} ({tol}; {over[k]}; {worst[k][1]})")
+            beyond = {k: n for k, n in over.items() if n}
+            if beyond:
+                raise AssertionError(f"evaluate {path}: card vs CPU beyond tolerance in "
+                                     f"{beyond}")
+        for r in (run, run_cpu):
+            set_use_pallas(r.model, False)
+
+
 def main() -> int:
     # The card-vs-CPU checks hold IEEE f32 against IEEE f32. These variables
     # let cuBLAS (TF32) or oneDNN (BF16) round the inputs of f32 matmuls, which
@@ -784,6 +983,7 @@ def main() -> int:
     from caster_dta_torch.data.batching import (BucketedLoader, dataset_budgets,
                                                 synthetic_pair_batch, synthetic_pair_dataset)
     from caster_dta_torch.data.device_cache import DeviceResidentLoader, upload
+    from caster_dta_torch.inference.replay import replayed_forward
     from caster_dta_torch.inference.serve import load_run, predict
     from caster_dta_torch.models.joint import make_joint_gnn
     from caster_dta_torch.nn import gvp
@@ -1070,22 +1270,54 @@ def main() -> int:
 
     def serve_path(tag: str, run, run_cpu, per_forward: dict, reqs=requests,
                    timed=(requests[0], requests[-1]), k5f_kind=None, k4_rows=None) -> tuple:
-        """Answer every request of ``reqs`` on the card with the launches per
-        forward that the code gives, hold each answer against the port's CPU
-        run, time and profile the forward at the ``timed`` buckets (and, with
+        """Answer every request of ``reqs`` on the card twice, eagerly
+        (``predict(eager=True)``: pageable copy, eager forward) and by a
+        CUDA-graph replay fed from a pinned buffer (``predict``), each bucket
+        captured first: the replayed answers must equal the eager ones bit
+        for bit (affinities and attention maps) with the same launches per
+        forward, the launches that the code gives. Hold each answer against
+        the port's CPU run, time both ways at the ``timed`` buckets (request
+        latency, the batch copy pageable against pinned, the forward alone,
+        the card's idle share of each) and profile the eager forward (with
         ``k5f_kind``, check that K5 fwd ran that served instance; with
         ``k4_rows``, that K4 ran that instance of its row kernel) -> (the
-        card answers, the launches of answering them)."""
-        answers = []
-        reset_launches()
+        replayed answers, their launches)."""
+        replayed = replayed_forward(run.model)
         for label, batch in reqs:
-            answers.append(predict(run, batch))
+            if replayed.staged(batch.protein, batch.molecule) is None:
+                t0 = time.perf_counter()
+                predict(run, batch)      # answered eagerly on the capture stream, then captured
+                torch.cuda.synchronize()
+                print(f"{tag}capture {label} {batch.bucket} B={batch.protein.batch_size}: "
+                      f"{time.perf_counter() - t0:.3f} s with its eager first answer")
+        reset_launches()
+        eager = [predict(run, batch, eager=True) for _, batch in reqs]
+        torch.cuda.synchronize()
+        eager_launches = launches_now()
+        reset_launches()
+        replays = replayed.replays
+        answers = [predict(run, batch) for _, batch in reqs]
         torch.cuda.synchronize()
         launches = launches_now()
+        if replayed.replays - replays != len(reqs):
+            raise AssertionError(f"{tag}{replayed.replays - replays} replays for {len(reqs)} "
+                                 f"requests")
         want = {k: v * len(reqs) for k, v in per_forward.items()}
-        print(f"{tag}launches over {len(reqs)} requests: {launches} (expected {want})")
-        if launches != want:
-            raise AssertionError(f"{tag}launch counts {launches} != expected {want}")
+        print(f"{tag}launches over {len(reqs)} requests: replayed {launches}, eager "
+              f"{eager_launches} (expected {want})")
+        if launches != want or eager_launches != want:
+            raise AssertionError(f"{tag}launch counts {launches} / {eager_launches} != "
+                                 f"expected {want}")
+        for (label, _), (aff, attn), (aff_e, attn_e) in zip(reqs, answers, eager):
+            same = torch.equal(aff, aff_e) and all(
+                (a is None and b is None) or (a is not None and b is not None
+                                              and torch.equal(a, b))
+                for a, b in zip(attn, attn_e))
+            if not same:
+                raise AssertionError(f"{tag}{label}: the replayed answer is not the eager "
+                                     f"one bit for bit")
+        print(f"{tag}replayed answers equal the eager ones bit for bit over {len(reqs)} "
+              f"requests (affinities and attention maps)")
 
         worst = {"affinity": 0.0, "attention": 0.0}
         disagree = []
@@ -1123,17 +1355,44 @@ def main() -> int:
               f"(atol {AFFINITY_ATOL}), max|d attention| {worst['attention']:.3e} "
               f"(atol {ATTENTION_ATOL})")
 
+        def spread(times):
+            return (f"median {statistics.median(times):.3f} ms (min {times[0]:.3f}, max "
+                    f"{times[-1]:.3f})")
+
+        def idle(fn, wall_ms):
+            busy = sum(profile_forward(torch, fn)[0].values())
+            return (f"{1 - busy / wall_ms:.1%} ({busy:.3f} ms of kernels)" if busy
+                    else "not measured (the profiler saw no kernel)")
+
         for label, batch in timed:
             on_card = batch.to("cuda")
-            request = event_times_ms(torch, lambda: predict(run, batch))
-            copy = event_times_ms(torch, lambda: batch.to("cuda"))
-            forward = event_times_ms(torch, lambda: predict(run, on_card))
-            print(f"{tag}request latency {label} {batch.bucket} B={batch.protein.batch_size}: "
-                  f"median {statistics.median(request):.3f} ms (min {request[0]:.3f}, max "
-                  f"{request[-1]:.3f}) over {len(request)}; of which batch copy to the card "
-                  f"median {statistics.median(copy):.3f} ms and forward on a card-resident "
-                  f"batch median {statistics.median(forward):.3f} ms (CUDA events)")
-            per_kernel, n_kernels = profile_forward(torch, lambda: predict(run, on_card))
+            layout, pinned, step = replayed.staged(batch.protein, batch.molecule)
+            request_e = event_times_ms(torch, lambda: predict(run, batch, eager=True))
+            request_r = event_times_ms(torch, lambda: predict(run, batch))
+            copy_e = event_times_ms(torch, lambda: batch.to("cuda"))
+            copy_r = event_times_ms(torch, lambda: step.row.copy_(pinned, non_blocking=True))
+            pack = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                layout.pack(pinned, batch.protein, batch.molecule)
+                pack.append((time.perf_counter() - t0) * 1e3)
+            forward_e = event_times_ms(torch, lambda: predict(run, on_card, eager=True))
+            forward_r = event_times_ms(torch, step.replay)
+            what = f"{label} {batch.bucket} B={batch.protein.batch_size}"
+            print(f"{tag}request latency {what} over {len(request_e)} (CUDA events): eager "
+                  f"{spread(request_e)}, replayed {spread(request_r)}")
+            print(f"{tag}batch copy {what}: pageable (GraphBatch.to) {spread(copy_e)}, pinned "
+                  f"(one row of {layout.width * 4} bytes, non_blocking) {spread(copy_r)}; "
+                  f"packing the pinned row on the host median {statistics.median(pack):.3f} ms")
+            print(f"{tag}forward {what} on a card-resident batch: eager {spread(forward_e)}, "
+                  f"replay {spread(forward_r)}")
+            print(f"{tag}device idle {what}: eager request "
+                  f"{idle(lambda: predict(run, batch, eager=True), statistics.median(request_e))}"
+                  f", replayed request "
+                  f"{idle(lambda: predict(run, batch), statistics.median(request_r))}, replay "
+                  f"{idle(step.replay, statistics.median(forward_r))} (torch.profiler)")
+            per_kernel, n_kernels = profile_forward(torch, lambda: predict(run, on_card,
+                                                                           eager=True))
             if k5f_kind is not None:
                 check_k5f_served(f"{tag}{label} ", per_kernel, k5f_kind)
             if k4_rows is not None:
@@ -1143,8 +1402,8 @@ def main() -> int:
                 print(f"{tag}device time {label}: not measured (the profiler saw no kernel)")
                 continue
             print(f"{tag}device time {label}: {busy:.3f} ms in {n_kernels:.0f} kernels per "
-                  f"forward, device idle {1 - busy / statistics.median(forward):.1%} of the "
-                  f"forward (torch.profiler)")
+                  f"forward, device idle {1 - busy / statistics.median(forward_e):.1%} of the "
+                  f"eager forward (torch.profiler)")
             print(f"{tag}device time by group {label}: " + ", ".join(
                 f"{g} {ms:.3f} ms ({ms / busy:.1%})" for g, ms in kernel_groups(per_kernel).items()))
         return answers, launches
@@ -1185,7 +1444,14 @@ def main() -> int:
         n_attn = 2 * len(model.cross_attn_module.cross_attn_layers)
         per_forward_blockwise = {**per_forward, ca.K4: n_attn}
         # the dense card answer to the large request, before the switch
-        dense_large = predict(run, large[1])[0]
+        dense_large, dense_large_attn = predict(run, large[1], eager=True)
+        replayed = [predict(run, large[1]) for _ in range(2)]   # the capture, then a replay
+        if not all(torch.equal(aff, dense_large) and all(torch.equal(a, b) for a, b in zip(
+                attn, dense_large_attn)) for aff, attn in replayed):
+            raise AssertionError("large protein, dense: the replayed answer is not the eager "
+                                 "one bit for bit")
+        print("large protein, dense: the replayed answer equals the eager one bit for bit "
+              "(affinities and attention maps)")
         for r in (run, run_cpu):
             set_use_pallas(r.model, True)
         blockwise_answers, launches = serve_path(
@@ -1206,6 +1472,12 @@ def main() -> int:
                                      f"{d:.3e} > {AFFINITY_ATOL} pKd")
         print(f"blockwise vs dense on the card (f32) over all requests, the large one "
               f"included: max|d affinity| {worst:.3e} (atol {AFFINITY_ATOL})")
+
+    eval_launches: dict = {}
+    with phase("evaluate"):
+        evaluate_phase(torch, run, run_cpu, eval_launches)
+        phase_launches[ca.K4] += eval_launches[ca.K4]
+        print(f"launches over the evaluate phase's replayed runs: {eval_launches}")
 
     with phase("k3"), torch.no_grad():
         def check_k3(what, rows, ids, n):
@@ -1272,7 +1544,7 @@ def main() -> int:
             if not torch.all(card[1][~p.edge_mask] == 0):
                 raise AssertionError("segment_sum backward: a masked edge got a gradient")
 
-    train_launches = {k: 0 for k in launches_now()}
+    train_launches = {k: eval_launches.get(k, 0) for k in launches_now()}
     label, batch = requests[0]
     on_card = batch.to("cuda")
 
@@ -1587,7 +1859,7 @@ def main() -> int:
                       f"affinities [{aff.min().item():.4f}, {aff.max().item():.4f}] finite")
         print("fit wall time, store + graphs vs per batch: " + " vs ".join(
             f"{s_:.2f} s ({rate:.2f} steps/s)" for s_, rate in fit_runs.values()))
-        print(f"launches over the training phases: {train_launches}")
+        print(f"launches over the evaluate and training phases: {train_launches}")
 
     with phase("cli"):
         cli_phase(torch, train_launches)
@@ -1838,8 +2110,8 @@ def main() -> int:
               f"{plain:.4f} ms, bound {max(nbytes / HBM_BYTES_PER_S, ops / rate) * 1e3:.4f} ms")
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel never launched over the phases that run it "
-                             f"(training for K1-K3, K5, K6; serve-blockwise for K4; kernels "
-                             f"for K7, K8): {launches_over_phases}")
+                             f"(evaluate and training for K1-K3, K5, K6; serve-blockwise and "
+                             f"evaluate for K4; kernels for K7, K8): {launches_over_phases}")
     for k in kernels:
         if not all(math.isfinite(k[x]) for x in ("ms", "plain_ms", "bound_ms")) or not (
                 k["library_ms"] is None or math.isfinite(k["library_ms"])):

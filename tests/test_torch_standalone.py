@@ -7,7 +7,8 @@ refuses them (an import raises ImportError), imports every module of
 caster_dta_torch and chip_smoke, serves one tiny batch from runs/davis_seed9
 on the CPU, serves it again with the fused message path switched on
 (``caster_dta_torch.nn.gvp.fused_message``) and with the blockwise attention
-path (``use_pallas`` on both MultiheadAttention modules), takes one bf16 training step
+path (``use_pallas`` on both MultiheadAttention modules), runs
+``run_model_on_dataset`` with the explainer on, takes one bf16 training step
 from those weights and writes a checkpoint that the port reads back, trains
 and evaluates one epoch bucket by bucket over a device-resident store (the
 scan path, eager on the CPU), featurizes a Davis structure and a SMILES
@@ -72,6 +73,15 @@ assert attn_blockwise == (None, None), attn_blockwise
 assert float((aff_blockwise - aff).abs().max()) < 1e-4, (aff_blockwise, aff)
 for m in mhas:
     m.use_pallas = False
+
+from caster_dta_torch.data.batching import synthetic_pair_dataset
+from caster_dta_torch.inference.evaluation import run_model_on_dataset
+records = run_model_on_dataset(run.model, synthetic_pair_dataset(3, 2, 2, [(10, 20)], (6, 10),
+                                                                 seed=2),
+                               max_batch_size=2, explainer_epochs=2)
+assert len(records["pair_idx"]) == 3 and records["pair_idx"] == sorted(records["pair_idx"])
+assert abs(float(records["protein_explanation"][0].sum()) - 1.0) < 1e-5
+assert records["molecule_edge_explanation"][0].ndim == 1
 
 import math, os, tempfile
 from caster_dta_torch.train import checkpoints
