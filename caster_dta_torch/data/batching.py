@@ -45,11 +45,12 @@ class PairBatch:
 
 
 def synthetic_pair_batch(b: int, n_p: int, e_p: int, n_m: int, e_m: int,
-                         seed: int = 0) -> PairBatch:
+                         seed: int = 0, scalar_protein: bool = False) -> PairBatch:
     """B random protein/molecule pairs padded to (n_p, e_p) / (n_m, e_m):
     proteins with ~9 edges per residue (17 scalar + 3 vector node channels,
-    32 + 1 edge channels, 20 residue types), molecules with ~4 edges per atom
-    (41 node and 9 edge channels, 11 atom and 5 bond types)."""
+    32 + 1 edge channels, 20 residue types; with ``scalar_protein`` in the
+    scalar layout of ``scalar_protein_graph``), molecules with ~4 edges per
+    atom (41 node and 9 edge channels, 11 atom and 5 bond types)."""
     rng = np.random.default_rng(seed)
     prots, mols = [], []
     for _ in range(b):
@@ -58,14 +59,15 @@ def synthetic_pair_batch(b: int, n_p: int, e_p: int, n_m: int, e_m: int,
         src = np.clip(np.repeat(np.arange(nr), 9)[:er]
                       + rng.integers(-4, 5, er), 0, nr - 1)
         dst = np.repeat(np.arange(nr), 9)[:er]
-        prots.append(pad_graph(
-            node_s=rng.normal(size=(nr, 17)).astype(np.float32),
-            node_v=rng.normal(size=(nr, 3, 3)).astype(np.float32),
-            edge_index=np.stack([src, dst]),
-            edge_s=rng.normal(size=(er, 32)).astype(np.float32),
-            edge_v=rng.normal(size=(er, 1, 3)).astype(np.float32),
-            node_type=rng.integers(0, 20, nr), edge_type=np.zeros(er),
-            n_pad=n_p, e_pad=e_p))
+        prot = _graph(rng.normal(size=(nr, 17)).astype(np.float32),
+                      rng.normal(size=(nr, 3, 3)).astype(np.float32), np.stack([src, dst]),
+                      rng.normal(size=(er, 32)).astype(np.float32),
+                      rng.normal(size=(er, 1, 3)).astype(np.float32),
+                      rng.integers(0, 20, nr), np.zeros(er))
+        if scalar_protein:
+            prot = scalar_protein_graph(prot)
+        prots.append(pad_graph(**{k: v for k, v in prot.items() if k not in _COUNTS},
+                               n_pad=n_p, e_pad=e_p))
         nm = int(rng.integers(max(n_m // 2, 4), n_m + 1))
         em = min(e_m, nm * 4)
         mols.append(pad_graph(
@@ -378,6 +380,22 @@ def _molecule(rng: np.random.Generator, n_nodes: int, n_edges: int) -> dict:
                   rng.integers(0, 10, n_nodes), rng.integers(0, 5, n_edges))
 
 
+_COUNTS = ("n_nodes", "n_edges")
+
+
+def scalar_protein_graph(g: dict) -> dict:
+    """A protein graph dict in the scalar layout that data/build.py gives
+    with ``vectorize_features=False``: each node's and each edge's vector
+    channels flattened onto its scalars (17 + 9 = 26 node and 32 + 3 = 35
+    edge channels for the trained widths), no vector channels."""
+    out = dict(g)
+    for s, v in (("node_s", "node_v"), ("edge_s", "edge_v")):
+        if g[v] is not None:
+            out[s] = np.concatenate([g[s], g[v].reshape(len(g[v]), -1)], axis=-1)
+            out[v] = None
+    return out
+
+
 def _graph(node_s, node_v, edge_index, edge_s, edge_v, node_type, edge_type) -> dict:
     return {"node_s": node_s, "node_v": node_v, "edge_index": edge_index, "edge_s": edge_s,
             "edge_v": edge_v, "node_type": node_type, "edge_type": edge_type,
@@ -386,11 +404,12 @@ def _graph(node_s, node_v, edge_index, edge_s, edge_v, node_type, edge_type) -> 
 
 def synthetic_pair_dataset(n_pairs: int, n_proteins: int, n_molecules: int,
                            protein_nodes: Sequence[tuple], molecule_nodes: tuple,
-                           seed: int = 0) -> PairDataset:
+                           seed: int = 0, scalar_protein: bool = False) -> PairDataset:
     """Seeded pairs over ``n_proteins`` proteins and ``n_molecules``
     molecules, targets pKd-like around 5.5, standardized. Protein i draws its
     residue count from the inclusive range ``protein_nodes[i % len]`` and has
-    8 edges per residue; each molecule draws its atom count from
+    8 edges per residue (with ``scalar_protein`` in the scalar layout of
+    ``scalar_protein_graph``); each molecule draws its atom count from
     ``molecule_nodes`` and has 4 edges per atom."""
     rng = np.random.default_rng(seed)
     proteins = {}
@@ -398,6 +417,8 @@ def synthetic_pair_dataset(n_pairs: int, n_proteins: int, n_molecules: int,
         lo, hi = protein_nodes[i % len(protein_nodes)]
         n = int(rng.integers(lo, hi + 1))
         proteins[i] = _protein(rng, n, 8 * n)
+        if scalar_protein:
+            proteins[i] = scalar_protein_graph(proteins[i])
     molecules = {}
     for i in range(n_molecules):
         n = int(rng.integers(molecule_nodes[0], molecule_nodes[1] + 1))

@@ -24,9 +24,8 @@ import torch
 
 from caster_dta_torch.data.device_cache import FIELD_ALIGN
 from caster_dta_torch.data.graphs import GraphBatch
-from caster_dta_torch.nn import gvp
 from caster_dta_torch.nn.common import f32_precision
-from caster_dta_torch.train.graphs import GraphCache
+from caster_dta_torch.train.graphs import GraphCache, model_path
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(GraphBatch))
 
@@ -62,13 +61,6 @@ class BatchLayout:
         for dst_graph, src_graph in zip(self.views(row), (protein, molecule)):
             for name in _FIELDS:
                 getattr(dst_graph, name).copy_(getattr(src_graph, name))
-
-
-def model_path(model: torch.nn.Module) -> tuple:
-    """What a captured graph of ``model`` fixes besides the shapes: the fused
-    message switch and each attention module's ``use_pallas``."""
-    return (gvp._FUSED_MESSAGE.get(),
-            tuple(m.use_pallas for m in model.modules() if hasattr(m, "use_pallas")))
 
 
 def forward(model: torch.nn.Module, protein: GraphBatch, molecule: GraphBatch) -> tuple:

@@ -8,14 +8,27 @@ are ``[in, out]`` and torch weights ``[out, in]``; names map to the reference
 state-dict names the port's modules use. ``state_dict_from_jax`` is the
 inverse of ``caster_dta_tpu.interop.torch_import.import_joint_gnn``, and
 ``to_jax_params`` the inverse of ``state_dict_from_jax``: one walk over the
-model's modules (``_Bridge``) serves both directions.
+model's modules (``_Bridge``) serves both directions. The walk dispatches on
+each tower's class.
+
+Names: the LBA tower, GINEConv, the cross-attention and the head take the
+reference state dict's names; GATv2Conv takes PyG's (``lin_l``, ``lin_r``,
+``lin_edge``, ``att`` as [1, H, C], ``bias``), whose leaves map one for one
+onto the JAX module's; every other new module (the PocketMiner and CPD
+towers' blocks, HEATConv, MaskedBatchNorm's ``scale`` as ``weight``) takes
+the JAX names, a Dense's ``kernel`` becoming a transposed ``weight`` and an
+``Embed``'s ``embedding`` an embedding ``weight``. MaskedBatchNorm's running
+statistics are not in either tree (JAX checkpoints hold ``params`` only).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from caster_dta_torch.models import protein as protein_towers
 from caster_dta_torch.models.joint import JointGNN
+from caster_dta_torch.models.molecule import HomoMoleculeGNN_GINE
+from caster_dta_torch.models.scalar_gnns import GATv2GNN, HEATGNN
 
 
 def _same(a: np.ndarray) -> np.ndarray:
@@ -106,13 +119,17 @@ class _Bridge:
                 s["bias"] = np.array(b, dtype=np.float32)
         self.linear(f"{prefix}.out_proj", self.sub(p, "out_proj"))
 
-    def joint(self, params: dict, model: JointGNN) -> None:
-        pg, prot = "protein_gnn.gnn_model", self.sub(params, "protein_gnn")
-        tower = model.protein_gnn.gnn_model
-        self.gvp(f"{pg}.gvp_node.0", self.sub(prot, "gvp_node_gvp"))
-        self.gvp_layernorm(f"{pg}.gvp_node.1", self.sub(prot, "gvp_node_norm"))
-        self.gvp(f"{pg}.gvp_edge.0", self.sub(prot, "gvp_edge_gvp"))
-        self.gvp_layernorm(f"{pg}.gvp_edge.1", self.sub(prot, "gvp_edge_norm"))
+    def gvp_block(self, prefix: str, tower: dict, gvp_name: str, norm_name: str,
+                  norm_first: bool = False) -> None:
+        """An nn.Sequential of a GVP and a GVPLayerNorm (``norm_first``: the
+        LayerNorm at 0) onto the JAX leaves ``gvp_name`` and ``norm_name``."""
+        g, n = (1, 0) if norm_first else (0, 1)
+        self.gvp(f"{prefix}.{g}", self.sub(tower, gvp_name))
+        self.gvp_layernorm(f"{prefix}.{n}", self.sub(tower, norm_name))
+
+    def lba_tower(self, pg: str, prot: dict, tower) -> None:
+        self.gvp_block(f"{pg}.gvp_node", prot, "gvp_node_gvp", "gvp_node_norm")
+        self.gvp_block(f"{pg}.gvp_edge", prot, "gvp_edge_gvp", "gvp_edge_norm")
         for i, layer in enumerate(tower.conv_list):
             self.gvp_conv_layer(f"{pg}.conv_list.{i}", self.sub(prot, f"conv_{i}"), layer)
         self.gvp_layernorm(f"{pg}.gvp_norm_before_scalar",
@@ -121,11 +138,79 @@ class _Bridge:
         self.type_embedding(pg, prot, "ntype_embedding")
         self.type_embedding(pg, prot, "etype_embedding")
 
-        mg, mol = "molecule_gnn.gnn_model", self.sub(params, "molecule_gnn")
-        for i in range(len(model.molecule_gnn.gnn_model.conv_list)):
-            self.gine_conv(f"{mg}.conv_list.{i}", self.sub(mol, f"conv_{i}"))
-        self.type_embedding(mg, mol, "ntype_embedding")
-        self.type_embedding(mg, mol, "etype_embedding")
+    def pocketminer_tower(self, pg: str, prot: dict, tower) -> None:
+        for side in ("node", "edge"):
+            if getattr(tower, f"initial_{side}_proj") is not None:
+                self.gvp_block(f"{pg}.initial_{side}_proj", prot, f"{side}_proj_gvp",
+                               f"{side}_proj_norm")
+            self.gvp_block(f"{pg}.gvp_{side}", prot, f"gvp_{side}_gvp", f"gvp_{side}_norm",
+                           norm_first=True)
+        for i, layer in enumerate(tower.conv_list):
+            self.gvp_conv_layer(f"{pg}.conv_list.{i}", self.sub(prot, f"conv_{i}"), layer)
+        self.gvp_layernorm(f"{pg}.gvp_norm_before_scalar",
+                           self.sub(prot, "gvp_norm_before_scalar"))
+        self.gvp(f"{pg}.gvp_to_scalar", self.sub(prot, "gvp_to_scalar"))
+        self.type_embedding(pg, prot, "ntype_embedding")
+        self.type_embedding(pg, prot, "etype_embedding")
+
+    def cpd_tower(self, pg: str, prot: dict, tower) -> None:
+        self.gvp_block(f"{pg}.W_v", prot, "W_v_gvp", "W_v_norm")
+        self.gvp_block(f"{pg}.W_e", prot, "W_e_gvp", "W_e_norm")
+        for part, name in (("encoder_layers", "encoder"), ("decoder_layers", "decoder")):
+            for i, layer in enumerate(getattr(tower, part)):
+                self.gvp_conv_layer(f"{pg}.{part}.{i}", self.sub(prot, f"{name}_{i}"), layer)
+        self.gvp(f"{pg}.W_out", self.sub(prot, "W_out"))
+        self.type_embedding(pg, prot, "ntype_embedding")
+        self.type_embedding(pg, prot, "etype_embedding")
+
+    def gatv2_conv(self, prefix: str, p: dict, conv) -> None:
+        self.linear(f"{prefix}.lin_l", self.sub(p, "lin_l"))
+        self.linear(f"{prefix}.lin_r", self.sub(p, "lin_r"))
+        if conv.lin_edge is not None:
+            self.linear(f"{prefix}.lin_edge", self.sub(p, "lin_edge"))
+        # flax's [1, 1, H, C] against PyG's [1, H, C]
+        self.leaf(f"{prefix}.att", p, "att", lambda a: a[0], lambda a: a[None])
+        self.leaf(f"{prefix}.bias", p, "bias")
+
+    def heat_conv(self, prefix: str, p: dict) -> None:
+        for name in ("hetero_kernel", "hetero_bias", "att"):
+            self.leaf(f"{prefix}.{name}", p, name)
+        self.leaf(f"{prefix}.edge_type_emb.weight", self.sub(p, "edge_type_emb"), "embedding")
+        self.linear(f"{prefix}.edge_attr_emb", self.sub(p, "edge_attr_emb"))
+        self.linear(f"{prefix}.att_lin", self.sub(p, "att_lin"))
+
+    def gatv2_tower(self, prefix: str, p: dict, tower) -> None:
+        for i, conv in enumerate(tower.conv_list):
+            self.gatv2_conv(f"{prefix}.conv_list.{i}", self.sub(p, f"conv_{i}"), conv)
+        self.type_embedding(prefix, p, "ntype_embedding")
+        self.type_embedding(prefix, p, "etype_embedding")
+
+    def heat_tower(self, prefix: str, p: dict, tower) -> None:
+        for i in range(len(tower.conv_list)):
+            self.heat_conv(f"{prefix}.conv_list.{i}", self.sub(p, f"conv_{i}"))
+
+    def gine_tower(self, prefix: str, p: dict, tower) -> None:
+        for i in range(len(tower.conv_list)):
+            self.gine_conv(f"{prefix}.conv_list.{i}", self.sub(p, f"conv_{i}"))
+        self.type_embedding(prefix, p, "ntype_embedding")
+        self.type_embedding(prefix, p, "etype_embedding")
+
+    def tower(self, prefix: str, p: dict, tower) -> None:
+        """One tower, by its class."""
+        walk = {protein_towers.VectorProteinGNN_LBAModel: self.lba_tower,
+                protein_towers.VectorProteinGNN_PocketMiner: self.pocketminer_tower,
+                protein_towers.VectorProteinGNN_CPDModel: self.cpd_tower,
+                GATv2GNN: self.gatv2_tower, HEATGNN: self.heat_tower,
+                HomoMoleculeGNN_GINE: self.gine_tower}
+        if type(tower) not in walk:
+            raise NotImplementedError(f"no weight mapping for the tower {type(tower).__name__}")
+        walk[type(tower)](prefix, p, tower)
+
+    def joint(self, params: dict, model: JointGNN) -> None:
+        self.tower("protein_gnn.gnn_model", self.sub(params, "protein_gnn"),
+                   model.protein_gnn.gnn_model)
+        self.tower("molecule_gnn.gnn_model", self.sub(params, "molecule_gnn"),
+                   model.molecule_gnn.gnn_model)
 
         for name in ("residue", "atom", "protein", "molecule"):
             for i in range(len(getattr(model, f"{name}_lins"))):

@@ -1,6 +1,7 @@
 """Shared model components (counterpart of caster_dta_tpu/models/common.py)."""
 from __future__ import annotations
 
+import inspect
 from typing import Optional
 
 import torch
@@ -45,3 +46,11 @@ def masked_pool(x: torch.Tensor, mask: torch.Tensor, mode: str) -> torch.Tensor:
     if mode == "sum":
         return (x * m).sum(dim=1)
     raise ValueError(f"unknown element_pooling: {mode!r}")
+
+
+def build_tower(cls, generator: Optional[torch.Generator], kwargs: dict) -> nn.Module:
+    """``cls`` from a model_kwargs.json entry: keys that are not its
+    arguments are dropped and lists become tuples, as in the JAX package."""
+    known = inspect.signature(cls).parameters
+    return cls(generator=generator, **{k: (tuple(v) if isinstance(v, list) else v)
+                                       for k, v in kwargs.items() if k in known})

@@ -18,6 +18,7 @@ from caster_dta_torch.models.molecule import make_molecule_gnn
 from caster_dta_torch.models.protein import make_protein_gnn
 from caster_dta_torch.nn.attention import MultiheadAttention
 from caster_dta_torch.nn.common import Dense, LayerNorm, apply_act, dropout, select_activation
+from caster_dta_torch.nn.norm import MaskedBatchNorm
 
 
 class _Tower(nn.Module):
@@ -97,9 +98,6 @@ class JointGNN(nn.Module):
                  num_cross_attn_layers: int = 1, include_post_pool_layernorm: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if out_lin_norm_type not in (None, "layer"):
-            raise NotImplementedError(f"out_lin_norm_type {out_lin_norm_type!r} "
-                                      "(MaskedBatchNorm) is not ported yet")
         g = generator
         self.act = select_activation(activation)
         self.dropout, self.element_pooling = dropout, element_pooling
@@ -113,10 +111,10 @@ class JointGNN(nn.Module):
                 d = int(d * factor)
             return nn.ModuleList(mods), d
 
-        p_out = protein_gnn_kwargs["out_channels"]
-        p_out = p_out if isinstance(p_out, int) else p_out[0]
-        self.residue_lins, d1 = lins(residue_lin_depth, p_out)
-        self.atom_lins, d2 = lins(atom_lin_depth, molecule_gnn_kwargs["out_channels"])
+        # the towers' row widths: heads x out_channels for a concatenating
+        # GATv2 or HEAT tower
+        self.residue_lins, d1 = lins(residue_lin_depth, self.protein_gnn.gnn_model.out_dim)
+        self.atom_lins, d2 = lins(atom_lin_depth, self.molecule_gnn.gnn_model.out_dim)
         self.cross_attn_module = nn.Module()
         self.cross_attn_module.cross_attn_layers = nn.ModuleList(
             CrossAttentionModule(d1, d2, n_attention_heads, attn_dropout=attention_dropout,
@@ -132,8 +130,12 @@ class JointGNN(nn.Module):
         self.molecule_lins, dm = lins(molecule_lin_depth, d2)
         self.pm_embed_lin = Dense(dp + dm, pairwise_embedding_dim, generator=g)
         self.out_fc_layers, do = lins(out_lin_depth, pairwise_embedding_dim, out_lin_factor)
-        if out_lin_norm_type == "layer":
-            self.out_fc_norms = nn.ModuleList(LayerNorm(lin.out_features, eps=1e-5)
+        # 'batch': statistics over every row of the batch, the padded pairs of
+        # a bucket included, as the JAX package passes no mask; another name
+        # adds no norm, as there
+        norms = {"layer": lambda d: LayerNorm(d, eps=1e-5), "batch": MaskedBatchNorm}
+        if out_lin_norm_type in norms:
+            self.out_fc_norms = nn.ModuleList(norms[out_lin_norm_type](lin.out_features)
                                               for lin in self.out_fc_layers)
         self.output_layer = Dense(do, 1, generator=g)
 

@@ -1,15 +1,18 @@
-"""Molecule tower (counterpart of caster_dta_tpu/models/molecule.py). The
-trained config is ``base_conv='gine'``: a stack of GINEConvs."""
+"""Molecule towers (counterpart of caster_dta_tpu/models/molecule.py). The
+trained config is ``base_conv='gine'``: a stack of GINEConvs. ``gatv2``
+(the JAX package's HomoMoleculeGNN_GAT, with no self-loops inserted) and
+``heat`` are the scalar towers of models/scalar_gnns.py. Each tower's
+``out_dim`` is the width of the rows it returns."""
 from __future__ import annotations
 
-import inspect
 from typing import Optional
 
 import torch
 from torch import nn
 
 from caster_dta_torch.data.graphs import GraphBatch
-from caster_dta_torch.models.common import TypeEmbedding
+from caster_dta_torch.models.common import TypeEmbedding, build_tower
+from caster_dta_torch.models.scalar_gnns import GATv2GNN, HEATGNN
 from caster_dta_torch.nn.common import apply_act, dropout, select_activation
 from caster_dta_torch.nn.conv import GINEConv
 
@@ -29,6 +32,7 @@ class _BaseMolecule(nn.Module):
         self.ntype_embedding = TypeEmbedding(num_ntypes, ntype_emb_dim, generator=generator)
         self.etype_embedding = TypeEmbedding(num_etypes, etype_emb_dim, generator=generator)
         hidden = hidden_channels if hidden_channels is not None else out_channels
+        self.out_dim = out_channels
         self.dims = ([in_channels + self.ntype_embedding.out_dim]
                      + [hidden] * (num_convs - 1) + [out_channels])
         self.edge_in = edge_dim + self.etype_embedding.out_dim
@@ -65,12 +69,24 @@ class HomoMoleculeGNN_GINE(_BaseMolecule):
         return x
 
 
+MOLECULE_MODELS = {
+    "gine": HomoMoleculeGNN_GINE,
+    "gatv2": GATv2GNN,
+    "heat": HEATGNN,
+}
+
+# the JAX package's other towers, still to be ported
+NOT_PORTED = ("gin", "attentivefp", "gps", "pna")
+
+
 def make_molecule_gnn(base_conv: str = "gine", generator: Optional[torch.Generator] = None,
                       **kwargs) -> nn.Module:
     """Build a tower from its model_kwargs.json entry; keys the tower does not
     take are ignored, as in the JAX package."""
-    if base_conv.lower() != "gine":
-        raise NotImplementedError(f"molecule base_conv {base_conv!r} is not ported yet")
-    known = inspect.signature(HomoMoleculeGNN_GINE).parameters
-    return HomoMoleculeGNN_GINE(generator=generator,
-                                **{k: v for k, v in kwargs.items() if k in known})
+    base_conv = base_conv.lower()
+    if base_conv in NOT_PORTED:
+        raise NotImplementedError(f"molecule base_conv {base_conv!r} is not ported yet: "
+                                  "ROADMAP Queue 1 item 8")
+    if base_conv not in MOLECULE_MODELS:
+        raise ValueError(f"unknown molecule base_conv: {base_conv!r}")
+    return build_tower(MOLECULE_MODELS[base_conv], generator, kwargs)

@@ -28,9 +28,30 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+class _LeakyReLU(torch.autograd.Function):
+    """torch's leaky ReLU forward with jax.nn.leaky_relu's gradient, which is
+    1 at x = 0 (``where(x >= 0, x, slope x)``) where torch's is the slope: a
+    node with no incoming message and a zero bias sits exactly at 0."""
+
+    @staticmethod
+    def forward(ctx, x, negative_slope):
+        ctx.save_for_backward(x)
+        ctx.negative_slope = negative_slope
+        return F.leaky_relu(x, negative_slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, g * ctx.negative_slope), None
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
+    return _LeakyReLU.apply(x, negative_slope)
+
+
 _ACTS: dict = {
     "relu": F.relu,
-    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.01),
+    "leaky_relu": leaky_relu,
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
     "gelu": lambda x: F.gelu(x, approximate="none"),

@@ -10,8 +10,13 @@ Parameter names follow the reference state dict (``message_func.{j}``,
 maps them to the JAX tree. Inside ``with fused_message():``, GVPConv runs the
 JAX module's fused branch instead: a layout pin of the node table (K6), the
 merged gather (K2), the whole message MLP in one kernel (K5, ops/
-gvp_message.py) and the aggregation (K1), with the same parameters. The
-remat and autoregressive branches of the JAX module are not ported.
+gvp_message.py) and the aggregation (K1), with the same parameters.
+
+Inside ``with remat_message():`` (the JAX package's ``REMAT_MESSAGE =
+True``), a conv that computes gradients keeps its gathered endpoints and
+recomputes the message MLP and the aggregation in the backward pass
+(``torch.utils.checkpoint``), as JAX's remat policy saves only
+``"gathered_endpoints"``: less memory, the same numbers.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import contextvars
 from typing import Iterator, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from caster_dta_torch.nn.common import (Dense, LayerNorm, apply_act, dropout, get_compute_dtype,
@@ -32,20 +38,39 @@ Dims = Tuple[int, int]
 _FUSED_MESSAGE: contextvars.ContextVar[bool] = contextvars.ContextVar(
     "caster_dta_torch_fused_message", default=False)
 
+_REMAT_MESSAGE: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "caster_dta_torch_remat_message", default=False)
+
 # the JAX gate's bound on the merged endpoint gather, 2 E (ns + 3nv) f32 bytes
 FUSED_GATHER_BYTES = 4_000_000
 
 
 @contextlib.contextmanager
-def fused_message(enabled: bool = True) -> Iterator[None]:
-    """GVPConv's fused message path for the ``with`` block only, wherever
-    its gate admits it (the JAX package's ``USE_FUSED_MESSAGE = True``). Off
-    outside any such block, as JAX's default."""
-    token = _FUSED_MESSAGE.set(bool(enabled))
+def _switch(var: contextvars.ContextVar, enabled: bool) -> Iterator[None]:
+    token = var.set(bool(enabled))
     try:
         yield
     finally:
-        _FUSED_MESSAGE.reset(token)
+        var.reset(token)
+
+
+def fused_message(enabled: bool = True):
+    """GVPConv's fused message path for the ``with`` block only, wherever
+    its gate admits it (the JAX package's ``USE_FUSED_MESSAGE = True``). Off
+    outside any such block, as JAX's default."""
+    return _switch(_FUSED_MESSAGE, enabled)
+
+
+def remat_message(enabled: bool = True):
+    """GVPConv recomputes its message MLP and aggregation in the backward
+    pass, for the ``with`` block only (the JAX package's ``REMAT_MESSAGE =
+    True``). Off outside any such block, as JAX's default."""
+    return _switch(_REMAT_MESSAGE, enabled)
+
+
+def switches() -> tuple:
+    """The switches in force (fused, remat): what a captured graph fixes."""
+    return _FUSED_MESSAGE.get(), _REMAT_MESSAGE.get()
 
 
 def tuple_sum(*args: SV) -> SV:
@@ -192,7 +217,10 @@ class GVPConv(nn.Module):
                     and 2 * e * (s.shape[-1] + 3 * nv_in) * 4 <= FUSED_GATHER_BYTES
                     and _FUSED_MESSAGE.get())
 
-    def forward(self, x: SV, edge_src, edge_dst, edge_mask, edge_attr: SV) -> SV:
+    def forward(self, x: SV, edge_src, edge_dst, edge_mask, edge_attr: SV,
+                message_mask: Optional[torch.Tensor] = None) -> SV:
+        """``message_mask`` [B, E] bool, when given, is ANDed into the edge
+        mask of the aggregation."""
         s, v = x
         fused = self.fused_ok(x, edge_src, edge_attr)
         cd = get_compute_dtype()
@@ -204,39 +232,61 @@ class GVPConv(nn.Module):
             # the layers before them return, and K5 rounds its operands.
             s, v = s.to(cd), v.to(cd)
             edge_attr = (edge_attr[0].to(cd), edge_attr[1].to(cd))
-        nv_in = v.shape[-2]
-        e = edge_src.shape[1]
         sv = merge_sv(s, v)
         if fused:
             sv = gvp_message.layout_pin(sv)                            # K6
         # one merged-(s, v) row gather for both endpoints: [B, 2E, ns + 3nv]
         both = segment.gather_nodes(sv, torch.cat([edge_src, edge_dst], dim=1))
+        mask = edge_mask if message_mask is None else edge_mask & message_mask
+        args = (both, edge_attr[0], edge_attr[1], edge_dst, mask, s.shape[1], v.shape[-2], fused)
+        if _REMAT_MESSAGE.get() and torch.is_grad_enabled():
+            # the gathered endpoints stay saved; the message MLP and the
+            # aggregation run again in the backward pass (nothing in them
+            # draws random numbers, so no RNG state is kept)
+            out = torch.utils.checkpoint.checkpoint(self._message, *args, use_reentrant=False,
+                                                    preserve_rng_state=False)
+        else:
+            out = self._message(*args)
+        return split_sv(out, self.out_dims[1])
+
+    def _message(self, both, edge_s, edge_v, edge_dst, mask, num_nodes: int, nv_in: int,
+                 fused: bool) -> torch.Tensor:
+        """The message MLP on the gathered endpoints and its aggregation ->
+        merged (s, v) rows [B, N, so + 3vo]."""
+        e = edge_dst.shape[1]
+        ns = both.shape[-1] - 3 * nv_in
         if fused:
             merged = gvp_message.fused_message_mlp(                     # K5
-                both, edge_attr[0], edge_attr[1], self.message_func, ns=s.shape[-1], nv=nv_in,
+                both, edge_s, edge_v, self.message_func, ns=ns, nv=nv_in,
                 activations=self.activations)
         else:
             s_j, v_j = split_sv(both[:, :e], nv_in)
             s_i, v_i = split_sv(both[:, e:], nv_in)
-            msg = tuple_cat((s_j, v_j), edge_attr, (s_i, v_i))
+            msg = tuple_cat((s_j, v_j), (edge_s, edge_v), (s_i, v_i))
             for layer in self.message_func:
                 msg = layer(msg)
             merged = merge_sv(*msg)
-        out = segment.aggregate(merged, edge_dst, edge_mask, s.shape[1], self.aggr)
-        return split_sv(out, self.out_dims[1])
+        return segment.aggregate(merged, edge_dst, mask, num_nodes, self.aggr)
 
 
 class GVPConvLayer(nn.Module):
     """Residual GVP conv block: conv -> add+norm -> GVP feedforward -> add+norm,
-    with an optional node_mask partial update."""
+    with an optional node_mask partial update. ``autoregressive`` layers
+    (aggr 'add' or None only) message forward edges (src < dst) from ``x``
+    and the others from ``autoregressive_x``, with one conv's parameters, and
+    divide the sum by the real in-degree."""
 
     def __init__(self, node_dims: Dims, edge_dims: Dims, n_message: int = 3,
-                 n_feedforward: int = 2, drop_rate: float = 0.1,
+                 n_feedforward: int = 2, drop_rate: float = 0.1, autoregressive: bool = False,
                  activations=("relu", "sigmoid"), vector_gate: bool = False,
                  aggr: Optional[str] = None, generator: Optional[torch.Generator] = None):
         super().__init__()
         node_dims = tuple(node_dims)
         g = generator
+        if autoregressive:
+            if aggr is not None and aggr != "add":
+                raise ValueError("autoregressive GVPConvLayer requires aggr='add'")
+            aggr = "add"
         self.conv = GVPConv(node_dims, node_dims, edge_dims, n_message, aggr=aggr or "mean",
                             activations=activations, vector_gate=vector_gate, generator=g)
         self.norm = nn.ModuleList([GVPLayerNorm(node_dims), GVPLayerNorm(node_dims)])
@@ -253,9 +303,20 @@ class GVPConvLayer(nn.Module):
             for i in range(n_feedforward))
 
     def forward(self, x: SV, edge_src, edge_dst, edge_mask, edge_attr: SV,
+                autoregressive_x: Optional[SV] = None,
                 node_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> SV:
-        dh = self.conv(x, edge_src, edge_dst, edge_mask, edge_attr)
+        if autoregressive_x is not None:
+            fwd = edge_src < edge_dst
+            dh = tuple_sum(
+                self.conv(x, edge_src, edge_dst, edge_mask, edge_attr, message_mask=fwd),
+                self.conv(autoregressive_x, edge_src, edge_dst, edge_mask, edge_attr,
+                          message_mask=~fwd))
+            count = torch.clamp(segment.segment_degree(edge_dst, edge_mask, x[0].shape[1]),
+                                min=1.0)
+            dh = (dh[0] / count[..., None], dh[1] / count[..., None, None])
+        else:
+            dh = self.conv(x, edge_src, edge_dst, edge_mask, edge_attr)
         dh = self.dropout[0](dh, generator)
         h = self.norm[0](tuple_sum(x, dh))
         ff = h

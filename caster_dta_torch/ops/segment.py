@@ -18,7 +18,13 @@ Indices and masks get no gradient.
 
 Layout contract (data/graphs.py): the edges of each graph are sorted by
 destination node; padding edges point at ``dst = N-1`` and are masked.
-``segment_max`` and ``segment_softmax`` are not on the trained path yet.
+
+``segment_max`` is computed as the JAX package computes it, outside any
+kernel (there ``jax.ops.segment_max``): one ``scatter_reduce`` of the masked
+rows over the merged ids ``b * N + dst``, on either device. Its gradient is
+torch's, which splits a row's cotangent evenly among the messages that tie
+for its max, as XLA's scatter-max JVP does. ``segment_softmax`` runs its
+per-edge gathers through K2 and its denominators through K1.
 """
 from __future__ import annotations
 
@@ -98,13 +104,44 @@ def segment_mean(messages: torch.Tensor, dst: torch.Tensor, edge_mask: torch.Ten
     return total / deg.reshape(deg.shape + (1,) * (total.dim() - 2))
 
 
+def segment_max(messages: torch.Tensor, dst: torch.Tensor, edge_mask: torch.Tensor,
+                num_nodes: int, fill: float = 0.0) -> torch.Tensor:
+    """Max of the real incoming messages per node; a node with no real edge
+    (its max not finite) gets ``fill``. The rows start at -inf, so only a
+    row that no real message reaches can tie with its start value."""
+    b, e = dst.shape
+    trailing = messages.shape[2:]
+    neg = torch.full((), float("-inf"), dtype=messages.dtype, device=messages.device)
+    flat = torch.where(edge_mask.reshape((b, e) + (1,) * len(trailing)), messages, neg)
+    flat = flat.reshape(b * e, -1)
+    ids = (dst.long() + num_nodes * torch.arange(b, device=dst.device)[:, None]).reshape(-1, 1)
+    start = torch.full((b * num_nodes, flat.shape[1]), float("-inf"), dtype=messages.dtype,
+                       device=messages.device)
+    out = start.scatter_reduce(0, ids.expand_as(flat), flat, "amax", include_self=False)
+    out = torch.where(torch.isfinite(out), out, torch.full((), fill, dtype=out.dtype,
+                                                           device=out.device))
+    return out.reshape((b, num_nodes) + trailing)
+
+
+def segment_softmax(logits: torch.Tensor, dst: torch.Tensor, edge_mask: torch.Tensor,
+                    num_nodes: int) -> torch.Tensor:
+    """Softmax of per-edge logits [B, E, H] over the edges of each
+    destination, stable by the row max (not detached, as in JAX); masked
+    edges get weight exactly 0 and the denominator is clamped at 1e-16."""
+    m = segment_max(logits, dst, edge_mask, num_nodes, fill=0.0)
+    exp = torch.where(edge_mask[..., None], torch.exp(logits - gather_nodes(m, dst)),
+                      torch.zeros((), dtype=logits.dtype, device=logits.device))
+    denom = segment_sum(exp, dst, edge_mask, num_nodes)
+    return exp / torch.clamp(gather_nodes(denom, dst), min=1e-16)
+
+
 def aggregate(messages: torch.Tensor, dst: torch.Tensor, edge_mask: torch.Tensor,
               num_nodes: int, mode: str) -> torch.Tensor:
-    """Dispatch on aggregation mode ('sum'/'add' or 'mean')."""
+    """Dispatch on aggregation mode ('sum'/'add', 'mean' or 'max')."""
     if mode in ("sum", "add"):
         return segment_sum(messages, dst, edge_mask, num_nodes)
     if mode == "mean":
         return segment_mean(messages, dst, edge_mask, num_nodes)
     if mode == "max":
-        raise NotImplementedError("segment_max is not ported yet")
+        return segment_max(messages, dst, edge_mask, num_nodes)
     raise ValueError(f"unknown aggregation mode: {mode!r}")

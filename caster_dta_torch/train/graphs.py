@@ -27,6 +27,7 @@ import torch
 
 from caster_dta_torch.data.device_cache import (FIELD_ALIGN, field_words, pack_batch_rows,
                                                 unpack_batch_rows)
+from caster_dta_torch.nn import gvp
 from caster_dta_torch.ops import launches
 
 # Eager steps a bucket runs before its train step is captured (PyTorch's
@@ -34,6 +35,14 @@ from caster_dta_torch.ops import launches
 # are real steps: the bucket's first batches, in order.
 WARMUP_STEPS = 2
 EVAL_WARMUP_STEPS = 1
+
+
+def model_path(model: torch.nn.Module) -> tuple:
+    """What a captured graph of ``model`` fixes besides the shapes: the GVP
+    switches in force (fused message, remat) and each attention module's
+    ``use_pallas``."""
+    return (gvp.switches(),
+            tuple(m.use_pallas for m in model.modules() if hasattr(m, "use_pallas")))
 
 
 def row_width(b: int) -> int:

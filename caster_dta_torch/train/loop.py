@@ -43,8 +43,8 @@ from caster_dta_torch.data.device_cache import DeviceResidentLoader, MegaBatch, 
 from caster_dta_torch.device import resolve_device
 from caster_dta_torch.interop.from_jax import (load_jax_params, state_dict_from_jax,
                                                to_jax_params, tree_from_tensors)
-from caster_dta_torch.nn import gvp
 from caster_dta_torch.nn.common import compute_dtype, f32_precision
+from caster_dta_torch.nn.norm import MaskedBatchNorm
 from caster_dta_torch.train import checkpoints, graphs, metrics as metrics_mod
 from caster_dta_torch.train.optim import (BATCH_SCHEDULERS, make_optimizer, make_scheduler,
                                           set_learning_rate)
@@ -184,6 +184,13 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, config: TrainConfig,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
+        if any(isinstance(m, MaskedBatchNorm) for m in model.modules()):
+            # the JAX Trainer applies the model with its batch_stats but not
+            # as mutable, so its first train step raises on such a model
+            raise NotImplementedError(
+                "training a model with MaskedBatchNorm (out_lin_norm_type='batch'): the JAX "
+                "package's Trainer cannot take a step on it either (its batch_stats are "
+                "not mutable in the step); serve such a model instead")
         self.config = config
         self.model = model.to(self.device)
         self.dtype = _COMPUTE_DTYPES[config.compute_dtype]
@@ -467,10 +474,10 @@ class Trainer:
     def _graph_key(self, kind: str, mega: MegaBatch) -> tuple:
         """A captured step reads its bucket's stores and runs the model's
         path as it was at capture: one graph per kind, store and path (the
-        fused message switch, each attention module's ``use_pallas``)."""
+        fused message and remat switches, each attention module's
+        ``use_pallas``: graphs.model_path)."""
         return (kind, mega.bucket, id(mega.p_store), id(mega.m_store),
-                gvp._FUSED_MESSAGE.get(),
-                tuple(m.use_pallas for m in self.model.modules() if hasattr(m, "use_pallas")))
+                graphs.model_path(self.model))
 
     def _ready(self) -> bool:
         """Whether a capture would find every state it updates: the

@@ -38,7 +38,9 @@ Phases, each printed before it starts and after it ends with its wall time:
    K8_RTOL/K8_ATOL at the flagship, Davis and large-protein protein
    aggregations, bit for bit the CPU's plain version and K1 on the same
    masked rows, and its refusal of bf16. K7 and K8 lie on no path: their
-   launch counts are those of this phase.
+   launch counts are those of this phase. K1, K2 and K3 (in the k3 phase)
+   also at the model zoo's row widths (ZOO_WIDTHS: 1, 2, 21, 2 x 16,
+   2 x 64) on the flagship protein graph, bit for bit as above.
 4. serve: loads the trained ``runs/davis_seed9`` model onto the card, answers
    seeded synthetic requests at two buckets twice: eagerly
    (``predict(eager=True)``) and as CUDA-graph replays fed from a pinned
@@ -128,7 +130,21 @@ Phases, each printed before it starts and after it ends with its wall time:
    K3 must launch. Prints the featurization time and graphs/s (in the CLI and
    again in this process without a pool), each run's wall time and epochs/s,
    and the parameters' device.
-11. times: each kernel (K3 also at the large protein's merged backward), its
+11. zoo: the model zoo (``zoo_phase``): four JointGNN configurations of
+   runs/davis_seed9 with towers swapped (``zoo_configs``: zoo-cpd-gatv2,
+   zoo-pocketminer-heat, zoo-gatv2-gine, zoo-heat-gine) at a seeded random
+   init and the flagship bucket: requests eager and replayed bit for bit
+   with equal launches, against the CPU; the request times; the eager
+   forward's device time, its scatter_reduce kernels and segment_softmax's
+   pieces; bf16 Adam steps eager against graph replays from a store, bit
+   for bit; the replayed step's time; one f32 step's gradients card vs CPU;
+   zoo-gatv2-gine served again with batch norm, which the Trainer refuses;
+   on zoo-cpd-gatv2 the explainer (replayed and eager bit for bit, the
+   first batch against the CPU) and remat (eager and replayed, bit for bit
+   the steps without it, peak memory of each). K1, K2 and K3 must launch,
+   K4, K5 and K6 must not.
+12. times: each kernel (K3 also at the large protein's merged backward; K1,
+   K2 and K3 also at the zoo's row widths on the flagship graph), its
    plain version and the one PyTorch call that
    computes the same function, replayed from CUDA graphs and timed with CUDA
    events, beside the least time the card could take (the larger of bytes
@@ -153,7 +169,8 @@ they differ, both answers go to a file in ``$CHIP_SMOKE_OUT`` (default
 Any failure raises and the script exits non-zero. On success the line before
 the last is ``{"kernels": [...]}``, whose launch counts are each kernel's over
 the phases that run it: evaluate's replayed runs and the training phases
-(train, train-fused, train-graph, fit, cli) for K1-K3, K5 and K6,
+(train, train-fused, train-graph, fit, cli, and zoo's training passes) for
+K1-K3, K5 and K6,
 serve-blockwise and evaluate for K4, kernels for K7 and K8; and the last
 is ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
@@ -260,6 +277,25 @@ EVAL_CPU_BATCHES = 2
 # explainer_card_cpu.py). Twice that. (The CPU tests hold the port to JAX
 # within 1e-5 at their smaller sizes.)
 EXPLAIN_ATOL = 2e-4
+# zoo: the model zoo's towers in runs/davis_seed9's configuration with one or
+# both towers swapped (zoo_configs), at the flagship bucket: ZOO_REQUESTS
+# requests served eagerly and replayed; ZOO_PASSES passes of bf16 Adam steps
+# over a store of ZOO_PAIRS pairs (batches of 32, 32 and 10: 2 warm-up steps,
+# the capture and a replay in the first pass, replays after), eager and as
+# graph replays; the explainer over ZOO_EXPLAIN_PAIRS pairs on zoo-cpd-gatv2
+ZOO_REQUESTS = 2
+ZOO_PASSES = 2
+ZOO_PAIRS = 2 * 32 + 10
+ZOO_EXPLAIN_PAIRS = 16
+# the kernels' row widths on the zoo's path: 1 (the real in-degree of the
+# mean and autoregressive aggregations), 2 (segment_softmax's per-head max
+# and denominators, H = 2), 21 (CPD's source-type one-hot; a gather only),
+# H x C = 2 x 16 and 2 x 64 (GATv2's per-head rows)
+ZOO_WIDTHS = {"K1": (1, 2, 32, 128), "K2": (1, 2, 21, 32, 128), "K3": (1, 2, 32, 128)}
+# the scalar protein layout (data/build.py's feature dims with
+# vectorize_features=False; tests/test_torch_zoo_models.py holds them
+# against a built graph): 17 + 3 x 3 node and 32 + 3 edge channels
+SCALAR_PROTEIN_DIMS = dict(in_channels=26, edge_dim=35)
 # K5 against its plain version on the card: f32 sums the same products in
 # another order (outputs and input gradients within 1e-5 + 1e-5 x the
 # tensor's largest entry, weight gradients, sums over every edge, within
@@ -296,6 +332,37 @@ K8_REPLACES = "caster_dta_tpu/ops/pallas_segment.py:72"         # _segment_kerne
 SOURCE = "caster_dta_torch/csrc/segment.cu"
 GVP_SOURCE = "caster_dta_torch/csrc/gvp_message.cu"
 ATTN_SOURCE = "caster_dta_torch/csrc/attention.cu"
+
+
+def zoo_configs() -> dict:
+    """The zoo phase's four JointGNN configurations: runs/davis_seed9's
+    model_kwargs.json with one or both towers swapped, each tower at the
+    run's widths (2 convs, out 64, hidden 16 or (16, 4), its dropout and
+    activation), GATv2 and HEAT with 2 heads, HEAT's edge attributes
+    embedded in 8, PocketMiner's initial projections (16, 8) and (32, 4) as
+    tests/test_model_zoo.py's; the run's joint kwargs."""
+    with open(os.path.join(RUN_DIR, "model_kwargs.json")) as f:
+        run = json.load(f)
+    p, m = run["protein_gnn_kwargs"], run["molecule_gnn_kwargs"]
+    shared = {k: p[k] for k in ("num_ntypes", "num_etypes", "ntype_emb_dim", "etype_emb_dim",
+                                "num_convs", "out_channels", "dropout_rate", "activation")}
+    vector = dict(shared, **{k: p[k] for k in ("in_channels", "edge_dim", "hidden_channels",
+                                                "edge_hidden_channels")})
+    scalar = dict(shared, **SCALAR_PROTEIN_DIMS, hidden_channels=p["hidden_channels"][0],
+                  aggr=p["aggr"], heads=2)
+    mol = {k: v for k, v in m.items() if k not in ("base_conv", "gin_trainable_eps")}
+    protein = {"cpd": dict(vector, base_conv="cpdmodel"),
+               "pocketminer": dict(vector, base_conv="pocketminer",
+                                   initial_node_project_channels=[16, 8],
+                                   initial_edge_project_channels=[32, 4]),
+               "gatv2": dict(scalar, base_conv="gatv2"),
+               "heat": dict(scalar, base_conv="heat", eattr_emb_dim=8)}
+    molecule = {"gatv2": dict(mol, base_conv="gatv2", heads=2, concat=False),
+                "heat": dict(mol, base_conv="heat", eattr_emb_dim=8, heads=2), "gine": m}
+    return {f"zoo-{a}-{b}": dict(protein_gnn_kwargs=protein[a], molecule_gnn_kwargs=molecule[b],
+                                 joint_gnn_kwargs=dict(run["joint_gnn_kwargs"]))
+            for a, b in (("cpd", "gatv2"), ("pocketminer", "heat"), ("gatv2", "gine"),
+                         ("heat", "gine"))}
 
 
 @contextlib.contextmanager
@@ -484,6 +551,26 @@ def k3_cases(torch, batch, gen, dev="cuda"):
         ("molecule backward, F=51", randn(b, m.e_pad, 51), m.edge_src, m.n_pad),
         ("molecule backward, F=16", randn(b, m.e_pad, 16), m.edge_src, m.n_pad),
     ]
+
+
+def zoo_kernel_cases(torch, batch, gen, dev="cuda"):
+    """K1, K2 and K3 inputs at the zoo's row widths (ZOO_WIDTHS) on a
+    request's protein graph: K2 gathers by dst (by src for the type
+    one-hot), K1 sums by dst, K3 scatters the gathers' cotangents by dst."""
+    p = batch.protein.to(dev)
+    b = p.batch_size
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    return {
+        "K2": [(f"zoo gather F={f}", randn(b, p.n_pad, f), p.edge_src if f == 21 else p.edge_dst)
+               for f in ZOO_WIDTHS["K2"]],
+        "K1": [(f"zoo aggregation F={f}", randn(b, p.e_pad, f), p.edge_dst, p.edge_mask, p.n_pad)
+               for f in ZOO_WIDTHS["K1"]],
+        "K3": [(f"zoo backward F={f}", randn(b, p.e_pad, f), p.edge_dst, p.n_pad)
+               for f in ZOO_WIDTHS["K3"]],
+    }
 
 
 def k3_edge_cases(torch, gen, dev="cuda"):
@@ -835,6 +922,412 @@ def records_equal(a: dict, b: dict) -> bool:
         len(a[k]) == len(b[k]) and all(cell(x, y) for x, y in zip(a[k], b[k])) for k in a)
 
 
+def check_records(tag: str, card: dict, cpu: dict, what: str) -> None:
+    """run_model_on_dataset records of the card against the CPU's (``cpu``
+    may hold a subset of the pairs): affinities within AFFINITY_ATOL,
+    attention within ATTENTION_ATOL, explanations within EXPLAIN_ATOL."""
+    import numpy as np
+
+    where = {p: i for i, p in enumerate(card["pair_idx"])}
+    kinds = {"affinity_score": AFFINITY_ATOL}
+    kinds.update({k: ATTENTION_ATOL for k in (
+        "protein_attention", "molecule_attention", "max_protein_attention",
+        "max_molecule_attention", "prot_mol_attention", "mol_prot_attention")})
+    kinds.update({k: EXPLAIN_ATOL for k in (
+        "protein_explanation", "molecule_explanation", "protein_edge_explanation",
+        "molecule_edge_explanation")})
+    worst = {k: (0.0, None) for k in kinds}     # column -> (max |d|, where)
+    over = {k: 0 for k in kinds}                 # entries beyond the tolerance
+    for j, p in enumerate(cpu["pair_idx"]):
+        i = where[p]
+        for k, tol in kinds.items():
+            got, want = card[k][i], cpu[k][j]
+            if (got is None) != (want is None):
+                raise AssertionError(f"{tag} pair {p} {k}: None on one device only")
+            if got is None:
+                continue
+            got, want = np.atleast_1d(got), np.atleast_1d(want)
+            if got.shape != want.shape:
+                raise AssertionError(f"{tag} pair {p} {k}: shape {got.shape} against "
+                                     f"{want.shape}")
+            d = np.abs(got - want)
+            over[k] += int((d > tol).sum())
+            if d.size and d.max() > worst[k][0]:
+                at = int(d.argmax())
+                worst[k] = (float(d.max()), f"pair {p} entry {at}: card {got.flat[at]:.8g}, "
+                                            f"CPU {want.flat[at]:.8g}")
+    print(f"{tag}: card vs CPU over {what}, max|d| by column (tolerance; entries beyond it; "
+          f"where the largest is):")
+    for k, tol in kinds.items():
+        if worst[k][1] is not None:
+            print(f"  {k}: {worst[k][0]:.3e} ({tol}; {over[k]}; {worst[k][1]})")
+    beyond = {k: n for k, n in over.items() if n}
+    if beyond:
+        raise AssertionError(f"{tag}: card vs CPU beyond tolerance in {beyond}")
+
+
+def check_step_grads(torch, tag: str, make_model, batch, exact: bool = False) -> None:
+    """One f32 step's gradients, card vs CPU, same weights and batch, dropout
+    off (the two devices' generators differ): ``make_model(device)`` gives
+    the model in eval mode. Each gradient is held to STEP_GRAD_RTOL of its
+    largest entry plus STEP_GRAD_ATOL of the largest over all. With
+    ``exact``, a gradient beyond that is held instead against the same step
+    in f64 on the CPU: the card may be no farther from it than the CPU's f32
+    gradient is, plus the same bound (a sum that cancels leaves more f32
+    rounding than the bound on either device)."""
+    import dataclasses
+
+    from caster_dta_torch.data.graphs import GraphBatch
+    from caster_dta_torch.train.loop import Trainer, TrainConfig
+
+    def cast(x, dtype):
+        if isinstance(x, GraphBatch):
+            return GraphBatch(**{f.name: cast(getattr(x, f.name), dtype)
+                                 for f in dataclasses.fields(GraphBatch)})
+        return x.to(dtype) if x.is_floating_point() else x
+
+    def step_grads(dev, dtype=torch.float32):
+        m = make_model(dev).to(dtype)
+        params = dict(m.named_parameters())
+        b = dataclasses.replace(batch.to(dev), **{k: cast(getattr(batch.to(dev), k), dtype)
+                                                  for k in ("protein", "molecule", "target",
+                                                            "weight")})
+        loss, _ = Trainer(m, TrainConfig(), device=dev).loss(b)
+        return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+    grads = {"cuda": step_grads("cuda"),
+             "cpu": cpu_reference(torch, lambda: step_grads("cpu"),
+                                  f"{tag}f32 step gradients")}
+    top = max(g.abs().max().item() for g in grads["cpu"].values())
+    worst, noise, over = 0.0, [], {}
+    for name, g_cpu in grads["cpu"].items():
+        d = (grads["cuda"][name].cpu() - g_cpu).abs().max().item()
+        scale = g_cpu.abs().max().item()
+        bound = STEP_GRAD_RTOL * scale + STEP_GRAD_ATOL * top
+        if d > bound:
+            if not exact:
+                raise AssertionError(f"{tag}f32 gradient of {name}: card vs CPU max|d| {d:.3e} "
+                                     f"> {STEP_GRAD_RTOL} x max|g| {scale:.3e} + "
+                                     f"{STEP_GRAD_ATOL} x {top:.3e}")
+            over[name] = bound
+        elif d > STEP_GRAD_RTOL * scale:
+            noise.append(f"{name} (max|g| {scale:.2e}, max|d| {d:.2e})")
+        else:
+            worst = max(worst, d / scale if scale else 0.0)
+    print(f"{tag}f32 step gradients, card vs CPU (TF32 off, dropout off): "
+          f"{len(grads['cpu'])} parameters; largest entry {top:.4e}; worst max|d grad| / "
+          f"max|grad| {worst:.3e} (limit {STEP_GRAD_RTOL}) over "
+          f"{len(grads['cpu']) - len(noise) - len(over)}; held by the absolute term "
+          f"({STEP_GRAD_ATOL} x {top:.3e}): {noise or 'none'}")
+    if over:
+        f64 = cpu_reference(torch, lambda: step_grads("cpu", torch.float64),
+                            f"{tag}f64 step gradients")
+        for name, bound in over.items():
+            card = (grads["cuda"][name].cpu().double() - f64[name]).abs().max().item()
+            cpu = (grads["cpu"][name].double() - f64[name]).abs().max().item()
+            scale = f64[name].abs().max().item()
+            print(f"{tag}f32 gradient of {name} (max|g| {scale:.3e}): card vs CPU beyond "
+                  f"{bound:.3e}; against the f64 step on the CPU: card max|d| {card:.3e}, CPU "
+                  f"f32 max|d| {cpu:.3e}")
+            if card > cpu + bound:
+                raise AssertionError(f"{tag}f32 gradient of {name}: the card is {card:.3e} from "
+                                     f"the f64 gradient, the CPU's f32 {cpu:.3e} (+ {bound:.3e})")
+
+
+def zoo_phase(torch, train_launches: dict) -> None:
+    """The model zoo on the card: each of zoo_configs()'s four JointGNNs at
+    a seeded random init, at the flagship bucket. Serving: ZOO_REQUESTS
+    requests eagerly and as CUDA-graph replays, bit for bit with equal
+    launches, each against the port on the CPU (AFFINITY_ATOL,
+    ATTENTION_ATOL); the replayed and eager request times; the eager
+    forward's device time, its scatter_reduce kernels (segment_max) and
+    segment_softmax's pieces timed alone at the same shapes (CUDA graphs).
+    Training: ZOO_PASSES passes of bf16 Adam steps (dropout on) over a store
+    of ZOO_PAIRS pairs, one eager step at a time against the graph path
+    (warm-up, capture, replays): losses, predictions and parameters bit for
+    bit, launches per step equal; the replayed step's time; one f32 step's
+    gradients card vs CPU. K1, K2 and K3 must launch, K4, K5 and K6 must not.
+    zoo-gatv2-gine is served again with out_lin_norm_type='batch', and the
+    Trainer must refuse it. On zoo-cpd-gatv2: run_model_on_dataset with the
+    explainer over ZOO_EXPLAIN_PAIRS pairs, replayed and eager bit for bit,
+    the first batch against the CPU; and the same passes under
+    ``remat_message()``, eager and replayed, bit for bit the steps without
+    it, with the peak memory of each. Adds the training passes' launches to
+    ``train_launches``."""
+    import numpy as np
+
+    from caster_dta_torch.data.batching import (BucketedLoader, dataset_budgets,
+                                                synthetic_pair_batch, synthetic_pair_dataset)
+    from caster_dta_torch.data.device_cache import DeviceResidentLoader, upload
+    from caster_dta_torch.inference.checkpoint import build_model
+    from caster_dta_torch.inference.evaluation import evaluate_batches
+    from caster_dta_torch.inference.serve import LoadedRun, predict
+    from caster_dta_torch.nn import gvp
+    from caster_dta_torch.ops import cuda_attention as ca
+    from caster_dta_torch.ops import cuda_gvp_message as cgm
+    from caster_dta_torch.ops import cuda_segment as cs
+    from caster_dta_torch.ops import launches as launch_counts
+    from caster_dta_torch.ops import segment
+    from caster_dta_torch.train import graphs
+    from caster_dta_torch.train.loop import Trainer, TrainConfig
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    with open(os.path.join(RUN_DIR, "dataset_rescale_params.json")) as f:
+        rescale = json.load(f)
+    must, never = (cs.K1, cs.K2), (cgm.K5F, cgm.K5B, cgm.K6, ca.K4)
+    flagship = tuple(FLAGSHIP[x] for x in ("n_p", "n_m"))
+
+    def launched() -> dict:
+        return {k: v for k, v in launch_counts.snapshot().items() if v}
+
+    def check_path(tag, counts, need):
+        if not all(counts.get(k, 0) > 0 for k in need) or any(counts.get(k, 0) for k in never):
+            raise AssertionError(f"{tag}: {need} must launch and {never} must not; launched "
+                                 f"{counts}")
+
+    def runs(kw):
+        return (LoadedRun(build_model(kw).to(cuda).eval(), kw, rescale, "", cuda),
+                LoadedRun(build_model(kw).eval(), kw, rescale, "", cpu))
+
+    def spread(times):
+        return f"median {statistics.median(times):.3f} ms (min {times[0]:.3f}, max {times[-1]:.3f})"
+
+    def serve(tag, kw, reqs):
+        """Each request eager and replayed, bit for bit with equal launches,
+        and against the CPU -> the run on the card."""
+        run, run_cpu = runs(kw)
+        predict(run, reqs[0])      # the bucket's capture
+        torch.cuda.synchronize()
+        per_request, worst = None, [0.0, 0.0]
+        for i, batch in enumerate(reqs):
+            launch_counts.reset()
+            aff_e, attn_e = predict(run, batch, eager=True)
+            torch.cuda.synchronize()
+            eager_l = launched()
+            launch_counts.reset()
+            aff, attn = predict(run, batch)
+            torch.cuda.synchronize()
+            replay_l = launched()
+            if not (torch.equal(aff, aff_e) and all(torch.equal(a, b)
+                                                   for a, b in zip(attn, attn_e))):
+                raise AssertionError(f"{tag} request {i}: the replayed answer is not the eager "
+                                     "one bit for bit")
+            if eager_l != replay_l or per_request not in (None, replay_l):
+                raise AssertionError(f"{tag} request {i}: launches eager {eager_l}, replayed "
+                                     f"{replay_l}, the first request {per_request}")
+            per_request = replay_l
+            aff = aff.cpu()
+            if aff.shape != (batch.protein.batch_size,) or not torch.isfinite(aff).all():
+                raise AssertionError(f"{tag} request {i}: affinities {tuple(aff.shape)} not "
+                                     "finite")
+            aff_cpu, attn_cpu = cpu_reference(torch, lambda: predict(run_cpu, batch),
+                                              f"{tag} request {i}")
+            worst[0] = max(worst[0], (aff - aff_cpu).abs().max().item())
+            worst[1] = max(worst[1], max((a.cpu() - c).abs().max().item()
+                                         for a, c in zip(attn, attn_cpu)))
+        check_path(f"{tag} serving", per_request, must)
+        print(f"{tag}: {len(reqs)} requests {reqs[0].bucket} B={reqs[0].protein.batch_size}, "
+              f"replayed bit for bit the eager answers (affinities and attention maps), "
+              f"launches per request {per_request} both ways; card vs CPU max|d affinity| "
+              f"{worst[0]:.3e} (atol {AFFINITY_ATOL}), max|d attention| {worst[1]:.3e} (atol "
+              f"{ATTENTION_ATOL})")
+        if worst[0] > AFFINITY_ATOL or worst[1] > ATTENTION_ATOL:
+            raise AssertionError(f"{tag}: card and CPU disagree beyond {AFFINITY_ATOL} / "
+                                 f"{ATTENTION_ATOL}")
+        replayed = event_times_ms(torch, lambda: predict(run, reqs[0]))
+        eager = event_times_ms(torch, lambda: predict(run, reqs[0], eager=True), reps=10)
+        print(f"{tag}: request latency (CUDA events): replayed {spread(replayed)}, eager "
+              f"{spread(eager)}")
+        return run
+
+    def device_shares(tag, run, batch, kw):
+        """The eager forward's device time, torch's scatter/gather kernels in
+        it (segment_max's scatter_reduce; HEAT's per-type select and nothing
+        else on these towers), and segment_softmax's pieces timed alone at
+        the attention convs' shapes."""
+        on_card = batch.to(cuda)
+        per_kernel, n_kernels = profile_forward(torch, lambda: predict(run, on_card, eager=True))
+        busy = sum(per_kernel.values())
+        if not busy:
+            print(f"{tag}: device time not measured (the profiler saw no kernel)")
+            return
+        scatter = {n: ms for n, ms in per_kernel.items() if "scatter_gather" in n}
+        print(f"{tag}: eager forward {busy:.3f} ms of kernels in {n_kernels:.0f} launches "
+              f"(torch.profiler); torch's scatter/gather kernels (segment_max's "
+              f"scatter_reduce, and HEAT's per-type select) {sum(scatter.values()):.4f} ms "
+              f"({sum(scatter.values()) / busy:.1%}) in "
+              + "; ".join(f"{n.split('(')[0][:80]} {ms:.4f} ms" for n, ms in scatter.items()))
+        # segment_softmax's pieces at each attention tower's graph, H = 2
+        pieces_ms, calls = {}, 0
+        for side, g in (("protein", on_card.protein), ("molecule", on_card.molecule)):
+            base = kw[f"{side}_gnn_kwargs"]["base_conv"]
+            if base not in ("gatv2", "heat"):
+                continue
+            n_convs = kw[f"{side}_gnn_kwargs"]["num_convs"]
+            calls += n_convs
+            dst, mask, n = g.edge_dst, g.edge_mask, g.n_pad
+            logits = torch.randn(g.batch_size, g.e_pad, 2, device=cuda)
+            m = segment.segment_max(logits, dst, mask, n)
+            m_e = segment.gather_nodes(m, dst)
+            exp = torch.where(mask[..., None], torch.exp(logits - m_e), 0.0)
+            denom = segment.segment_sum(exp, dst, mask, n)
+            den_e = segment.gather_nodes(denom, dst)
+            for piece, fn in (
+                    ("segment_max (scatter_reduce)",
+                     lambda: segment.segment_max(logits, dst, mask, n)),
+                    ("gather max (K2)", lambda: segment.gather_nodes(m, dst)),
+                    ("exp and mask", lambda: torch.where(mask[..., None],
+                                                         torch.exp(logits - m_e), 0.0)),
+                    ("denominators (K1)", lambda: segment.segment_sum(exp, dst, mask, n)),
+                    ("gather denominators (K2)", lambda: segment.gather_nodes(denom, dst)),
+                    ("divide", lambda: exp / torch.clamp(den_e, min=1e-16))):
+                before = launch_counts.snapshot()
+                pieces_ms[piece] = pieces_ms.get(piece, 0.0) + n_convs * graph_time_ms(torch, fn)
+                launch_counts.add(launch_counts.since(before), -1)   # timing, not the path
+        total = sum(pieces_ms.values())
+        print(f"{tag}: segment_softmax ({calls} calls a forward) timed alone at the same "
+              f"shapes (CUDA graphs): {total:.4f} ms a forward, {total / busy:.1%} of the eager "
+              f"forward's kernel time: " + "; ".join(
+                  f"{p} {ms:.4f} ms ({ms / busy:.1%})" for p, ms in pieces_ms.items()))
+
+    def store_for(scalar):
+        pairs = synthetic_pair_dataset(ZOO_PAIRS, 24, 16, [(400, 500)], (20, 64), seed=1,
+                                       scalar_protein=scalar)
+        store = DeviceResidentLoader(BucketedLoader(
+            pairs, None, max_num=dataset_budgets("davis")[0], max_batch_size=FLAGSHIP["b"],
+            seed=0, molecule_node_ladder=(FLAGSHIP["n_m"],)), device="cuda")
+        (mega, _), = store.iter_megabatches()
+        if (mega.bucket[0], mega.bucket[2]) != flagship or mega.n_steps < 3:
+            raise AssertionError(f"the zoo store should fill the flagship bucket with "
+                                 f"{ZOO_PAIRS} pairs: {mega.bucket}, {mega.n_steps} batches")
+        return mega
+
+    def train(tag, kw, mega, remat: bool = False):
+        """ZOO_PASSES passes over ``mega``, eager against the graph path
+        (and, with ``remat``, both again under remat_message)."""
+        cfg = dict(compute_dtype="bfloat16", optimizer="adam", lr=1e-4, seed=0)
+        k = mega.n_steps
+        lrs = np.linspace(1e-4, 5e-5, k, dtype=np.float32)
+        kinds = (False, True) if remat else (False,)
+        trainers = {(r, path): Trainer(build_model(kw), TrainConfig(**cfg), device="cuda")
+                    for r in kinds for path in ("eager", "graph")}
+        peak = {}
+        for n in range(ZOO_PASSES):
+            ref = None
+            for r in kinds:
+                eager, graph = trainers[(r, "eager")], trainers[(r, "graph")]
+                with gvp.remat_message(r):
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    launch_counts.reset()
+                    want = [eager.train_step(mega.batch(j), float(lrs[j])) for j in range(k)]
+                    torch.cuda.synchronize()
+                    peak[r] = (torch.cuda.max_memory_allocated() - base, base)
+                    eager_l = launched()
+                    launch_counts.reset()
+                    losses, preds = graph.train_megabatch(mega, lrs)
+                    torch.cuda.synchronize()
+                    graph_l = launched()
+                w_losses = torch.stack([w[0] for w in want])
+                w_preds = torch.stack([w[1] for w in want])
+                what = f"{tag}{' under remat' if r else ''} pass {n}"
+                if not (torch.equal(losses, w_losses) and torch.equal(preds, w_preds)):
+                    raise AssertionError(f"{what}: the graph path's losses or predictions are "
+                                         "not the eager steps' bits")
+                if graph_l != eager_l:
+                    raise AssertionError(f"{what}: launches graph path {graph_l}, eager "
+                                         f"{eager_l}")
+                if ref is None:
+                    ref = (w_losses, w_preds)
+                elif not (torch.equal(ref[0], w_losses) and torch.equal(ref[1], w_preds)):
+                    raise AssertionError(f"{what}: not the bits of the steps without remat")
+                for name, v in graph_l.items():
+                    train_launches[name] = train_launches.get(name, 0) + v
+                check_path(what, graph_l, must + (cs.K3,))
+                print(f"{what}: {k} bf16 Adam steps, losses "
+                      f"{[round(x, 6) for x in losses.tolist()]}; the graph path "
+                      f"({'warm-up, capture, replays' if n == 0 else 'replays'}) bit for bit "
+                      f"the eager steps; launches per step "
+                      f"{ {name: v // k for name, v in graph_l.items()} }")
+        params = [t.params for t in trainers.values()]
+        if not all(all(torch.equal(a, b) for a, b in zip(params[0], p)) for p in params[1:]):
+            raise AssertionError(f"{tag}: parameters differ between the eager and graph "
+                                 f"trainers{' and under remat' if remat else ''}")
+        print(f"{tag}: all {len(params[0])} parameters bit for bit across "
+              f"{len(trainers)} trainers after {ZOO_PASSES * k} steps")
+        graph = trainers[(False, "graph")]
+        captured = graph.captured_step("train", mega)
+        packed = upload(graphs.pack_rows(mega.p_rows, mega.m_rows, mega.target, mega.weight,
+                                         lr=lrs, div=np.ones(k, np.float32)), cuda)
+        turn = iter(range(1 << 30))
+        steps = event_times_ms(torch, lambda: captured.run(packed[next(turn) % k]))
+        print(f"{tag}: replayed step {mega.bucket} B={mega.p_rows.shape[1]} bf16 Adam "
+              f"{spread(steps)} over {len(steps)} steps (CUDA events around the row copy and "
+              f"the replay)")
+        if remat:
+            mib = {r: (p / 2 ** 20, b / 2 ** 20) for r, (p, b) in peak.items()}
+            print(f"{tag}: peak memory of the last pass's {k} eager steps "
+                  f"(torch.cuda.max_memory_allocated above the {mib[False][1]:.1f} MiB "
+                  f"allocated before): without remat {mib[False][0]:.1f} MiB, under "
+                  f"remat_message {mib[True][0]:.1f} MiB")
+
+    configs = zoo_configs()
+    for name, kw in configs.items():
+        scalar = isinstance(kw["protein_gnn_kwargs"]["in_channels"], int)
+        reqs = [synthetic_pair_batch(**FLAGSHIP, seed=100 + i, scalar_protein=scalar)
+                for i in range(ZOO_REQUESTS)]
+        run = serve(name, kw, reqs)
+        device_shares(name, run, reqs[0], kw)
+        mega = store_for(scalar)
+        train(name, kw, mega, remat=name == "zoo-cpd-gatv2")
+        check_step_grads(torch, f"{name} ", lambda dev: build_model(kw).to(dev).eval(), reqs[0],
+                         exact=True)
+
+        if name == "zoo-cpd-gatv2":
+            # the explainer: each bucket and tower's 10-step loop one CUDA graph
+            dataset = synthetic_pair_dataset(ZOO_EXPLAIN_PAIRS, 8, 8, [(100, 300)], (20, 64),
+                                             seed=17)
+            batches = list(BucketedLoader(dataset, max_num=4_000_000, max_batch_size=EVAL_BATCH,
+                                          shuffle=False))
+            runs_ = []
+            for eager in (False, False, True):
+                launch_counts.reset()
+                t0 = time.perf_counter()
+                records = evaluate_batches(run.model, dataset, batches, do_explainer=True,
+                                           eager=eager)
+                torch.cuda.synchronize()
+                runs_.append((records, time.perf_counter() - t0, launched()))
+            (first, s1, l1), (second, s2, l2), (eager_r, s3, l3) = runs_
+            if not (records_equal(first, eager_r) and records_equal(second, eager_r)):
+                raise AssertionError(f"{name} explainer: replayed records are not the eager "
+                                     "ones bit for bit")
+            if not l1 == l2 == l3:
+                raise AssertionError(f"{name} explainer: launches {l1}, {l2}, {l3}")
+            check_path(f"{name} explainer", l2, must + (cs.K3,))
+            print(f"{name} explainer: run_model_on_dataset over {ZOO_EXPLAIN_PAIRS} pairs in "
+                  f"{len(batches)} batches, replayed bit for bit the eager run; {s1:.3f} s "
+                  f"with captures, {s2:.3f} s replayed, {s3:.3f} s eager; launches a run {l2}")
+            cpu_run = runs(kw)[1]
+            cpu_records = cpu_reference(torch, lambda: evaluate_batches(
+                cpu_run.model, dataset, batches[:1], do_explainer=True), f"{name} explainer")
+            check_records(f"{name} explainer", first, cpu_records, "the first batch")
+
+    # batch norm: served (running statistics of the init, as JAX loads
+    # them), never trained
+    kw = configs["zoo-gatv2-gine"]
+    kw = {**kw, "joint_gnn_kwargs": {**kw["joint_gnn_kwargs"], "out_lin_norm_type": "batch"}}
+    reqs = [synthetic_pair_batch(**FLAGSHIP, seed=100 + i, scalar_protein=True)
+            for i in range(ZOO_REQUESTS)]
+    serve("zoo-gatv2-gine batch norm", kw, reqs)
+    try:
+        Trainer(build_model(kw), TrainConfig(), device="cuda")
+    except NotImplementedError as e:
+        print(f"zoo-gatv2-gine batch norm: the Trainer refuses it: {e}")
+    else:
+        raise AssertionError("the Trainer took a model with MaskedBatchNorm")
+
+
 def evaluate_phase(torch, run, run_cpu, eval_launches: dict) -> None:
     """run_model_on_dataset (caster_dta_torch/inference/evaluation.py) on the
     card with ``run``'s weights over EVAL_PAIRS seeded synthetic pairs, on
@@ -919,45 +1412,8 @@ def evaluate_phase(torch, run, run_cpu, eval_launches: dict) -> None:
             cpu = cpu_reference(torch, lambda: evaluate_batches(
                 run_cpu.model, dataset, batches[:EVAL_CPU_BATCHES], do_explainer=explain),
                 f"evaluate {path}")
-            where = {p: i for i, p in enumerate(first["pair_idx"])}
-            kinds = {"affinity_score": AFFINITY_ATOL}
-            kinds.update({k: ATTENTION_ATOL for k in (
-                "protein_attention", "molecule_attention", "max_protein_attention",
-                "max_molecule_attention", "prot_mol_attention", "mol_prot_attention")})
-            kinds.update({k: EXPLAIN_ATOL for k in (
-                "protein_explanation", "molecule_explanation", "protein_edge_explanation",
-                "molecule_edge_explanation")})
-            worst = {k: (0.0, None) for k in kinds}     # column -> (max |d|, where)
-            over = {k: 0 for k in kinds}                 # entries beyond the tolerance
-            for j, p in enumerate(cpu["pair_idx"]):
-                i = where[p]
-                for k, tol in kinds.items():
-                    got, want = first[k][i], cpu[k][j]
-                    if (got is None) != (want is None):
-                        raise AssertionError(f"evaluate {path} pair {p} {k}: None on one "
-                                             "device only")
-                    if got is None:
-                        continue
-                    got, want = np.atleast_1d(got), np.atleast_1d(want)
-                    if got.shape != want.shape:
-                        raise AssertionError(f"evaluate {path} pair {p} {k}: shape "
-                                             f"{got.shape} against {want.shape}")
-                    d = np.abs(got - want)
-                    over[k] += int((d > tol).sum())
-                    if d.size and d.max() > worst[k][0]:
-                        at = int(d.argmax())
-                        worst[k] = (float(d.max()), f"pair {p} entry {at}: card "
-                                                    f"{got.flat[at]:.8g}, CPU {want.flat[at]:.8g}")
-            print(f"evaluate {path}: card vs CPU over the first {EVAL_CPU_BATCHES} batches "
-                  f"({n_cpu} pairs), max|d| by column (tolerance; entries beyond it; where "
-                  f"the largest is):")
-            for k, tol in kinds.items():
-                if worst[k][1] is not None:
-                    print(f"  {k}: {worst[k][0]:.3e} ({tol}; {over[k]}; {worst[k][1]})")
-            beyond = {k: n for k, n in over.items() if n}
-            if beyond:
-                raise AssertionError(f"evaluate {path}: card vs CPU beyond tolerance in "
-                                     f"{beyond}")
+            check_records(f"evaluate {path}", first, cpu,
+                          f"the first {EVAL_CPU_BATCHES} batches ({n_cpu} pairs)")
         for r in (run, run_cpu):
             set_use_pallas(r.model, False)
 
@@ -1024,6 +1480,10 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    # the zoo's kernel cases draw from their own stream, so every other
+    # case's inputs stay as they were before them
+    zoo_gen = torch.Generator(device="cuda")
+    zoo_gen.manual_seed(17)
     requests = [(f"flagship #{i}", synthetic_pair_batch(**FLAGSHIP, seed=i))
                 for i in range(N_REQUESTS_FLAGSHIP)]
     requests.append(("davis", synthetic_pair_batch(**DAVIS, seed=N_REQUESTS_FLAGSHIP)))
@@ -1081,6 +1541,9 @@ def main() -> int:
     with phase("kernels"), torch.no_grad():
         for label, batch in (requests[0], requests[-1]):
             cases = kernel_cases(torch, batch, gen)
+            if batch is requests[0][1]:    # and at the zoo's row widths
+                for k, more in zoo_kernel_cases(torch, batch, zoo_gen).items():
+                    cases.setdefault(k, []).extend(more)
             for name, table, idx in cases["K2"]:
                 for dtype in (torch.float32, torch.bfloat16):
                     t = table.to(dtype)
@@ -1510,6 +1973,8 @@ def main() -> int:
         for label, batch in (requests[0], requests[-1], large):
             for name, rows, ids, n in k3_cases(torch, batch, gen):
                 check_k3(f"{label} {name}", rows, ids, n)
+        for name, rows, ids, n in zoo_kernel_cases(torch, requests[0][1], zoo_gen)["K3"]:
+            check_k3(f"{requests[0][0]} {name}", rows, ids, n)
         for name, rows, ids, n in k3_edge_cases(torch, gen):
             check_k3(f"edge case {name}", rows, ids, n)
         print(f"K3 max_abs_err {max_err['K3']:.3e} against the plain version on the CPU "
@@ -1606,37 +2071,6 @@ def main() -> int:
                         "device idle": 1 - busy / step_ms})
         return out
 
-    def check_step_grads(tag: str) -> None:
-        """One f32 step's gradients, card vs CPU, same weights and batch,
-        dropout off (the two devices' generators differ)."""
-        def step_grads(dev):
-            m = load_run(RUN_DIR, device=dev).model          # eval mode: no dropout
-            params = dict(m.named_parameters())
-            loss, _ = Trainer(m, TrainConfig(), device=dev).loss(batch.to(dev))
-            return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-
-        grads = {"cuda": step_grads("cuda"),
-                 "cpu": cpu_reference(torch, lambda: step_grads("cpu"),
-                                      f"{tag}f32 step gradients")}
-        top = max(g.abs().max().item() for g in grads["cpu"].values())
-        worst, noise = 0.0, []
-        for name, g_cpu in grads["cpu"].items():
-            d = (grads["cuda"][name].cpu() - g_cpu).abs().max().item()
-            scale = g_cpu.abs().max().item()
-            if d > STEP_GRAD_RTOL * scale + STEP_GRAD_ATOL * top:
-                raise AssertionError(f"{tag}f32 gradient of {name}: card vs CPU max|d| {d:.3e} "
-                                     f"> {STEP_GRAD_RTOL} x max|g| {scale:.3e} + "
-                                     f"{STEP_GRAD_ATOL} x {top:.3e}")
-            if d > STEP_GRAD_RTOL * scale:
-                noise.append(f"{name} (max|g| {scale:.2e}, max|d| {d:.2e})")
-            else:
-                worst = max(worst, d / scale if scale else 0.0)
-        print(f"{tag}f32 step gradients, card vs CPU (TF32 off, dropout off): "
-              f"{len(grads['cpu'])} parameters; largest entry {top:.4e}; worst max|d grad| / "
-              f"max|grad| {worst:.3e} (limit {STEP_GRAD_RTOL}) over "
-              f"{len(grads['cpu']) - len(noise)}; held by the absolute term "
-              f"({STEP_GRAD_ATOL} x {top:.3e}): {noise or 'none'}")
-
     with phase("train"):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -1647,7 +2081,7 @@ def main() -> int:
         per_step = {cs.K1: n_p + n_m, cs.K2: 2 * (n_p + n_m), cs.K3: n_p + n_m - 1,
                     cs.K7: 0, cs.K8: 0, cgm.K5F: 0, cgm.K5B: 0, cgm.K6: 0, ca.K4: 0}
         unfused_train = train_path("", per_step, TRAIN_STEPS)
-        check_step_grads("")
+        check_step_grads(torch, "", lambda dev: load_run(RUN_DIR, device=dev).model, batch)
 
     with phase("train-fused"):
         # each GVP conv: K6 pins the node table and K5 fwd runs the message
@@ -1655,7 +2089,8 @@ def main() -> int:
         per_step_fused = {**per_step, cgm.K5F: n_p, cgm.K5B: n_p, cgm.K6: 2 * n_p}
         with gvp.fused_message():
             fused_train = train_path("fused ", per_step_fused, TRAIN_STEPS_FUSED, fused=True)
-            check_step_grads("fused ")
+            check_step_grads(torch, "fused ", lambda dev: load_run(RUN_DIR, device=dev).model,
+                             batch)
         print("train step, fused vs unfused message path: " + "; ".join(
             f"{k} {fused_train[k]} vs {unfused_train[k]}" for k in unfused_train))
 
@@ -1864,6 +2299,10 @@ def main() -> int:
     with phase("cli"):
         cli_phase(torch, train_launches)
 
+    with phase("zoo"):
+        zoo_phase(torch, train_launches)
+        print(f"launches over the evaluate, training and zoo phases: {train_launches}")
+
     with phase("times"), torch.no_grad():
         rows, module_ms, extra = {}, {}, {}
 
@@ -1928,6 +2367,9 @@ def main() -> int:
 
         for label, batch in (requests[0], requests[-1]):
             cases = kernel_cases(torch, batch, gen)
+            if batch is requests[0][1]:    # and at the zoo's row widths
+                for k, more in zoo_kernel_cases(torch, batch, zoo_gen).items():
+                    cases.setdefault(k, []).extend(more)
             for name, table, idx in cases["K2"]:
                 b, n, f = table.shape
                 e = idx.shape[1]
@@ -1943,7 +2385,7 @@ def main() -> int:
                 rows[("K2", label, name)] = (ms, plain, lib, nbytes, 0, F32_OPS_PER_S)
             for name, msgs, dst, mask, n in cases["K1"]:
                 time_k1(label, name, msgs, dst, mask, n)
-            for name, r32, ids, n in k3_cases(torch, batch, gen):
+            for name, r32, ids, n in k3_cases(torch, batch, gen) + cases.get("K3", []):
                 time_k3(label, name, r32, ids, n)
             # K5 at the served model's message widths with the trained
             # weights; its reference point is the device time of the port's

@@ -2,9 +2,9 @@
 scatter-add), K4 (blockwise masked attention), K5 (fused GVP message MLP,
 forward and backward), K6 (copy-cast), K7 (windowed row gather) and K8
 (row-major segment-sum) of caster_dta_torch against their plain PyTorch
-versions, and
-the autograd Functions built on them against the same Functions on the CPU,
-on the card.
+versions (K1, K2 and K3 also at the model zoo's row widths), and
+the autograd Functions built on them, segment_max and segment_softmax against
+the same functions on the CPU, on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one. This file imports neither JAX nor the JAX package, so it runs on
@@ -110,6 +110,53 @@ def test_k1_equals_the_cpu_bit_for_bit(cuda, dtype, case, f):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert torch.equal(got, want)
     assert cs.LAUNCHES[cs.K1] == before + (1 if got.numel() else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 2, 21, 32, 128])
+def test_k1_k2_k3_at_the_zoo_widths(cuda, dtype, f):
+    """The model zoo's row widths on a flagship protein graph: 1 (in-degrees),
+    2 (segment_softmax's per-head max and denominators), 21 (CPD's type
+    one-hot, gathered by src), 2 x 16 and 2 x 64 (GATv2's per-head rows). K1
+    and K3 bit for bit their plain versions on the CPU, K2 bit-exact."""
+    p = synthetic_pair_batch(32, 512, 4096, 64, 256, seed=0).protein
+    gen = torch.Generator().manual_seed(f)
+    n, e = p.n_pad, p.e_pad
+    table = torch.randn(32, n, f, generator=gen).to(dtype)
+    idx = p.edge_src if f == 21 else p.edge_dst
+    assert torch.equal(cs.gather_rows(table.to(cuda), idx.to(cuda)).cpu(),
+                       cs.gather_rows_plain(table, idx))
+    msgs = torch.randn(32, e, f, generator=gen).to(dtype)
+    got = cs.segment_sum_sorted(msgs.to(cuda), p.edge_dst.to(cuda), p.edge_mask.to(cuda), n)
+    assert torch.equal(got.cpu(), cs.segment_sum_sorted_plain(msgs, p.edge_dst, p.edge_mask, n))
+    _k3_against_plain(msgs, p.edge_dst, n, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_max_and_softmax_match_the_cpu(cuda, dtype):
+    """segment_max (scatter_reduce) and segment_softmax (K1, K2; K3 in the
+    backward) on the card against the CPU at a flagship protein graph, H = 2:
+    values and gradients within 1e-5 in f32 (sums in another order), one
+    bf16 ulp in bf16; segment_max's values exactly."""
+    p = synthetic_pair_batch(32, 512, 4096, 64, 256, seed=0).protein
+    gen = torch.Generator().manual_seed(5)
+    logits = (torch.randn(32, p.e_pad, 2, generator=gen) * 3).to(dtype)
+    weight = torch.randn(32, p.e_pad, 2, generator=gen)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2 ** -7,
+                                                                          atol=2 ** -7)
+
+    def run(dev):
+        x = logits.to(dev).requires_grad_()
+        args = (p.edge_dst.to(dev), p.edge_mask.to(dev), p.n_pad)
+        m = segment.segment_max(x, *args)
+        w = segment.segment_softmax(x, *args)
+        loss = (w.float() * weight.to(dev)).sum() + m.float().sum()
+        return [t.detach().cpu().float() for t in (m, w, *torch.autograd.grad(loss, x))]
+
+    card, cpu = run(cuda), run("cpu")
+    assert torch.equal(card[0], cpu[0])
+    for got, want in zip(card[1:], cpu[1:]):
+        torch.testing.assert_close(got, want, **tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

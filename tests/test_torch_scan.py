@@ -246,8 +246,8 @@ def test_step_rows_round_trip_with_aligned_fields():
 
 def test_graph_key_names_the_model_path(dataset):
     """A captured step runs the path the model took at capture, so its key
-    changes with the fused message switch and with any attention module's
-    ``use_pallas``."""
+    changes with the fused message and remat switches and with any attention
+    module's ``use_pallas``."""
     mega, _ = next(_stores(dataset, None, **MULTI)[0].iter_megabatches())
     model = _port_model()
     tt = Trainer(model, TrainConfig(), device="cpu")
@@ -255,12 +255,14 @@ def test_graph_key_names_the_model_path(dataset):
     assert tt._graph_key("train", mega) == plain and tt._graph_key("eval", mega) != plain
     with tgvp.fused_message():
         fused = tt._graph_key("train", mega)
+    with tgvp.remat_message():
+        remat = tt._graph_key("train", mega)
     attention = [m for m in model.modules() if hasattr(m, "use_pallas")]
     assert attention
     attention[0].use_pallas = True
     blockwise = tt._graph_key("train", mega)
     attention[0].use_pallas = False
-    assert len({plain, fused, blockwise}) == 3 and tt._graph_key("train", mega) == plain
+    assert len({plain, fused, remat, blockwise}) == 4 and tt._graph_key("train", mega) == plain
 
 
 @pytest.mark.parametrize("name", ["sgd", "sgd_nomomentum"])

@@ -128,9 +128,13 @@ def test_segment_sum_casts_back_to_message_dtype(rng):
 
 
 def test_aggregate_max_not_ported(rng):
+    """aggregate('max') is segment_max now (held against JAX in
+    tests/test_torch_zoo_ops.py); an unknown mode raises."""
     msgs, dst, mask = _padded_case(rng, 1, 8, 6, 8, 2)
-    with pytest.raises(NotImplementedError):
-        tseg.aggregate(*map(torch.from_numpy, (msgs, dst, mask)), 8, "max")
+    args = tuple(map(torch.from_numpy, (msgs, dst, mask)))
+    assert torch.equal(tseg.aggregate(*args, 8, "max"), tseg.segment_max(*args, 8))
+    with pytest.raises(ValueError):
+        tseg.aggregate(*args, 8, "min")
 
 
 def test_wrappers_refuse_other_devices():

@@ -7,7 +7,9 @@ refuses them (an import raises ImportError), imports every module of
 caster_dta_torch and chip_smoke, serves one tiny batch from runs/davis_seed9
 on the CPU, serves it again with the fused message path switched on
 (``caster_dta_torch.nn.gvp.fused_message``) and with the blockwise attention
-path (``use_pallas`` on both MultiheadAttention modules), runs
+path (``use_pallas`` on both MultiheadAttention modules), builds and serves
+chip_smoke.py's zoo-cpd-gatv2 model (the CPD protein tower, the GATv2
+molecule tower) and reloads it from the checkpoint it writes, runs
 ``run_model_on_dataset`` with the explainer on, takes one bf16 training step
 from those weights and writes a checkpoint that the port reads back, trains
 and evaluates one epoch bucket by bucket over a device-resident store (the
@@ -27,7 +29,7 @@ HIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "networkx", "tr
           "caster_dta_tpu")
 
 SCRIPT = """
-import importlib, importlib.abc, importlib.machinery, pkgutil, sys
+import importlib, importlib.abc, importlib.machinery, json, pkgutil, sys
 HIDDEN = set(%r)
 
 class Refuse(importlib.abc.Loader):
@@ -73,6 +75,24 @@ assert attn_blockwise == (None, None), attn_blockwise
 assert float((aff_blockwise - aff).abs().max()) < 1e-4, (aff_blockwise, aff)
 for m in mhas:
     m.use_pallas = False
+
+import tempfile
+from caster_dta_torch.inference.checkpoint import build_model, load_model_from_checkpoint
+from caster_dta_torch.inference.serve import LoadedRun
+from caster_dta_torch.interop.from_jax import to_jax_params
+from caster_dta_torch.train import checkpoints
+zoo = chip_smoke.zoo_configs()["zoo-cpd-gatv2"]
+zoo_run = LoadedRun(build_model(zoo).eval(), zoo, run.rescale, "", torch.device("cpu"))
+aff_zoo, (z_rd, _) = predict(zoo_run, synthetic_pair_batch(2, 24, 96, 8, 16, seed=0))
+assert aff_zoo.shape == (2,) and bool(torch.isfinite(aff_zoo).all()), aff_zoo
+assert z_rd.shape == (2, 24, 8)
+with tempfile.TemporaryDirectory() as tmp:
+    with open(tmp + "/model_kwargs.json", "w") as f:
+        json.dump(zoo, f)
+    checkpoints.save_params(to_jax_params(zoo_run.model), tmp + "/bestvalmodel_x.msgpack")
+    zoo_back = LoadedRun(load_model_from_checkpoint(tmp, device="cpu")[0], zoo, run.rescale, "",
+                         torch.device("cpu"))
+assert torch.equal(predict(zoo_back, synthetic_pair_batch(2, 24, 96, 8, 16, seed=0))[0], aff_zoo)
 
 from caster_dta_torch.data.batching import synthetic_pair_dataset
 from caster_dta_torch.inference.evaluation import run_model_on_dataset
