@@ -3,8 +3,10 @@
 
 Behavioral spec: reference inference/inference_utils.py:40-90. Reads the same
 JSON artifacts and the flax ``.msgpack`` checkpoints that either package
-writes, with the port's own msgpack reader. The reference's torch ``.pt``
-checkpoints are not read yet.
+writes, with the port's own msgpack reader, and the reference's torch ``.pt``
+state dicts, whose names the port's JointGNN has for the family the JAX
+package's importer takes (an lbamodel protein tower with a gine molecule
+tower, any depth).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 
 from caster_dta_torch.data.pairs import ProteinMoleculeDataset
 from caster_dta_torch.device import resolve_device
-from caster_dta_torch.interop.from_jax import load_jax_params
+from caster_dta_torch.interop.from_jax import load_jax_params, to_jax_params
 from caster_dta_torch.models.joint import JointGNN, make_joint_gnn
 from caster_dta_torch.train import checkpoints
 
@@ -25,7 +27,8 @@ from caster_dta_torch.train import checkpoints
 def load_model_from_checkpoint(check_path: str, best_model_type: str = "val",
                                param_file: str | None = None,
                                device: str | torch.device = "cuda"):
-    """-> (model in eval mode on ``device``, JAX param tree, model_kwargs).
+    """-> (model in eval mode on ``device``, JAX param tree, model_kwargs);
+    for a ``.pt`` file the tree holds the loaded weights in the JAX layout.
 
     ``param_file`` pins an exact checkpoint file (the reference torch.loads
     whatever path it is given, inference_utils.py:40-70); when None the best
@@ -41,14 +44,29 @@ def load_model_from_checkpoint(check_path: str, best_model_type: str = "val",
             if not pt:
                 raise
             param_file = os.path.join(check_path, pt[0])
-    if param_file.endswith(".pt"):
-        raise NotImplementedError(
-            f"{param_file}: the reference's torch .pt checkpoints are not read yet: "
-            "ROADMAP Queue 1 item 5 (what waits)")
-    params = checkpoints.load_params(param_file)
     model = build_model(model_kwargs)
-    load_jax_params(model, params)
+    if param_file.endswith(".pt"):
+        model.load_state_dict(load_reference_state_dict(param_file, model_kwargs), strict=True)
+        params = to_jax_params(model)
+    else:
+        params = checkpoints.load_params(param_file)
+        load_jax_params(model, params)
     return model.to(device).eval(), params, model_kwargs
+
+
+def load_reference_state_dict(path: str, model_kwargs: dict) -> dict:
+    """A reference ``.pt`` state dict (train_model.py:672-682), read on the
+    CPU with ``weights_only``, without torch.compile's ``_orig_mod.``
+    prefixes and the GVPs' ``dummy_param`` entries (inference_utils.py:52-66),
+    for the pairs of towers the JAX package's ``import_joint_gnn`` takes."""
+    pk, mk = model_kwargs["protein_gnn_kwargs"], model_kwargs["molecule_gnn_kwargs"]
+    if pk["base_conv"] != "lbamodel" or mk["base_conv"] != "gine":
+        raise NotImplementedError(
+            "transplant currently supports base_conv lbamodel (protein) + gine "
+            f"(molecule); got {pk['base_conv']}/{mk['base_conv']}")
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k.replace("_orig_mod.", ""): v for k, v in sd.items()
+            if not k.endswith("dummy_param")}
 
 
 def build_model(model_kwargs: dict) -> JointGNN:

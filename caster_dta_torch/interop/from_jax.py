@@ -12,13 +12,23 @@ model's modules (``_Bridge``) serves both directions. The walk dispatches on
 each tower's class.
 
 Names: the LBA tower, GINEConv, the cross-attention and the head take the
-reference state dict's names; GATv2Conv takes PyG's (``lin_l``, ``lin_r``,
-``lin_edge``, ``att`` as [1, H, C], ``bias``), whose leaves map one for one
-onto the JAX module's; every other new module (the PocketMiner and CPD
-towers' blocks, HEATConv, MaskedBatchNorm's ``scale`` as ``weight``) takes
-the JAX names, a Dense's ``kernel`` becoming a transposed ``weight`` and an
-``Embed``'s ``embedding`` an embedding ``weight``. MaskedBatchNorm's running
-statistics are not in either tree (JAX checkpoints hold ``params`` only).
+reference state dict's names; GATv2Conv, GINConv, GATConv and PNAConv take
+PyG's (GATv2's ``lin_l``, ``lin_r``, ``lin_edge``, ``att`` as [1, H, C];
+GAT's ``lin``, ``att_src``, ``att_dst`` as [1, H, C]; PNA's
+``edge_encoder``, ``pre_nns.{t}.0``, ``post_nns.{t}.0``, ``lin``), whose
+leaves map one for one onto the JAX module's; GRUCell takes torch's
+(``weight_ih`` and ``bias_ih`` from the JAX Dense ``weight_ih``, the same
+for ``hh``); GATEConv takes PyG's where PyG has the piece (``att_l`` and
+``att_r`` as [1, C]) and JAX's ``lin_dst``; every other new module (the
+PocketMiner and CPD towers' blocks, HEATConv, the GPS layers' pieces,
+AttentiveFP's ``lin1`` and ``lin2``, MaskedBatchNorm's ``scale`` as
+``weight``) takes the JAX names, a Dense's ``kernel`` becoming a transposed
+``weight`` and an ``Embed``'s ``embedding`` an embedding ``weight``.
+MaskedBatchNorm's running statistics (the ``pe_norm`` of GPS, the head's
+batch norm) are in neither tree: JAX checkpoints hold ``params`` only, and
+both packages serve a loaded model with the init's statistics (mean 0,
+variance 1). A GIN or GINE conv with a fixed eps keeps a zero buffer in the
+state dict, as PyG's does, and has no leaf in the JAX tree.
 """
 from __future__ import annotations
 
@@ -27,7 +37,7 @@ import torch
 
 from caster_dta_torch.models import protein as protein_towers
 from caster_dta_torch.models.joint import JointGNN
-from caster_dta_torch.models.molecule import HomoMoleculeGNN_GINE
+from caster_dta_torch.models import molecule as molecule_towers
 from caster_dta_torch.models.scalar_gnns import GATv2GNN, HEATGNN
 
 
@@ -88,14 +98,57 @@ class _Bridge:
         for j in range(n_ff):
             self.gvp(f"{prefix}.ff_func.{j}", self.sub(p, f"ff_{j}"))
 
-    def gine_conv(self, prefix: str, p: dict) -> None:
-        def one(a):
-            return a.reshape(1)
-        self.leaf(f"{prefix}.eps", p, "eps", one, one)
+    def gin_eps(self, prefix: str, p: dict, conv) -> None:
+        """A trained eps is a leaf; a fixed one is a zero buffer here and
+        nothing there."""
+        key = f"{prefix}.eps"
+        if isinstance(conv.eps, torch.nn.Parameter):
+            self.leaf(key, p, "eps", lambda a: a.reshape(1), lambda a: a.reshape(1))
+        elif self.to_torch:
+            self.sd[key] = np.zeros(1, np.float32)
+        elif key in self.sd and np.any(self.sd[key]):   # optimizer moments have no buffer
+            raise ValueError(f"{key}: a fixed eps is 0 in the JAX package")
+
+    def gin_mlp(self, prefix: str, p: dict) -> None:
+        self.linear(f"{prefix}.lins.0", self.sub(p, "lin0"))
+        self.linear(f"{prefix}.lins.1", self.sub(p, "lin1"))
+
+    def gine_conv(self, prefix: str, p: dict, conv) -> None:
+        self.gin_eps(prefix, p, conv)
         self.linear(f"{prefix}.lin", self.sub(p, "edge_lin"))
-        mlp = self.sub(p, "mlp")
-        self.linear(f"{prefix}.nn.lins.0", self.sub(mlp, "lin0"))
-        self.linear(f"{prefix}.nn.lins.1", self.sub(mlp, "lin1"))
+        self.gin_mlp(f"{prefix}.nn", self.sub(p, "mlp"))
+
+    def gin_conv(self, prefix: str, p: dict, conv) -> None:
+        self.gin_eps(prefix, p, conv)
+        self.gin_mlp(f"{prefix}.nn", self.sub(p, "mlp"))
+
+    def gat_conv(self, prefix: str, p: dict) -> None:
+        self.linear(f"{prefix}.lin", self.sub(p, "lin"))
+        # flax's [1, 1, H, C] against PyG's [1, H, C]
+        for name in ("att_src", "att_dst"):
+            self.leaf(f"{prefix}.{name}", p, name, lambda a: a[0], lambda a: a[None])
+        self.leaf(f"{prefix}.bias", p, "bias")
+
+    def gate_conv(self, prefix: str, p: dict) -> None:
+        for name in ("lin1", "lin_dst", "lin2"):
+            self.linear(f"{prefix}.{name}", self.sub(p, name))
+        # flax's [1, 1, C] against PyG's [1, C]
+        for name in ("att_l", "att_r"):
+            self.leaf(f"{prefix}.{name}", p, name, lambda a: a[0], lambda a: a[None])
+        self.leaf(f"{prefix}.bias", p, "bias")
+
+    def gru_cell(self, prefix: str, p: dict) -> None:
+        for part in ("ih", "hh"):
+            dense = self.sub(p, f"weight_{part}")
+            self.leaf(f"{prefix}.weight_{part}", dense, "kernel", np.transpose, np.transpose)
+            self.leaf(f"{prefix}.bias_{part}", dense, "bias")
+
+    def pna_conv(self, prefix: str, p: dict, conv) -> None:
+        self.linear(f"{prefix}.edge_encoder", self.sub(p, "edge_encoder"))
+        for t in range(len(conv.pre_nns)):
+            self.linear(f"{prefix}.pre_nns.{t}.0", self.sub(p, f"pre_nn_{t}"))
+            self.linear(f"{prefix}.post_nns.{t}.0", self.sub(p, f"post_nn_{t}"))
+        self.linear(f"{prefix}.lin", self.sub(p, "lin"))
 
     def type_embedding(self, prefix: str, tower: dict, name: str) -> None:
         key = f"{prefix}.{name}.weight"
@@ -190,8 +243,46 @@ class _Bridge:
             self.heat_conv(f"{prefix}.conv_list.{i}", self.sub(p, f"conv_{i}"))
 
     def gine_tower(self, prefix: str, p: dict, tower) -> None:
-        for i in range(len(tower.conv_list)):
-            self.gine_conv(f"{prefix}.conv_list.{i}", self.sub(p, f"conv_{i}"))
+        for i, conv in enumerate(tower.conv_list):
+            self.gine_conv(f"{prefix}.conv_list.{i}", self.sub(p, f"conv_{i}"), conv)
+        self.type_embedding(prefix, p, "ntype_embedding")
+        self.type_embedding(prefix, p, "etype_embedding")
+
+    def gin_tower(self, prefix: str, p: dict, tower) -> None:
+        for i, conv in enumerate(tower.conv_list):
+            self.gin_conv(f"{prefix}.conv_list.{i}", self.sub(p, f"conv_{i}"), conv)
+        self.type_embedding(prefix, p, "ntype_embedding")
+        self.type_embedding(prefix, p, "etype_embedding")
+
+    def attentivefp_tower(self, prefix: str, p: dict, tower) -> None:
+        self.linear(f"{prefix}.lin1", self.sub(p, "lin1"))
+        self.gate_conv(f"{prefix}.conv_list.0", self.sub(p, "conv_0"))
+        for i in range(1, len(tower.conv_list)):
+            self.gat_conv(f"{prefix}.conv_list.{i}", self.sub(p, f"conv_{i}"))
+        for i in range(len(tower.gru_list)):
+            self.gru_cell(f"{prefix}.gru_list.{i}", self.sub(p, f"gru_{i}"))
+        self.linear(f"{prefix}.lin2", self.sub(p, "lin2"))
+        self.type_embedding(prefix, p, "ntype_embedding")
+        self.type_embedding(prefix, p, "etype_embedding")
+
+    def gps_tower(self, prefix: str, p: dict, tower) -> None:
+        self.layernorm(f"{prefix}.pe_norm", self.sub(p, "pe_norm"))
+        self.linear(f"{prefix}.pe_lin", self.sub(p, "pe_lin"))
+        for i, layer in enumerate(tower.layers):
+            pl = f"{prefix}.layers.{i}"
+            self.gine_conv(f"{pl}.local", self.sub(p, f"conv_{i}_local"), layer.local)
+            for j in (1, 2, 3):
+                self.layernorm(f"{pl}.norm{j}", self.sub(p, f"conv_{i}_norm{j}"))
+            if layer.attn_in is not None:
+                self.linear(f"{pl}.attn_in", self.sub(p, f"conv_{i}_attn_in"))
+            self.mha(f"{pl}.attn", self.sub(p, f"conv_{i}_attn"), layer.attn.packed)
+            self.gin_mlp(f"{pl}.ff", self.sub(p, f"conv_{i}_ff"))
+        self.type_embedding(prefix, p, "ntype_embedding")
+        self.type_embedding(prefix, p, "etype_embedding")
+
+    def pna_tower(self, prefix: str, p: dict, tower) -> None:
+        for i, conv in enumerate(tower.conv_list):
+            self.pna_conv(f"{prefix}.conv_list.{i}", self.sub(p, f"conv_{i}"), conv)
         self.type_embedding(prefix, p, "ntype_embedding")
         self.type_embedding(prefix, p, "etype_embedding")
 
@@ -201,7 +292,11 @@ class _Bridge:
                 protein_towers.VectorProteinGNN_PocketMiner: self.pocketminer_tower,
                 protein_towers.VectorProteinGNN_CPDModel: self.cpd_tower,
                 GATv2GNN: self.gatv2_tower, HEATGNN: self.heat_tower,
-                HomoMoleculeGNN_GINE: self.gine_tower}
+                molecule_towers.HomoMoleculeGNN_GINE: self.gine_tower,
+                molecule_towers.HomoMoleculeGNN_GIN: self.gin_tower,
+                molecule_towers.HomoMoleculeGNN_AttentiveFP: self.attentivefp_tower,
+                molecule_towers.HomoMoleculeGNN_GPS: self.gps_tower,
+                molecule_towers.HomoMoleculeGNN_PNA: self.pna_tower}
         if type(tower) not in walk:
             raise NotImplementedError(f"no weight mapping for the tower {type(tower).__name__}")
         walk[type(tower)](prefix, p, tower)

@@ -184,13 +184,15 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, config: TrainConfig,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
-        if any(isinstance(m, MaskedBatchNorm) for m in model.modules()):
+        norms = [name for name, m in model.named_modules() if isinstance(m, MaskedBatchNorm)]
+        if norms:
             # the JAX Trainer applies the model with its batch_stats but not
             # as mutable, so its first train step raises on such a model
             raise NotImplementedError(
-                "training a model with MaskedBatchNorm (out_lin_norm_type='batch'): the JAX "
-                "package's Trainer cannot take a step on it either (its batch_stats are "
-                "not mutable in the step); serve such a model instead")
+                f"training a model with MaskedBatchNorm ({', '.join(norms)}: GPS's pe_norm or "
+                "out_lin_norm_type='batch'): the JAX package's Trainer cannot take a step on "
+                "it either (its batch_stats are not mutable in the step); serve such a model "
+                "instead")
         self.config = config
         self.model = model.to(self.device)
         self.dtype = _COMPUTE_DTYPES[config.compute_dtype]

@@ -206,12 +206,87 @@ def test_train_config_refusals_and_defaults():
     TrainConfig(n_dp=1, gp=1, resume=True, save_state_every=0)
 
 
-def test_reference_pt_checkpoints_refused(tmp_path):
+def _reference_run(tmp_path, keys=lambda k: k, molecule=None):
+    """A run folder with runs/davis_seed9's model_kwargs.json (its molecule
+    tower swapped for ``molecule``) and the seeded random state dict of the
+    reference-named TorchJointGNN (tests/ref_torch_exec.py) saved with
+    torch.save under ``keys(name)`` -> (mirror, kwargs, .pt path)."""
+    from tests.ref_torch_exec import TorchJointGNN
+
     with open(os.path.join(REPO, "runs", "davis_seed9", "model_kwargs.json")) as f:
-        (tmp_path / "model_kwargs.json").write_text(f.read())
-    (tmp_path / "bestmodel_davis.pt").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+        kwargs = json.load(f)
+    torch.manual_seed(11)
+    mirror = TorchJointGNN(kwargs["protein_gnn_kwargs"], kwargs["molecule_gnn_kwargs"],
+                           **kwargs["joint_gnn_kwargs"]).eval()
+    with torch.no_grad():   # a non-zero eps, as a trained model has
+        for conv in mirror.molecule_gnn.gnn_model.conv_list:
+            conv.eps.fill_(0.25)
+    if molecule is not None:
+        kwargs["molecule_gnn_kwargs"]["base_conv"] = molecule
+    (tmp_path / "model_kwargs.json").write_text(json.dumps(kwargs))
+    path = tmp_path / "bestmodel_davis.pt"
+    torch.save({keys(k): v for k, v in mirror.state_dict().items()}, path)
+    return mirror, kwargs, str(path)
+
+
+def _reference_pairs():
+    """tests/test_golden_parity.py's probe pairs, atom types below the run's
+    10 (the mirror one-hot encodes them)."""
+    from tests.test_golden_parity import _random_pair_graphs
+
+    pairs = _random_pair_graphs(np.random.default_rng(7))
+    for p in pairs:
+        p["m_ntype"] = np.minimum(p["m_ntype"], 9)
+    return pairs
+
+
+def test_reference_pt_checkpoints_refused(tmp_path):
+    """A .pt run whose towers the JAX package's importer does not take (here
+    GIN for molecules) is refused by both packages, with JAX's words."""
+    _, _, path = _reference_run(tmp_path, molecule="gin")
+    with pytest.raises(NotImplementedError, match="lbamodel .protein. . gine .molecule.; got "
+                                                  "lbamodel/gin"):
         t_ckpt.load_model_from_checkpoint(str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="got lbamodel/gin"):
+        jax_load_model(str(tmp_path), param_file=path)
+
+
+def test_reference_pt_checkpoint_serves_as_jax_and_the_reference(tmp_path):
+    """The reference-named state dict loads strictly onto the port's
+    JointGNN (the GVPs' dummy_param entries dropped) and serves within 1e-4
+    pKd of the JAX package's load of the same file and of the mirror's own
+    forward; the JAX tree it returns is the one JAX's importer builds."""
+    from tests.test_golden_parity import _jax_batches, _torch_batch
+    from tests.test_torch_zoo_models import _torch_graph
+
+    mirror, kwargs, path = _reference_run(tmp_path)
+    model, params, model_kwargs = t_ckpt.load_model_from_checkpoint(str(tmp_path), device="cpu")
+    assert model_kwargs == kwargs and not model.training
+    jm, variables, _ = jax_load_model(str(tmp_path), param_file=path)
+    for a, b in zip(_leaves(params), _leaves(jax.device_get(variables["params"]))):
+        np.testing.assert_array_equal(a, b)
+    pairs = _reference_pairs()
+    pg, mg = _jax_batches(pairs)
+    with torch.no_grad():
+        score, _ = model(_torch_graph(pg), _torch_graph(mg))
+        ref, _ = mirror(*_torch_batch(pairs), b=len(pairs))
+    j_score, _ = jm.apply(variables, pg, mg)
+    np.testing.assert_allclose(score.numpy(), np.asarray(j_score), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(score.numpy(), ref.numpy(), rtol=0, atol=1e-4)
+
+
+def test_reference_pt_checkpoint_with_compile_prefixes(tmp_path):
+    """torch.compile's ``_orig_mod.`` prefixes are stripped: the same
+    weights as the plain file's, bit for bit."""
+    for name, keys in (("plain", lambda k: k), ("compiled", lambda k: "_orig_mod." + k)):
+        (tmp_path / name).mkdir()
+        _reference_run(tmp_path / name, keys=keys)
+    plain = t_ckpt.load_model_from_checkpoint(str(tmp_path / "plain"), device="cpu")[0]
+    compiled = t_ckpt.load_model_from_checkpoint(str(tmp_path / "compiled"), device="cpu")[0]
+    want = plain.state_dict()
+    got = compiled.state_dict()
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_log_every_prints_progress(straight, tmp_path, capsys):

@@ -126,14 +126,22 @@ def test_training_mode_dropout_follows_the_generator():
 
 
 def test_unported_options_raise():
-    """The molecule towers still to be ported raise; batch norm and the
-    GATv2 and HEAT towers build (tests/test_torch_zoo_models.py holds them
-    against JAX)."""
+    """No molecule tower is left to port: GIN, AttentiveFP, GPS and PNA build
+    in the served model and answer (tests/test_torch_zoo_molecule.py and
+    tests/test_torch_zoo_joint.py hold them against JAX); a PNA tower
+    without its degree histogram raises, as JAX's cannot compute its delta;
+    batch norm and the GATv2 and HEAT towers build."""
+    batch = synthetic_pair_batch(2, 16, 64, 8, 16, seed=0)
     for base_conv in ("gin", "attentivefp", "gps", "pna"):
         kwargs = json.loads(json.dumps(SMALL))
-        kwargs["molecule_gnn_kwargs"]["base_conv"] = base_conv
-        with pytest.raises(NotImplementedError):
-            _port_model(kwargs)
+        kwargs["molecule_gnn_kwargs"].update(base_conv=base_conv, degree_hist=[1, 4, 6, 2])
+        with torch.no_grad():
+            score, _ = _port_model(kwargs).eval()(batch.protein, batch.molecule)
+        assert score.shape == (2, 1) and bool(torch.isfinite(score).all())
+    kwargs = json.loads(json.dumps(SMALL))
+    kwargs["molecule_gnn_kwargs"]["base_conv"] = "pna"
+    with pytest.raises(ValueError, match="degree_hist"):
+        _port_model(kwargs)
     kwargs = json.loads(json.dumps(SMALL))
     kwargs["joint_gnn_kwargs"]["out_lin_norm_type"] = "batch"
     kwargs["molecule_gnn_kwargs"]["base_conv"] = "gatv2"

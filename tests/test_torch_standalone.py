@@ -9,7 +9,9 @@ on the CPU, serves it again with the fused message path switched on
 (``caster_dta_torch.nn.gvp.fused_message``) and with the blockwise attention
 path (``use_pallas`` on both MultiheadAttention modules), builds and serves
 chip_smoke.py's zoo-cpd-gatv2 model (the CPD protein tower, the GATv2
-molecule tower) and reloads it from the checkpoint it writes, runs
+molecule tower) and reloads it from the checkpoint it writes, builds and
+serves the zoo-lba-gin, -attentivefp, -gps and -pna models (the GIN,
+AttentiveFP, GPS and PNA molecule towers), runs
 ``run_model_on_dataset`` with the explainer on, takes one bf16 training step
 from those weights and writes a checkpoint that the port reads back, trains
 and evaluates one epoch bucket by bucket over a device-resident store (the
@@ -81,7 +83,13 @@ from caster_dta_torch.inference.checkpoint import build_model, load_model_from_c
 from caster_dta_torch.inference.serve import LoadedRun
 from caster_dta_torch.interop.from_jax import to_jax_params
 from caster_dta_torch.train import checkpoints
-zoo = chip_smoke.zoo_configs()["zoo-cpd-gatv2"]
+zoo_all = chip_smoke.zoo_configs()
+for name in ("zoo-lba-gin", "zoo-lba-attentivefp", "zoo-lba-gps", "zoo-lba-pna"):
+    kw = zoo_all[name]
+    served = LoadedRun(build_model(kw).eval(), kw, run.rescale, "", torch.device("cpu"))
+    a, (rd, _) = predict(served, synthetic_pair_batch(2, 24, 96, 8, 16, seed=0))
+    assert a.shape == (2,) and bool(torch.isfinite(a).all()) and rd.shape == (2, 24, 8), name
+zoo = zoo_all["zoo-cpd-gatv2"]
 zoo_run = LoadedRun(build_model(zoo).eval(), zoo, run.rescale, "", torch.device("cpu"))
 aff_zoo, (z_rd, _) = predict(zoo_run, synthetic_pair_batch(2, 24, 96, 8, 16, seed=0))
 assert aff_zoo.shape == (2,) and bool(torch.isfinite(aff_zoo).all()), aff_zoo

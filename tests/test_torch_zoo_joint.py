@@ -1,4 +1,4 @@
-"""Port parity for JointGNN on chip_smoke.py's four model-zoo configurations
+"""Port parity for JointGNN on chip_smoke.py's eight model-zoo configurations
 (small widths; tests/test_torch_zoo_models.py ``ZOO``), against
 caster_dta_tpu with the same weights (the JAX init) on the same seeded
 batch, on the CPU:

@@ -1,16 +1,17 @@
 """Port parity for the model zoo's towers: caster_dta_torch against
 caster_dta_tpu with the same weights on the same seeded inputs, on the CPU.
 
-* the six new towers (PocketMiner, CPD, scalar GATv2 and HEAT, molecule
-  GATv2 and HEAT) at tests/test_model_zoo.py's kwargs, eval mode, JAX init
-  carried over by interop.from_jax: 1e-5;
+* the attention and GVP towers (PocketMiner, CPD, scalar GATv2 and HEAT,
+  molecule GATv2 and HEAT) at tests/test_model_zoo.py's kwargs, eval mode,
+  JAX init carried over by interop.from_jax: 1e-5 (GIN, AttentiveFP, GPS
+  and PNA: tests/test_torch_zoo_molecule.py);
 * the registries refuse what JAX refuses; the scalar protein widths are
   data/build.py's; scalar graphs' zero-size vector fields go through the
   store and the packed row.
 
 The JointGNNs on chip_smoke.py's zoo configurations are in
-tests/test_torch_zoo_joint.py, their training in tests/test_torch_zoo_train.py;
-both use this file's helpers.
+tests/test_torch_zoo_joint.py, their training in tests/test_torch_zoo_train.py
+and tests/test_torch_zoo_molecule_train.py; they use this file's helpers.
 """
 import dataclasses
 import os
@@ -146,11 +147,13 @@ def test_make_protein_gnn_refuses_what_jax_refuses(base_conv, kwargs, error):
 
 
 def test_make_molecule_gnn_dispatch():
-    kw = {**MOL_COMMON, "not_a_field": 1, "heads": 2}
+    """Every molecule tower of the JAX package builds, keys a tower does not
+    take ignored; an unknown name raises in both packages."""
+    kw = {**MOL_COMMON, "not_a_field": 1, "heads": 2, "degree_hist": [0, 5, 9, 4, 2]}
     assert make_molecule_gnn("GATv2", **kw).out_dim == 12
     for name in ("gin", "attentivefp", "gps", "pna"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            make_molecule_gnn(name, **kw)
+        tower = make_molecule_gnn(name, **kw)
+        assert tower.out_dim == 12 and type(tower).__name__.lower().endswith(name)
     for make in (jax_molecule, make_molecule_gnn):
         with pytest.raises(ValueError, match="unknown molecule base_conv"):
             make("schnet", **kw)
