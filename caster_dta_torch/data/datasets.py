@@ -1,6 +1,6 @@
-"""Dataset registry: davis, kiba, metz, bindingdb[_kd/ki/ic50/ec50], belka and
-synthetic -> the canonical six columns as records (counterpart of
-caster_dta_tpu/data/datasets.py).
+"""Dataset registry: davis, kiba, metz, bindingdb[_kd/ki/ic50/ec50], belka,
+plinder (its cached CSV, data/plinder.py) and synthetic -> the canonical six
+columns as records (counterpart of caster_dta_tpu/data/datasets.py).
 
 Behavioral spec: reference dataset/load_data.py:28-389. The JAX package
 returns a pandas DataFrame; the port returns records, a dict of the columns
@@ -25,26 +25,16 @@ from typing import Optional
 
 import numpy as np
 
+from caster_dta_torch.data import tables
 from caster_dta_torch.data.featurize.smiles import validate_smiles
 
 COLUMNS = ("protein_id", "protein_sequence", "protein_file", "molecule_id",
            "molecule_smiles", "affinity_score")
 
 
-def take_rows(records: dict, rows) -> dict:
-    """The records of the row indices ``rows``, in that order."""
-    rows = list(rows)
-    return {c: [v[i] for i in rows] for c, v in records.items()}
-
-
 def drop_duplicate_pairs(records: dict) -> dict:
     """Keep the first row of each (protein_id, molecule_id) pair."""
-    seen, keep = set(), []
-    for i, key in enumerate(zip(records["protein_id"], records["molecule_id"])):
-        if key not in seen:
-            seen.add(key)
-            keep.append(i)
-    return take_rows(records, keep)
+    return tables.drop_duplicates(records, ["protein_id", "molecule_id"])
 
 
 def _affinity_to_records(proteins: "OrderedDict", ligands: "OrderedDict",
@@ -306,7 +296,7 @@ def apply_mostcommon_filter(records: dict, thresh: float = 0.1) -> dict:
     values = [v for v in records["affinity_score"] if v == v]
     over = {v for v, c in Counter(values).items() if c / len(values) > thresh}
     if over:
-        records = take_rows(records, [i for i, v in enumerate(records["affinity_score"])
+        records = tables.take(records, [i for i, v in enumerate(records["affinity_score"])
                                       if v not in over])
     return records
 
@@ -330,7 +320,7 @@ def apply_proteinseqdupe_filter(records: dict) -> dict:
             counts = [len(distinct.get(p, ())) for p in pids]
             best = pids[counts.index(max(counts))]
             drop.update(p for p in pids if p != best)
-    return take_rows(records, [i for i, p in enumerate(records["protein_id"])
+    return tables.take(records, [i for i, p in enumerate(records["protein_id"])
                                if p not in drop])
 
 
@@ -352,9 +342,8 @@ def load_dataset(dataset_name: str, data_root: str = "./data",
     elif "belka" in name:
         rec = load_belka(os.path.join(data_root, "belka_data"), structures_dir, **kwargs)
     elif name == "plinder":
-        raise NotImplementedError(
-            "the plinder dataset needs the plinder package (data/plinder.py is not "
-            "ported): ROADMAP Queue 1 item 5 (what waits)")
+        from caster_dta_torch.data.plinder import parse_plinder
+        rec = parse_plinder(os.path.join(data_root, "plinder_data"), **kwargs)
     elif name == "synthetic":
         # offline end-to-end runs: on-disk helix-backbone PDBs + pool SMILES
         # with a size-dependent affinity signal (data/synthetic.py)

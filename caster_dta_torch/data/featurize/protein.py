@@ -98,11 +98,14 @@ def compute_residue_node_features(res_coords, res_idents, vectorize_features,
 
 
 def _esm2_embeddings(letters):
-    """ESM2-t6-8M residue embeddings (reference :131-158) need the
-    ``transformers`` package and downloaded weights; not ported."""
+    """ESM2-t6-8M residue embeddings (reference :131-158). The block's place
+    in the residue features is the JAX package's (above); the embedder itself
+    needs the facebook/esm2_t6_8M_UR50D weights and the ``transformers``
+    package, neither of which this repository carries."""
     raise NotImplementedError(
-        "protein_include_esm2=True needs transformers and the ESM2 weights, which the "
-        "port does not carry: ROADMAP Queue 1 item 5 (what waits)")
+        "protein_include_esm2=True needs the ESM2 weights (facebook/esm2_t6_8M_UR50D) "
+        "and the transformers package to embed residues; this repository carries "
+        "neither, so the port has no ESM2 embedder")
 
 
 def compute_residue_edge_features(res_coords, res_idents, edge_thresh,

@@ -134,8 +134,14 @@ def test_filters():
 
 
 def test_plinder_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Without a processed CSV a fresh PLINDER parse needs the plinder
+    package: both packages refuse with the same ImportError (the cached CSV
+    is read: tests/test_torch_acquire.py)."""
+    with pytest.raises(ImportError, match="plinder") as t_err:
         t_ds.load_dataset("plinder", data_root=str(tmp_path))
+    with pytest.raises(ImportError) as j_err:
+        j_ds.load_dataset("plinder", data_root=str(tmp_path))
+    assert str(t_err.value) == str(j_err.value)
 
 
 @pytest.mark.parametrize("kw", [{}, dict(n_pairs=60, n_proteins=5, n_molecules=9, seed=3)])

@@ -233,7 +233,9 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
 
 
 def test_esm2_embeddings_refused():
+    """The embedder needs weights the repository does not carry, and says so
+    (the block's placement: tests/test_torch_acquire.py, stub embedder)."""
     path = os.path.join(DAVIS, _davis_files()[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ESM2 weights"):
         t_build.protein_file_to_graph(path, "angstroms", 4, "dist", True, True, True, False,
                                       True)

@@ -1,7 +1,7 @@
 """The port runs where only PyTorch is installed.
 
 The machine with the card has no flax and need not have JAX, msgpack,
-pandas, networkx or Triton. Each case runs a fresh interpreter from the repo
+pandas, networkx, requests, matplotlib or Triton. Each case runs a fresh interpreter from the repo
 root with those names hidden behind a ``sys.meta_path`` finder whose loader
 refuses them (an import raises ImportError), imports every module of
 caster_dta_torch and chip_smoke, serves one tiny batch from runs/davis_seed9
@@ -18,7 +18,9 @@ and evaluates one epoch bucket by bucket over a device-resident store (the
 scan path, eager on the CPU), featurizes a Davis structure and a SMILES
 (rings without networkx, the native host library built here), runs the
 training CLI for one epoch on ``--dataset synthetic`` from its PDB files and
-SMILES, and checks that none of the hidden names was loaded. A second case runs
+SMILES, runs the BioLIP analysis on chip_smoke.py's synthetic tables and its
+t-test statistics (a drawing call raises ImportError naming matplotlib), and
+checks that none of the hidden names was loaded. A second case runs
 chip_smoke.py without a card: it must fail and print no result, since
 nothing falls back to the CPU.
 """
@@ -28,7 +30,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "networkx", "triton",
-          "caster_dta_tpu")
+          "requests", "matplotlib", "caster_dta_tpu")
 
 SCRIPT = """
 import importlib, importlib.abc, importlib.machinery, json, pkgutil, sys
@@ -146,6 +148,20 @@ with tempfile.TemporaryDirectory() as tmp:
                        "--n-workers", "0"])
     assert len(res["history"]) == 1 and math.isfinite(res["history"][0]["train"])
     assert os.path.exists(tmp + "/out/train_state.msgpack")
+from caster_dta_torch.analysis.biolip import run_biolip_binding
+from caster_dta_torch.analysis.visualize import visualize_biolip_results
+with tempfile.TemporaryDirectory() as tmp:
+    ins = chip_smoke.analysis_inputs(tmp + "/in", biolip_proteins=4, residues=(20, 40))
+    res = run_biolip_binding("runs/davis_seed9", results_dir=tmp + "/r", device="cpu",
+                             max_batch_size=4, **ins["biolip"])
+    assert len(res["pair_idx"]) == 4 and os.path.exists(tmp + "/r/biolip_raw_records.pkl")
+    stats = visualize_biolip_results(res, tmp + "/fig", draw=False)
+    assert all(math.isfinite(stats[k][x]) for k in stats for x in ("t", "p")), stats
+    try:
+        visualize_biolip_results(res, tmp + "/fig")
+        raise AssertionError("drew without matplotlib")
+    except ImportError as e:
+        assert "matplotlib" in str(e), e
 loaded = sorted(n for n in sys.modules if n.partition(".")[0] in HIDDEN)
 assert not loaded, loaded
 print("standalone ok", aff.tolist())
@@ -159,7 +175,10 @@ def _env():
 
 
 def test_port_imports_and_serves_without_jax_flax_msgpack_pandas():
-    r = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=_env(),
+    # one OpenMP thread: beside other test workers, torch's threads wait on
+    # each other's cores (194 s beside three workers, 13 s with one thread)
+    env = dict(_env(), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "standalone ok" in r.stdout
