@@ -6,7 +6,9 @@ ladders; the bucket's batch size comes from the reference's cost model,
 ``clamp(max_num // (E_pad + M_pad + N_pad * A_pad), 1, max_batch_size)``, and
 partial batches are padded by repeating the last pair with loss weight 0.
 ``BucketedLoader`` makes the same bucket assignment, coalescing, epoch-indexed
-shuffle and batches as the JAX loader, as torch CPU tensors.
+shuffle and batches as the JAX loader, as torch CPU tensors. Proteins larger
+than the ladder go to the edge-partitioned path under ``gp``
+(``split_overflow_indices``, ``PartitionedLoader``: parallel/partition.py).
 
 ``synthetic_pair_batch`` makes the same RNG calls, in the same order, as
 ``__graft_entry__._synthetic_batch`` of the JAX package, so one seed gives the
@@ -152,8 +154,11 @@ class BucketedLoader:
                  molecule_node_ladder=MOLECULE_NODE_LADDER,
                  edge_ladder=EDGE_LADDER, molecule_edge_ladder=MOLECULE_EDGE_LADDER,
                  coalesce: bool = True, coalesce_min_batches: int = 4,
-                 pad_cache_bytes: int = 2_000_000_000):
+                 batch_multiple: int = 1, pad_cache_bytes: int = 2_000_000_000):
         self.dataset = dataset
+        # data parallelism: bucket batch sizes round up to a multiple of the
+        # ranks a batch splits over
+        self.batch_multiple = max(1, int(batch_multiple))
         self.indices = np.asarray(indices if indices is not None else np.arange(len(dataset)))
         self.max_num = max_num
         self.max_batch_size = max_batch_size or 1 << 30
@@ -200,7 +205,9 @@ class BucketedLoader:
     def bucket_batch_size(self, bucket) -> int:
         n_p, e_p, n_m, e_m = bucket
         cost = e_p + e_m + (n_p * n_m if self.include_nodepair else 0)
-        return int(np.clip(self.max_num // max(cost, 1), 1, self.max_batch_size))
+        bs = int(np.clip(self.max_num // max(cost, 1), 1, self.max_batch_size))
+        m = self.batch_multiple
+        return -(-bs // m) * m
 
     def buckets(self) -> dict:
         out: dict = {}
@@ -265,6 +272,182 @@ class BucketedLoader:
                          target=torch.tensor(np.asarray(targets, np.float32)),
                          weight=torch.from_numpy(weight),
                          pair_idx=torch.tensor(full_idxs, dtype=torch.int32))
+
+
+def split_overflow_indices(dataset, indices=None, protein_node_ladder=PROTEIN_NODE_LADDER):
+    """Split pair indices into (within the ladder, ladder overflow) by protein
+    size. Overflow pairs go to the edge-partitioned path (PartitionedLoader,
+    parallel/partition.py) instead of raising: the reference caps protein
+    size instead (load_data.py:218-222)."""
+    indices = list(indices if indices is not None else range(len(dataset)))
+    cap = protein_node_ladder[-1]
+    within, overflow = [], []
+    for i in indices:
+        pg, _, _ = dataset[int(i)]
+        (overflow if pg["n_nodes"] > cap else within).append(int(i))
+    return within, overflow
+
+
+# halo slots a peer have their own ladder: the distinct remote source nodes a
+# peer shard reads, far fewer than edges
+HALO_LADDER = tuple(2 ** k for k in range(3, 14))
+
+
+@dataclass
+class PartitionedPairBatch:
+    """B pairs whose protein graphs are edge-partitioned over G shards:
+    ``sharded`` leaves are ``[B, G, ...]`` (parallel/partition.py
+    ShardedProteinGraph), ``molecule`` the usual padded GraphBatch ``[B, ...]``.
+    Padding pairs repeat the last pair with weight 0, as in PairBatch."""
+
+    sharded: object          # ShardedProteinGraph, leaves [B, G, ...]
+    molecule: GraphBatch
+    target: torch.Tensor     # f32 [B]
+    weight: torch.Tensor     # f32 [B]
+    pair_idx: torch.Tensor   # i32 [B]
+
+
+class PartitionedLoader:
+    """Batches of ladder-overflow pairs for the gp-partitioned train path
+    (the JAX package's, bucket for bucket and batch for batch).
+
+    Buckets by (nodes a shard, interior edges, boundary edges, halo slots,
+    molecule nodes, molecule edges) budgets, each laddered. Each protein's
+    partition is planned once to size its budgets (numpy,
+    parallel/partition.py), and the budget-padded shards are kept in a
+    byte-bounded LRU cache."""
+
+    def __init__(self, dataset, indices, gp: int, max_num: int = 12_000_000,
+                 max_batch_size: Optional[int] = 128, shuffle: bool = True, seed: int = 0,
+                 include_nodepair: bool = True, protein_node_ladder=PROTEIN_NODE_LADDER,
+                 edge_ladder=EDGE_LADDER, halo_ladder=HALO_LADDER,
+                 molecule_node_ladder=MOLECULE_NODE_LADDER,
+                 molecule_edge_ladder=MOLECULE_EDGE_LADDER, batch_multiple: int = 1,
+                 pad_cache_bytes: int = 2_000_000_000):
+        from caster_dta_torch.parallel.partition import partition_protein_graph
+
+        self.dataset = dataset
+        self.gp = int(gp)
+        self.indices = np.asarray(indices)
+        self.max_num = max_num
+        self.max_batch_size = max_batch_size or 1 << 30
+        self.shuffle, self.seed, self.include_nodepair = shuffle, seed, include_nodepair
+        self.epoch = 0
+        self.batch_multiple = max(1, int(batch_multiple))
+        self._partition = partition_protein_graph
+        self._cache = _LRUPadCache(pad_cache_bytes)
+        self.last_batch_edges = 0
+        # each protein's partition budgets, laddered: one planning pass per
+        # protein (the arrays are dropped)
+        self._bucket_of = {}
+        prot_budget = {}
+        for i in self.indices:
+            pg, mg, _ = dataset[int(i)]
+            pid, _ = dataset.pair_indices[int(i)]
+            if pid not in prot_budget:
+                ns = _ladder(-(-int(pg["n_nodes"]) // self.gp), protein_node_ladder)
+                probe = partition_protein_graph(
+                    pg["node_s"], pg["node_v"], pg["edge_index"], pg["edge_s"], pg["edge_v"],
+                    pg["node_type"], pg["edge_type"], n_shards=self.gp, nodes_per_shard=ns)
+                prot_budget[pid] = (ns, _ladder(probe.int_src.shape[1], edge_ladder),
+                                    _ladder(probe.bnd_src_ext.shape[1], edge_ladder),
+                                    _ladder(probe.halo_per_peer, halo_ladder))
+            self._bucket_of[int(i)] = prot_budget[pid] + (
+                _ladder(mg["n_nodes"], molecule_node_ladder),
+                _ladder(mg["n_edges"], molecule_edge_ladder))
+
+    def bucket_batch_size(self, bucket) -> int:
+        ns, ei, eb, hh, n_m, e_m = bucket
+        cost = self.gp * (ei + eb) + e_m
+        if self.include_nodepair:
+            cost += (self.gp * ns) * n_m
+        bs = int(np.clip(self.max_num // max(cost, 1), 1, self.max_batch_size))
+        m = self.batch_multiple
+        return -(-bs // m) * m
+
+    def buckets(self) -> dict:
+        out: dict = {}
+        for i, b in self._bucket_of.items():
+            out.setdefault(b, []).append(i)
+        return out
+
+    def __len__(self) -> int:
+        return sum(-(-len(idxs) // self.bucket_batch_size(b))
+                   for b, idxs in self.buckets().items())
+
+    @property
+    def n_pairs(self) -> int:
+        return len(self.indices)
+
+    def iter_index_batches(self):
+        """Yield (bucket, pair indices) groups in epoch order."""
+        order = self.indices.copy()
+        if self.shuffle:
+            np.random.default_rng((self.seed, self.epoch)).shuffle(order)
+        self.epoch += 1
+        queues: dict = {}
+        for i in order:
+            b = self._bucket_of[int(i)]
+            q = queues.setdefault(b, [])
+            q.append(int(i))
+            if len(q) >= self.bucket_batch_size(b):
+                yield b, q
+                queues[b] = []
+        for b, q in queues.items():
+            if q:
+                yield b, q
+
+    def _sharded(self, pid, pg: dict, bucket) -> dict:
+        ns, ei, eb, hh, _, _ = bucket
+        key = (pid, ns, ei, eb, hh)
+        hit = self._cache.get(key)
+        if hit is None:
+            sh = self._partition(
+                pg["node_s"], pg["node_v"], pg["edge_index"], pg["edge_s"], pg["edge_v"],
+                pg["node_type"], pg["edge_type"], n_shards=self.gp, nodes_per_shard=ns,
+                interior_edges_per_shard=ei, boundary_edges_per_shard=eb, halo_per_peer=hh)
+            hit = {f: getattr(sh, f).numpy() for f in sh.__dataclass_fields__}
+            self._cache.put(key, hit)
+        return hit
+
+    def _padded_mol(self, mid, mg: dict, n_m: int, e_m: int) -> dict:
+        key = ("m", mid, n_m, e_m)
+        hit = self._cache.get(key)
+        if hit is None:
+            hit = pad_graph(node_s=mg["node_s"], node_v=mg["node_v"],
+                            edge_index=mg["edge_index"], edge_s=mg["edge_s"],
+                            edge_v=mg["edge_v"], node_type=mg["node_type"],
+                            edge_type=mg["edge_type"], n_pad=n_m, e_pad=e_m)
+            self._cache.put(key, hit)
+        return hit
+
+    def _assemble(self, bucket, idxs) -> PartitionedPairBatch:
+        from caster_dta_torch.parallel.partition import ShardedProteinGraph
+
+        _, _, _, _, n_m, e_m = bucket
+        bs = self.bucket_batch_size(bucket)
+        weight = np.zeros(bs, np.float32)
+        weight[:len(idxs)] = 1.0
+        full_idxs = list(idxs) + [idxs[-1]] * (bs - len(idxs))
+        shards, mols, targets = [], [], []
+        for i in full_idxs:
+            pg, mg, target = self.dataset[i]
+            pid, mid = self.dataset.pair_indices[i]
+            shards.append(self._sharded(pid, pg, bucket))
+            mols.append(self._padded_mol(mid, mg, n_m, e_m))
+            targets.append(target)
+        self.last_batch_edges = sum(int(self.dataset[i][0]["n_edges"])
+                                    + int(self.dataset[i][1]["n_edges"]) for i in idxs)
+        sharded = ShardedProteinGraph(**{k: torch.from_numpy(np.stack([s[k] for s in shards]))
+                                         for k in shards[0]})
+        return PartitionedPairBatch(sharded=sharded, molecule=stack_graphs(mols),
+                                    target=torch.tensor(np.asarray(targets, np.float32)),
+                                    weight=torch.from_numpy(weight),
+                                    pair_idx=torch.tensor(full_idxs, dtype=torch.int32))
+
+    def __iter__(self) -> Iterator[PartitionedPairBatch]:
+        for b, q in self.iter_index_batches():
+            yield self._assemble(b, q)
 
 
 # ------------------------------------------------------------ datasets

@@ -10,6 +10,11 @@ int32 array (``pack_batch_rows``) and copied in one transfer; a megabatch's
 
 ``DeviceResidentLoader.maybe`` returns the plain BucketedLoader when the
 stores would exceed the byte budget, as in the JAX package.
+
+Under data parallelism (parallel/mesh.py) every rank builds the whole store
+on its own device and gathers only its rows of each batch
+(``mesh.shard_batch`` of a StoreBatch or MegaBatch): the JAX package's
+``store_sharding=replicated``.
 """
 from __future__ import annotations
 

@@ -12,6 +12,13 @@ in f32 and returns f32, as flax's does for a bf16 input with f32 params. The
 setting is scoped to the ``with`` block (``Trainer`` enters it around its
 steps), so it never outlives the code that set it.
 
+Under data or graph parallelism each rank holds only some rows of a batch
+(parallel/mesh.py). Dropout is then *global-canonical*: inside
+``dropout_shards({dim: (index, count)})`` every mask is drawn from the shared
+generator at the global size (``count`` times the local rows along ``dim``)
+and this rank keeps its ``index``-th part (``keep_mask``), so a parallel run
+applies exactly the masks of the single-device run.
+
 ``f32_precision`` is the matching scope for f32 math on the card: IEEE f32
 matmuls and convolutions (no TF32) inside the block, the process's own
 settings again after it. ``predict`` and every ``Trainer`` step and eval
@@ -124,12 +131,45 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     return F.linear(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
 
 
+_DROPOUT_SHARDS: contextvars.ContextVar[dict] = contextvars.ContextVar(
+    "caster_dta_torch_dropout_shards", default={})
+
+
+@contextlib.contextmanager
+def dropout_shards(shards: dict) -> Iterator[None]:
+    """Inside the block every dropout mask is global-canonical: ``shards``
+    maps a dim to ``(index, count)``, this rank's part and the number of
+    parts of that dim (the JAX package's ``GVPDropout.shard_rows``, and for
+    dim 0 the rows of a data-parallel batch). Adds to the shards in force."""
+    token = _DROPOUT_SHARDS.set({**_DROPOUT_SHARDS.get(), **shards})
+    try:
+        yield
+    finally:
+        _DROPOUT_SHARDS.reset(token)
+
+
+def keep_mask(shape, rate: float, generator: Optional[torch.Generator],
+              device: torch.device, shards: Optional[dict] = None) -> torch.Tensor:
+    """The bool keep-mask of ``shape`` (``rand >= rate``). With shards in
+    force (``dropout_shards``, and ``shards`` on top), drawn at the global
+    shape and sliced to this rank's part, so partitioning never changes it."""
+    shards = {**_DROPOUT_SHARDS.get(), **(shards or {})}
+    full, idx = list(shape), [slice(None)] * len(shape)
+    for dim, (i, n) in shards.items():
+        full[dim] = shape[dim] * n
+        idx[dim] = slice(i * shape[dim], (i + 1) * shape[dim])
+    keep = torch.rand(full, generator=generator, device=device) >= rate
+    return keep[tuple(idx)] if shards else keep
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout drawn from ``generator``; identity unless training."""
+            generator: Optional[torch.Generator] = None,
+            shards: Optional[dict] = None) -> torch.Tensor:
+    """Inverted dropout drawn from ``generator`` (``keep_mask``, with
+    ``shards`` on top of those in force); identity unless training."""
     if rate == 0.0 or not training:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = keep_mask(x.shape, rate, generator, x.device, shards)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -17,6 +17,12 @@ True``), a conv that computes gradients keeps its gathered endpoints and
 recomputes the message MLP and the aggregation in the backward pass
 (``torch.utils.checkpoint``), as JAX's remat policy saves only
 ``"gathered_endpoints"``: less memory, the same numbers.
+
+GVPConvLayer's ``boundary`` branch is the edge-partitioned execution of
+parallel/partition.py: a second edge block whose sources lie in an extended
+node table (local rows, then the halo rows from the other ranks) adds its
+messages into the same local rows, and ``shard_rows`` makes its dropout
+masks partition-invariant (nn/common.py ``keep_mask``).
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from caster_dta_torch.nn.common import (Dense, LayerNorm, apply_act, dropout, get_compute_dtype,
-                                       select_activation)
+                                       keep_mask, select_activation)
 from caster_dta_torch.ops import gvp_message, segment
 
 SV = Tuple[torch.Tensor, torch.Tensor]
@@ -165,19 +171,27 @@ class GVPLayerNorm(nn.Module):
 
 
 class GVPDropout(nn.Module):
-    """(s, V) dropout in training; whole 3-vector channels drop together."""
+    """(s, V) dropout in training; whole 3-vector channels drop together.
+
+    ``shard_rows=(index, n_shards)`` makes the masks partition-invariant for
+    node rows (dim 1) split over ``n_shards`` ranks (parallel/partition.py):
+    each rank draws the mask of the global ``n_shards * Ns`` rows from the
+    shared generator and keeps its ``index``-th block, so the partitioned
+    model applies exactly the single-device model's masks."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: SV, generator: Optional[torch.Generator] = None) -> SV:
+    def forward(self, x: SV, generator: Optional[torch.Generator] = None,
+                shard_rows: Optional[Tuple[int, int]] = None) -> SV:
         s, v = x
         if self.rate == 0.0 or not self.training:
             return x
-        s = dropout(s, self.rate, True, generator)
+        shards = None if shard_rows is None else {1: shard_rows}
+        s = dropout(s, self.rate, True, generator, shards)
         if v.shape[-2]:
-            keep = torch.rand(v.shape[:-1], generator=generator, device=v.device) >= self.rate
+            keep = keep_mask(v.shape[:-1], self.rate, generator, v.device, shards)
             v = torch.where(keep[..., None], v / (1.0 - self.rate), torch.zeros_like(v))
         return s, v
 
@@ -218,9 +232,10 @@ class GVPConv(nn.Module):
                     and _FUSED_MESSAGE.get())
 
     def forward(self, x: SV, edge_src, edge_dst, edge_mask, edge_attr: SV,
-                message_mask: Optional[torch.Tensor] = None) -> SV:
+                message_mask: Optional[torch.Tensor] = None, aggr: Optional[str] = None) -> SV:
         """``message_mask`` [B, E] bool, when given, is ANDed into the edge
-        mask of the aggregation."""
+        mask of the aggregation; ``aggr``, when given, replaces the conv's
+        own (the boundary branch of GVPConvLayer sums both blocks)."""
         s, v = x
         fused = self.fused_ok(x, edge_src, edge_attr)
         cd = get_compute_dtype()
@@ -238,7 +253,8 @@ class GVPConv(nn.Module):
         # one merged-(s, v) row gather for both endpoints: [B, 2E, ns + 3nv]
         both = segment.gather_nodes(sv, torch.cat([edge_src, edge_dst], dim=1))
         mask = edge_mask if message_mask is None else edge_mask & message_mask
-        args = (both, edge_attr[0], edge_attr[1], edge_dst, mask, s.shape[1], v.shape[-2], fused)
+        args = (both, edge_attr[0], edge_attr[1], edge_dst, mask, s.shape[1], v.shape[-2], fused,
+                aggr or self.aggr)
         if _REMAT_MESSAGE.get() and torch.is_grad_enabled():
             # the gathered endpoints stay saved; the message MLP and the
             # aggregation run again in the backward pass (nothing in them
@@ -250,7 +266,7 @@ class GVPConv(nn.Module):
         return split_sv(out, self.out_dims[1])
 
     def _message(self, both, edge_s, edge_v, edge_dst, mask, num_nodes: int, nv_in: int,
-                 fused: bool) -> torch.Tensor:
+                 fused: bool, aggr: str) -> torch.Tensor:
         """The message MLP on the gathered endpoints and its aggregation ->
         merged (s, v) rows [B, N, so + 3vo]."""
         e = edge_dst.shape[1]
@@ -266,7 +282,7 @@ class GVPConv(nn.Module):
             for layer in self.message_func:
                 msg = layer(msg)
             merged = merge_sv(*msg)
-        return segment.aggregate(merged, edge_dst, mask, num_nodes, self.aggr)
+        return segment.aggregate(merged, edge_dst, mask, num_nodes, aggr)
 
 
 class GVPConvLayer(nn.Module):
@@ -274,7 +290,15 @@ class GVPConvLayer(nn.Module):
     with an optional node_mask partial update. ``autoregressive`` layers
     (aggr 'add' or None only) message forward edges (src < dst) from ``x``
     and the others from ``autoregressive_x``, with one conv's parameters, and
-    divide the sum by the real in-degree."""
+    divide the sum by the real in-degree.
+
+    ``boundary=(x_ext, src, dst, mask, edge_attr)`` is the edge-partitioned
+    path (parallel/partition.py): a second edge block whose sources index an
+    extended node table (the local rows, then the halo rows) and whose
+    messages add into the same local rows. The interior block runs first and
+    does not depend on the halo; both share the conv's parameters, aggregate
+    with 'add', and 'mean' divides once by the combined in-degree.
+    ``shard_rows`` goes to both dropouts (GVPDropout)."""
 
     def __init__(self, node_dims: Dims, edge_dims: Dims, n_message: int = 3,
                  n_feedforward: int = 2, drop_rate: float = 0.1, autoregressive: bool = False,
@@ -287,7 +311,8 @@ class GVPConvLayer(nn.Module):
             if aggr is not None and aggr != "add":
                 raise ValueError("autoregressive GVPConvLayer requires aggr='add'")
             aggr = "add"
-        self.conv = GVPConv(node_dims, node_dims, edge_dims, n_message, aggr=aggr or "mean",
+        self.aggr = aggr or "mean"
+        self.conv = GVPConv(node_dims, node_dims, edge_dims, n_message, aggr=self.aggr,
                             activations=activations, vector_gate=vector_gate, generator=g)
         self.norm = nn.ModuleList([GVPLayerNorm(node_dims), GVPLayerNorm(node_dims)])
         self.dropout = nn.ModuleList([GVPDropout(drop_rate), GVPDropout(drop_rate)])
@@ -305,8 +330,22 @@ class GVPConvLayer(nn.Module):
     def forward(self, x: SV, edge_src, edge_dst, edge_mask, edge_attr: SV,
                 autoregressive_x: Optional[SV] = None,
                 node_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> SV:
-        if autoregressive_x is not None:
+                generator: Optional[torch.Generator] = None, boundary=None,
+                shard_rows: Optional[Tuple[int, int]] = None) -> SV:
+        if boundary is not None:
+            if autoregressive_x is not None:
+                raise ValueError("boundary and autoregressive are exclusive")
+            x_ext, b_src, b_dst, b_mask, b_eattr = boundary
+            ns = x[0].shape[1]
+            conv_aggr = "add" if self.aggr == "mean" else self.aggr
+            dh_i = self.conv(x, edge_src, edge_dst, edge_mask, edge_attr, aggr=conv_aggr)
+            dh_b = self.conv(x_ext, b_src, b_dst, b_mask, b_eattr, aggr=conv_aggr)
+            dh = tuple_sum(dh_i, (dh_b[0][:, :ns], dh_b[1][:, :ns]))
+            if self.aggr == "mean":
+                count = torch.clamp(segment.segment_degree(edge_dst, edge_mask, ns)
+                                    + segment.segment_degree(b_dst, b_mask, ns), min=1.0)
+                dh = (dh[0] / count[..., None], dh[1] / count[..., None, None])
+        elif autoregressive_x is not None:
             fwd = edge_src < edge_dst
             dh = tuple_sum(
                 self.conv(x, edge_src, edge_dst, edge_mask, edge_attr, message_mask=fwd),
@@ -317,12 +356,12 @@ class GVPConvLayer(nn.Module):
             dh = (dh[0] / count[..., None], dh[1] / count[..., None, None])
         else:
             dh = self.conv(x, edge_src, edge_dst, edge_mask, edge_attr)
-        dh = self.dropout[0](dh, generator)
+        dh = self.dropout[0](dh, generator, shard_rows)
         h = self.norm[0](tuple_sum(x, dh))
         ff = h
         for layer in self.ff_func:
             ff = layer(ff)
-        ff = self.dropout[1](ff, generator)
+        ff = self.dropout[1](ff, generator, shard_rows)
         out = self.norm[1](tuple_sum(h, ff))
         if node_mask is not None:
             m = node_mask[..., None]

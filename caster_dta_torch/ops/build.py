@@ -35,6 +35,14 @@ class Built:
     seconds: float
 
 
+def count_launch(launches: dict, nbytes: dict, name: str, *tensors) -> None:
+    """Count one launch of kernel ``name`` in ``launches`` and the bytes it
+    moved in ``nbytes``: each of ``tensors`` (the function's inputs and
+    outputs, not its scratch) read or written once (utils/traffic.py)."""
+    launches[name] += 1
+    nbytes[name] += sum(t.numel() * t.element_size() for t in tensors)
+
+
 def find_nvcc() -> str:
     for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
                  "/usr/local/cuda"):

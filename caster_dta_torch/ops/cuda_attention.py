@@ -28,6 +28,8 @@ from caster_dta_torch.ops.cuda_segment import _check_cuda, _raise_on
 
 K4 = "k4_masked_mha"
 LAUNCHES = {K4: 0}
+# the bytes each kernel\'s launches read and wrote (build.count_launch)
+BYTES = dict.fromkeys(LAUNCHES, 0)
 
 NEG = -1e9            # a masked key's logit, as the JAX kernel's _NEG
 HD_MAX = 128          # the wide kernel: 16 head dims a lane, at most 8 lanes a query row
@@ -50,7 +52,7 @@ _counters: dict = {}  # device index -> int32 tickets, 0 between launches
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = BYTES[k] = 0
 
 
 def load_library() -> build.Built:
@@ -199,5 +201,5 @@ def masked_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          out.data_ptr(), b * h, h, lq, lk, hd, scale_of(hd),
                                          lanes, rows, splits, stream)
     _raise_on(err, K4)
-    LAUNCHES[K4] += 1
+    build.count_launch(LAUNCHES, BYTES, K4, *tensors, out)
     return out

@@ -40,6 +40,8 @@ K5F = "k5_message_fwd"
 K5B = "k5_message_bwd"
 K6 = "k6_cast_copy"
 LAUNCHES = {K5F: 0, K5B: 0, K6: 0}
+# the bytes each kernel\'s launches read and wrote (build.count_launch)
+BYTES = dict.fromkeys(LAUNCHES, 0)
 
 EPS = 1e-8
 SMEM_LIMIT = 232448          # 227 KB: the most shared memory a block can have
@@ -52,7 +54,7 @@ _dims_on_device: dict = {}
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = BYTES[k] = 0
 
 
 def load_library() -> build.Built:
@@ -378,7 +380,7 @@ def message_fwd(both: torch.Tensor, es: torch.Tensor, ev: torch.Tensor,
             _ACT_CODES[spec.act_s], _ACT_CODES[spec.act_v], _is_bf16(both), _is_bf16(es),
             _is_bf16(ev), _cdt_bf16(spec), stream)
     _raise_on(err, K5F)
-    LAUNCHES[K5F] += 1
+    build.count_launch(LAUNCHES, BYTES, K5F, both, es, ev, w, out)
     return out
 
 
@@ -425,7 +427,8 @@ def message_bwd(both: torch.Tensor, es: torch.Tensor, ev: torch.Tensor,
             w.numel(), _ACT_CODES[spec.act_s], _ACT_CODES[spec.act_v], _is_bf16(both),
             _is_bf16(es), _is_bf16(ev), _is_bf16(dout), _cdt_bf16(spec), stream)
     _raise_on(err, K5B)
-    LAUNCHES[K5B] += 1
+    build.count_launch(LAUNCHES, BYTES, K5B, both, es, ev, w, dout, dboth, des, dev,
+                       dw)
     return dboth, des, dev, [g.view(wt.shape) for g, wt in zip(dw.split(sizes), weights)]
 
 
@@ -459,5 +462,5 @@ def cast_copy(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         err = lib.k6_cast_copy(x.data_ptr(), out.data_ptr(), x.numel(), _is_bf16(x),
                                _is_bf16(out), stream)
     _raise_on(err, K6)
-    LAUNCHES[K6] += 1
+    build.count_launch(LAUNCHES, BYTES, K6, x, out)
     return out

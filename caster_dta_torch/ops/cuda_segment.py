@@ -8,7 +8,7 @@ tensor it checks device, dtype, shape and contiguity, allocates its output
 with ``torch.empty``, launches the kernel on the current stream without
 synchronising, and raises when anything is off: there is no fallback. Each
 launch adds one to ``LAUNCHES[name]``, so a run can show which kernels carried
-it.
+it, and its bytes to ``BYTES[name]`` (inputs read once, outputs written once).
 
 The wrappers are not differentiable themselves: ops/segment.py wraps them in
 autograd Functions whose backward passes are these same kernels (K1's VJP is a
@@ -29,6 +29,8 @@ K3 = "k3_scatter_rows"
 K7 = "k7_gather_windowed"
 K8 = "k8_segment_sum_2d"
 LAUNCHES = {K1: 0, K2: 0, K3: 0, K7: 0, K8: 0}
+# the bytes each kernel\'s launches read and wrote (build.count_launch)
+BYTES = dict.fromkeys(LAUNCHES, 0)
 K7_WINDOW_BYTES = 32768     # a table row must fit one window of csrc/segment.cu's K7
 K3_LONG = 64                # csrc/segment.cu's K3: a row of more ids is summed by a block
 
@@ -37,7 +39,7 @@ _built: build.Built | None = None
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = BYTES[k] = 0
 
 
 def load_library() -> build.Built:
@@ -132,7 +134,7 @@ def segment_sum_sorted(msgs: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor
             msgs.data_ptr(), dst.data_ptr(), mask.data_ptr(), out.data_ptr(),
             b, e, num_nodes, f, int(msgs.dtype == torch.bfloat16), stream)
     _raise_on(err, K1)
-    LAUNCHES[K1] += 1
+    build.count_launch(LAUNCHES, BYTES, K1, msgs, dst, mask, out)
     return out
 
 
@@ -200,7 +202,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         err = lib.k2_gather_rows(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
                                  b, e, n, row_bytes, vec, stream)
     _raise_on(err, K2)
-    LAUNCHES[K2] += 1
+    build.count_launch(LAUNCHES, BYTES, K2, table, idx, out)
     return out
 
 
@@ -308,7 +310,7 @@ def scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num_segments: int) -> to
                                   out.data_ptr(), b, e, num_segments, f,
                                   int(rows.dtype == torch.bfloat16), stream)
     _raise_on(err, K3)
-    LAUNCHES[K3] += 1
+    build.count_launch(LAUNCHES, BYTES, K3, rows, ids, out)
     return out
 
 
@@ -353,7 +355,7 @@ def gather_windowed(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         err = lib.k7_gather_windowed(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
                                      b, e, n, row_bytes, vec, stream)
     _raise_on(err, K7)
-    LAUNCHES[K7] += 1
+    build.count_launch(LAUNCHES, BYTES, K7, table, idx, out)
     return out
 
 
@@ -400,5 +402,5 @@ def segment_sum_2d(msgs: torch.Tensor, dst: torch.Tensor, num_nodes: int) -> tor
         err = lib.k8_segment_sum_2d(msgs.data_ptr(), dst.data_ptr(), out.data_ptr(),
                                     b, e, num_nodes, f, stream)
     _raise_on(err, K8)
-    LAUNCHES[K8] += 1
+    build.count_launch(LAUNCHES, BYTES, K8, msgs, dst, out)
     return out

@@ -7,12 +7,18 @@ launch but runs nothing, and a replay runs every recorded launch with no
 Python call. So a captured graph keeps the counts its capture added
 (``since``), takes them back out (``add(delta, -1)``) and adds them again on
 every replay (``add(delta)``): the counters then say what ran on the card.
+
+Beside its count each wrapper adds the bytes of its launch to its ``BYTES``
+entry (``bytes_snapshot``): the kernels' share of utils/traffic.py's count,
+which a ``ctypes`` launch hides from PyTorch's dispatcher. A replay adds no
+bytes: traffic is counted on an eager run.
 """
 from __future__ import annotations
 
 from caster_dta_torch.ops import cuda_attention, cuda_gvp_message, cuda_segment
 
 COUNTERS = (cuda_segment.LAUNCHES, cuda_gvp_message.LAUNCHES, cuda_attention.LAUNCHES)
+BYTE_COUNTERS = (cuda_segment.BYTES, cuda_gvp_message.BYTES, cuda_attention.BYTES)
 
 
 def snapshot() -> dict:
@@ -34,7 +40,12 @@ def add(delta: dict, times: int = 1) -> None:
             counter[k] += times * delta[k]
 
 
+def bytes_snapshot() -> dict:
+    """The bytes every kernel's launches have read and written so far."""
+    return {k: v for counter in BYTE_COUNTERS for k, v in counter.items()}
+
+
 def reset() -> None:
-    for counter in COUNTERS:
+    for counter in COUNTERS + BYTE_COUNTERS:
         for k in counter:
             counter[k] = 0

@@ -13,9 +13,17 @@ Beside the JAX package's artifacts a run writes ``train_history.json`` (the
 per-epoch history) and ``test_metrics.json``; ``main`` returns ``fit``'s
 result with the dataset under ``"dataset"``. The port adds ``--device`` and
 the synthetic set's sizes (``--synthetic-pairs``, ``--synthetic-proteins``,
-``--synthetic-molecules``). The multi-device flags
-(``--n-dp``, ``--gp``, ``--coordinator``, ``--n-processes``,
-``--process-id``) are refused until they are ported (ROADMAP Queue 1 item 11).
+``--synthetic-molecules``).
+
+Multi-device training (parallel/), one process per device: ``--n-dp`` splits
+every batch over that many ranks, ``--gp`` trains proteins larger than the
+bucket ladder edge-partitioned over that many (``n_dp x gp`` ranks in all).
+With ``--coordinator`` (``host:port`` or a ``tcp://``/``file://`` URL),
+``--n-processes`` and ``--process-id`` this process joins that group as one
+rank (the multi-host form). Without them and with more than one rank, the CLI featurizes
+once and starts the ranks itself on this host, rank r on ``cuda:(r mod
+cards)``; a failing rank fails the run. Rank 0 alone writes the run's files,
+the same files a single-process run writes.
 """
 from __future__ import annotations
 
@@ -23,6 +31,10 @@ import argparse
 import json
 import os
 import pickle
+import subprocess
+import sys
+import tempfile
+import time
 
 import numpy as np
 
@@ -53,7 +65,7 @@ DEFAULT_DATASET_KWARGS = dict(
 # the dataset cache's file prefix: the JAX package's caches are
 # 00_datasetobj__*.pkl, and neither package loads the other's
 CACHE_PREFIX = "00_datasetobj_torch__"
-_MULTI_DEVICE_FLAGS = ("n_dp", "gp", "coordinator", "n_processes", "process_id")
+_GROUP_FLAGS = ("coordinator", "n_processes", "process_id")
 
 
 def default_model_kwargs(metadata: dict):
@@ -159,24 +171,111 @@ def parser() -> argparse.ArgumentParser:
                    help="--dataset synthetic: molecules (default 8)")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="where the model trains: the card unless asked for the CPU")
-    for flag in ("--n-dp", "--gp", "--n-processes", "--process-id"):
-        p.add_argument(flag, type=int, default=None, help="not ported (ROADMAP Queue 1 item 11)")
+    p.add_argument("--n-dp", type=int, default=None,
+                   help="data parallelism: split every batch over this many ranks, one "
+                        "process per device (parameters replicated, gradients all-reduced)")
+    p.add_argument("--gp", type=int, default=None,
+                   help="graph partitioning: proteins larger than the bucket ladder train "
+                        "edge-partitioned over this many ranks with a halo exchange per "
+                        "layer (parallel/partition.py) instead of raising. Ranks = n_dp * gp")
     p.add_argument("--coordinator", type=str, default=None,
-                   help="not ported (ROADMAP Queue 1 item 11)")
+                   help="join a process group: its address (host:port, or a tcp:// or "
+                        "file:// URL); with --n-processes and --process-id. Without the "
+                        "three and with more than one rank the CLI starts the ranks itself")
+    p.add_argument("--n-processes", type=int, default=None,
+                   help="the process group's size (n_dp * gp)")
+    p.add_argument("--process-id", type=int, default=None, help="this process's rank")
     return p
 
 
-def main(argv=None):
-    args = parser().parse_args(argv)
-    given = [f"--{name.replace('_', '-')}" for name in _MULTI_DEVICE_FLAGS
-             if getattr(args, name) is not None]
+def _check_multi_device(args) -> int:
+    """The ranks the flags ask for; SystemExit, before any work, on flags
+    that do not fit together."""
+    for name in ("n_dp", "gp", "n_processes"):
+        value = getattr(args, name)
+        if value is not None and value < 1:
+            raise SystemExit(f"--{name.replace('_', '-')} must be at least 1, not {value}")
+    n_ranks = (args.n_dp or 1) * (args.gp or 1)
+    given = [k for k in _GROUP_FLAGS if getattr(args, k) is not None]
     if given:
-        raise NotImplementedError(f"{', '.join(given)}: multi-device training is not ported "
-                                  "yet: ROADMAP Queue 1 item 11")
+        missing = [f"--{k.replace('_', '-')}" for k in _GROUP_FLAGS if k not in given]
+        if missing:
+            raise SystemExit(f"joining a process group needs {', '.join(missing)}")
+        if args.n_processes != n_ranks:
+            raise SystemExit(f"the process group has {args.n_processes} processes; --n-dp x "
+                             f"--gp asks for {n_ranks}")
+    if (args.gp or 1) > 1:
+        # the partitioned tower is lbamodel's; a resumed or fine-tuned run
+        # names its own tower in model_kwargs.json
+        src = None
+        if args.resume:
+            src = os.path.join(args.out_folder, "model_kwargs.json")
+        elif args.checkpoint is not None:
+            d = args.checkpoint if os.path.isdir(args.checkpoint) else os.path.dirname(
+                args.checkpoint)
+            src = os.path.join(d, "model_kwargs.json")
+        if src is not None and os.path.exists(src):
+            with open(src) as f:
+                bc = json.load(f)["protein_gnn_kwargs"].get("base_conv", "lbamodel")
+            if bc != "lbamodel":
+                raise SystemExit(f"--gp: the partitioned protein tower supports "
+                                 f"base_conv='lbamodel' only (this run's model_kwargs.json "
+                                 f"has base_conv={bc!r}); train without --gp or switch the "
+                                 f"protein tower")
+    return n_ranks
 
-    os.makedirs(args.out_folder, exist_ok=True)
-    print(f"Using dataset: {args.dataset}\nUsing seed: {args.seed}\n"
-          f"Output folder: {args.out_folder}", flush=True)
+
+def launch_local_ranks(argv: list, n_ranks: int) -> None:
+    """Run this CLI as ``n_ranks`` processes on this host, joined by a
+    ``file://`` group in a fresh temporary directory; wait for all of them.
+    When one fails the others are stopped and RuntimeError names it."""
+    with tempfile.TemporaryDirectory(prefix="caster_dta_group_") as tmp:
+        group = f"file://{os.path.join(tmp, 'group')}"
+        env = dict(os.environ, LOCAL_WORLD_SIZE=str(n_ranks))
+        # the ranks share this host's cores
+        env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // n_ranks)))
+        procs = [subprocess.Popen([sys.executable, "-m", "caster_dta_torch.train.driver", *argv,
+                                   "--coordinator", group, "--n-processes", str(n_ranks),
+                                   "--process-id", str(r)], env=env)
+                 for r in range(n_ranks)]
+        try:
+            while True:
+                codes = [p.poll() for p in procs]
+                failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+                if failed:
+                    raise RuntimeError(f"rank {failed[0]} of {n_ranks} exited with code "
+                                       f"{codes[failed[0]]}")
+                if all(c == 0 for c in codes):
+                    return
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.terminate()
+            for p in procs:
+                p.wait()
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parser().parse_args(argv)
+    n_ranks = _check_multi_device(args)
+    joined = any(getattr(args, k) is not None for k in _GROUP_FLAGS)
+    rank = 0
+    if joined:
+        from caster_dta_torch.parallel.mesh import init_distributed
+
+        import torch.distributed as dist
+
+        init_distributed(args.coordinator, args.n_processes, args.process_id,
+                         device=args.device)
+        rank = dist.get_rank()
+    writer = rank == 0
+
+    if writer:
+        os.makedirs(args.out_folder, exist_ok=True)
+        print(f"Using dataset: {args.dataset}\nUsing seed: {args.seed}\n"
+              f"Output folder: {args.out_folder}", flush=True)
 
     sizes = {}
     if args.dataset.lower() == "synthetic":
@@ -195,9 +294,25 @@ def main(argv=None):
                                structures_dir=args.structures_dir, **sizes)
     dataset_kwargs = dict(DEFAULT_DATASET_KWARGS)
     cache_dir = args.structures_dir or os.path.join(args.data_root, "cache")
+    if joined and not writer:
+        import torch.distributed as dist
+
+        dist.barrier()      # rank 0 featurizes into the cache first
     dataset = build_or_load_dataset(records, cache_dir, dataset_kwargs,
                                     n_workers=args.n_workers)
-    print(dataset, flush=True)
+    if joined and writer:
+        import torch.distributed as dist
+
+        dist.barrier()
+    if writer:
+        print(dataset, flush=True)
+    if not joined and n_ranks > 1 and not args.skip_training:
+        launch_local_ranks(argv, n_ranks)
+        with open(os.path.join(args.out_folder, "train_history.json")) as f:
+            history = json.load(f)
+        with open(os.path.join(args.out_folder, "test_metrics.json")) as f:
+            test_metrics = json.load(f)
+        return {"history": history, "test_metrics": test_metrics, "dataset": dataset}
 
     saved_kwargs_path = os.path.join(args.out_folder, "model_kwargs.json")
     initial_params = None
@@ -222,19 +337,18 @@ def main(argv=None):
             ckpt_dir, args.use_best, param_file=param_file, device="cpu")
         pk, mk, jk = (ck["protein_gnn_kwargs"], ck["molecule_gnn_kwargs"],
                       ck["joint_gnn_kwargs"])
-        checkpoints.save_run_artifacts(args.out_folder, dataset_kwargs,
-                                       dataset._report_scale_data(), pk, mk, jk)
     else:
         pk, mk, jk = default_model_kwargs(dataset.metadata_dict)
         pk["num_convs"] = args.protein_convs
         mk["num_convs"] = args.molecule_convs
+    if writer and not (args.resume and os.path.exists(saved_kwargs_path)):
         checkpoints.save_run_artifacts(args.out_folder, dataset_kwargs,
                                        dataset._report_scale_data(), pk, mk, jk)
 
     max_num, max_bsize = dataset_budgets(args.dataset)
     # bf16 matmuls = the reference's AMP-on default (train_model.py:478)
     cfg = TrainConfig(n_epochs=args.n_epochs, seed=args.seed, resume=args.resume,
-                      compute_dtype="bfloat16")
+                      compute_dtype="bfloat16", n_dp=args.n_dp, gp=args.gp)
 
     if args.skip_training:
         model, params, _ = load_model_from_checkpoint(
@@ -252,12 +366,17 @@ def main(argv=None):
                          "joint_gnn_kwargs": jk})
     result = fit(model, dataset, args.dataset, args.out_folder, cfg,
                  max_num=max_num, max_batch_size=max_bsize,
-                 initial_params=initial_params, device=args.device)
-    with open(os.path.join(args.out_folder, "train_history.json"), "w") as f:
-        json.dump(result["history"], f, indent=4)
-    with open(os.path.join(args.out_folder, "test_metrics.json"), "w") as f:
-        json.dump(result["test_metrics"], f, indent=4)
-    print("Test metrics:", json.dumps(result["test_metrics"], indent=2), flush=True)
+                 initial_params=initial_params, device=args.device, verbose=writer)
+    if writer:
+        with open(os.path.join(args.out_folder, "train_history.json"), "w") as f:
+            json.dump(result["history"], f, indent=4)
+        with open(os.path.join(args.out_folder, "test_metrics.json"), "w") as f:
+            json.dump(result["test_metrics"], f, indent=4)
+        print("Test metrics:", json.dumps(result["test_metrics"], indent=2), flush=True)
+    if joined:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return {**result, "dataset": dataset}
 
 

@@ -23,9 +23,20 @@ same megabatches run eagerly.
 ``fit`` writes the train state (train/checkpoints.py ``save_train_state``:
 parameters, optimizer state, the dropout generator, the scheduler, the best
 losses and the history) every ``save_state_every`` epochs and at the end, and
-``resume`` continues a run from it, bit for bit the straight run's. Not
-ported yet, refused by ``TrainConfig``: data and graph parallelism. The
+``resume`` continues a run from it, bit for bit the straight run's. The
 JAX-only knobs ``prng_impl`` and ``flat_params`` have no counterpart here.
+
+Multi-device training (``n_dp``, ``gp``) runs one process per device
+(parallel/mesh.py): the ``Trainer`` takes a ``Mesh``, each rank steps on its
+rows of every batch (standard buckets split over all ``n_dp x gp`` ranks),
+the loss's weighted sums are summed over the ranks before the division and
+the gradients are all-reduced, so a parallel run is the single-device run
+with its sums in another order; dropout masks are global-canonical
+(nn/common.py ``dropout_shards``). With ``gp``, proteins larger than the
+ladder train edge-partitioned (parallel/partition.py) in a sub-epoch of
+their own (``train_epoch_partitioned``). Under NCCL the store steps and their
+all-reduce are captured as CUDA graphs as on one card; under gloo (the CPU,
+and ranks sharing a card) and on the partitioned path steps run eagerly.
 """
 from __future__ import annotations
 
@@ -38,25 +49,22 @@ from typing import Optional
 import numpy as np
 import torch
 
-from caster_dta_torch.data.batching import BucketedLoader, PairBatch
+from caster_dta_torch.data.batching import (BucketedLoader, PairBatch, PartitionedLoader,
+                                            split_overflow_indices)
 from caster_dta_torch.data.device_cache import DeviceResidentLoader, MegaBatch, take, upload
 from caster_dta_torch.device import resolve_device
 from caster_dta_torch.interop.from_jax import (load_jax_params, state_dict_from_jax,
                                                to_jax_params, tree_from_tensors)
-from caster_dta_torch.nn.common import compute_dtype, f32_precision
+from caster_dta_torch.nn.common import compute_dtype, dropout_shards, f32_precision
 from caster_dta_torch.nn.norm import MaskedBatchNorm
 from caster_dta_torch.train import checkpoints, graphs, metrics as metrics_mod
 from caster_dta_torch.train.optim import (BATCH_SCHEDULERS, make_optimizer, make_scheduler,
                                           set_learning_rate)
+from caster_dta_torch.utils.profiling import ThroughputMeter
 
 _COMPUTE_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16,
                    "bf16": torch.bfloat16}
 
-# field: (the value that means "off", the ROADMAP item that ports it)
-_NOT_PORTED = {
-    "n_dp": (None, "Queue 1 item 11 (multi-device)"),
-    "gp": (None, "Queue 1 item 11 (multi-device)"),
-}
 # torch optimizer state -> its name in the JAX package's optax state
 _OPT_STATE_NAMES = {"exp_avg": "mu", "exp_avg_sq": "nu", "momentum_buffer": "trace"}
 
@@ -64,8 +72,7 @@ _OPT_STATE_NAMES = {"exp_avg": "mu", "exp_avg_sq": "nu", "momentum_buffer": "tra
 @dataclass
 class TrainConfig:
     """The reference's training constants (train_model.py:392-419), as in
-    caster_dta_tpu. ``n_dp`` and ``gp`` are not ported yet: any value but
-    None or 1 raises NotImplementedError."""
+    caster_dta_tpu."""
 
     n_epochs: int = 2000
     optimizer: str = "adam"
@@ -94,15 +101,21 @@ class TrainConfig:
     # a store-backed epoch runs bucket by bucket (train_megabatch): on the
     # card as CUDA-graph replays of the step
     scan_steps: bool = True
+    # data parallelism: every batch split over this many ranks, one process
+    # per device (parallel/mesh.py); bucket batch sizes round up to a
+    # multiple of the ranks. None/1 = one device
     n_dp: Optional[int] = None
+    # graph partitioning: proteins larger than the bucket ladder train
+    # edge-partitioned over this many ranks (parallel/partition.py) instead of
+    # raising. Ranks = (n_dp or 1) * gp; standard buckets split over all of them
     gp: Optional[int] = None
 
     def __post_init__(self):
-        for name, (off, item) in _NOT_PORTED.items():
+        for name in ("n_dp", "gp"):
             value = getattr(self, name)
-            if value != off and value != 1:
-                raise NotImplementedError(f"TrainConfig.{name}={value!r} is not ported yet: "
-                                          f"ROADMAP {item}")
+            if value is not None and (not isinstance(value, int) or value < 1):
+                raise ValueError(f"TrainConfig.{name} must be None or an int >= 1, not "
+                                 f"{value!r}")
         if self.compute_dtype not in _COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(map(str, _COMPUTE_DTYPES))}")
         if self.grad_accum < 1:
@@ -124,44 +137,6 @@ def clip_by_global_norm(grads: list, max_norm: float) -> list:
     return [torch.where(g_norm < max_norm, g, g / g_norm * max_norm) for g in grads]
 
 
-class ThroughputMeter:
-    """Windowed edges/s and pairs/s of the training steps (wall clock)."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self._t: list = []
-        self._edges: list = []
-        self._pairs: list = []
-        self.total_edges = self.total_pairs = self.total_steps = 0
-
-    def step(self, n_edges: int, n_pairs: int) -> None:
-        self.total_edges += int(n_edges)
-        self.total_pairs += int(n_pairs)
-        self.total_steps += 1
-        self._t.append(time.perf_counter())
-        self._edges.append(int(n_edges))
-        self._pairs.append(int(n_pairs))
-        if len(self._t) > self.window + 1:
-            self._t.pop(0), self._edges.pop(0), self._pairs.pop(0)
-
-    def _rate(self, counts: list) -> float:
-        dt = self._t[-1] - self._t[0] if len(self._t) >= 2 else 0.0
-        return float(sum(counts[1:]) / dt) if dt > 0 else 0.0
-
-    @property
-    def edges_per_s(self) -> float:
-        return self._rate(self._edges)
-
-    @property
-    def pairs_per_s(self) -> float:
-        return self._rate(self._pairs)
-
-    def summary(self) -> dict:
-        return {"edges_per_s": self.edges_per_s, "pairs_per_s": self.pairs_per_s,
-                "total_edges": self.total_edges, "total_pairs": self.total_pairs,
-                "total_steps": self.total_steps}
-
-
 def _max_batch_width(loader) -> int:
     """The largest batch size over the loader's buckets."""
     bl = getattr(loader, "loader", loader)   # unwrap DeviceResidentLoader
@@ -179,11 +154,18 @@ class Trainer:
     (train/optim.py), so that a CUDA graph of the step (the scan path) and an
     eager step (``train_step``) take the same step, bit for bit; with
     ``scan_steps=False`` it is the eager form. Learning rates are rounded to
-    f32, as the JAX step injects them."""
+    f32, as the JAX step injects them.
+
+    With a ``mesh`` (parallel/mesh.py) the trainer is one rank of a parallel
+    run on ``mesh.device``: every step and eval takes the whole batch, works
+    on this rank's rows and returns the whole batch's loss and predictions.
+    Its steps are CUDA graphs only under NCCL (as on one card); under gloo
+    they run eagerly."""
 
     def __init__(self, model: torch.nn.Module, config: TrainConfig,
-                 device: str | torch.device = "cuda"):
-        self.device = resolve_device(device)
+                 device: str | torch.device = "cuda", mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         norms = [name for name, m in model.named_modules() if isinstance(m, MaskedBatchNorm)]
         if norms:
             # the JAX Trainer applies the model with its batch_stats but not
@@ -198,16 +180,27 @@ class Trainer:
         self.dtype = _COMPUTE_DTYPES[config.compute_dtype]
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         on_card = self.device.type == "cuda"
+        captured = (on_card and config.scan_steps
+                    and (mesh is None or mesh.backend == "nccl"))
+        if mesh is not None:
+            from caster_dta_torch.parallel.mesh import replicate_params
+
+            replicate_params(self.model, mesh)
+            if mesh.rank == 0:
+                print(f"Trainer: rank 0 of {mesh.world} (dp {mesh.n_dp} x gp {mesh.gp}), "
+                      f"{mesh.backend} on {self.device.type}: store steps "
+                      f"{'captured as CUDA graphs' if captured else 'run eagerly'}",
+                      flush=True)
         self.optimizer = make_optimizer(config.optimizer, self.params, config.lr,
-                                        config.weight_decay,
-                                        capturable=on_card and config.scan_steps)
+                                        config.weight_decay, capturable=captured)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
         self._mini_step = 0
         self._acc: Optional[list] = None
         # the accumulation divisor of an eager step, a device tensor as in the graphs
         self._div = torch.zeros((), device=self.device)
-        self._graphs = graphs.GraphCache(self.device) if on_card and config.scan_steps else None
+        self._graphs = graphs.GraphCache(self.device) if captured else None
+        self._part_steps = None
 
     # ----------------------------------------------------------- params
     def params_tree(self) -> dict:
@@ -345,18 +338,44 @@ class Trainer:
         if self.model.training != train:
             self.model.train(train)
 
+    def _shards(self):
+        """Global-canonical dropout over the rows of a batch split over the
+        world (a no-op on one rank)."""
+        m = self.mesh
+        return dropout_shards({0: (m.rank, m.world)} if m is not None and m.world > 1 else {})
+
+    def _local(self, batch):
+        """This rank's rows of a batch (the batch itself without a mesh)."""
+        from caster_dta_torch.parallel.mesh import shard_batch
+
+        return batch if self.mesh is None else shard_batch(batch, self.mesh)
+
+    def _gather(self, local: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's rows of a per-pair result, in batch order."""
+        return local if self.mesh is None else self.mesh.gather(local, dim=dim)
+
     def _loss(self, protein, molecule, target, weight):
-        with f32_precision(), compute_dtype(self.dtype):
+        """(this rank's part of the masked loss, pred [B] f32): the weights
+        are summed over the world before the division (JAX's psum), so the
+        parts sum to the whole batch's loss."""
+        with f32_precision(), compute_dtype(self.dtype), self._shards():
             pred, _ = self.model(protein, molecule, return_attention=False,
                                  generator=self.generator)
         pred = pred[:, 0].to(torch.float32)
-        loss = torch.sum(weight * (pred - target) ** 2) / torch.clamp(weight.sum(), min=1.0)
+        den = weight.sum()
+        if self.mesh is not None:
+            den = self.mesh.all_reduce(den)
+        loss = torch.sum(weight * (pred - target) ** 2) / torch.clamp(den, min=1.0)
         return loss, pred
 
     def loss(self, batch: PairBatch):
         """(masked loss, pred [B] f32) of a batch on the device, with the
         model in its current mode and the trainer's compute dtype."""
-        return self._loss(batch.protein, batch.molecule, batch.target, batch.weight)
+        local = self._local(batch)
+        loss, pred = self._loss(local.protein, local.molecule, local.target, local.weight)
+        if self.mesh is not None:
+            loss = self.mesh.all_reduce(loss.detach().clone())
+        return loss, self._gather(pred)
 
     def _step(self, protein, molecule, target, weight, lr, div, apply: bool):
         """The train step's work on the device: loss, gradients, optax's
@@ -364,30 +383,42 @@ class Trainer:
         (``apply`` on the k-th mini step, which also zeroes the accumulators),
         clip, and the optimizer at learning rate ``lr`` (a number or a device
         tensor) -> (loss, pred [B]). The same calls run eagerly and under CUDA
-        graph capture."""
-        set_learning_rate(self.optimizer, lr)
+        graph capture. With a mesh the inputs are this rank's rows, the
+        gradients and the loss are summed over the world in one all-reduce,
+        and pred is this rank's."""
         with f32_precision():
             loss, pred = self._loss(protein, molecule, target, weight)
             grads = list(torch.autograd.grad(loss, self.params))
-            accumulate = self.config.grad_accum > 1
-            if accumulate:
-                if self._acc is None:
-                    self._acc = [torch.zeros_like(g) for g in grads]
-                for a, g in zip(self._acc, grads):
-                    a.add_((g - a) / div)
-                if not apply:
-                    return loss.detach(), pred.detach()
-                grads = self._acc
-            if self.config.clip_norm is not None:
-                grads = clip_by_global_norm(grads, self.config.clip_norm)
-            for p, g in zip(self.params, grads):
-                p.grad = g
-            self.optimizer.step()
-            for p in self.params:
-                p.grad = None
-            if accumulate:
-                torch._foreach_zero_(self._acc)
-        return loss.detach(), pred.detach()
+            loss = loss.detach()
+            if self.mesh is not None:
+                *grads, loss = self.mesh.all_reduce_grads(grads + [loss.reshape(1)])
+                loss = loss[0]
+            self._apply_grads(grads, lr, div, apply)
+        return loss, pred.detach()
+
+    def _apply_grads(self, grads: list, lr, div, apply: bool) -> None:
+        """The optimizer's part of a step on summed gradients: optax's
+        MultiSteps running mean when accumulating, clip, and the optimizer at
+        learning rate ``lr`` on the ``apply`` mini step."""
+        set_learning_rate(self.optimizer, lr)
+        accumulate = self.config.grad_accum > 1
+        if accumulate:
+            if self._acc is None:
+                self._acc = [torch.zeros_like(g) for g in grads]
+            for a, g in zip(self._acc, grads):
+                a.add_((g - a) / div)
+            if not apply:
+                return
+            grads = self._acc
+        if self.config.clip_norm is not None:
+            grads = clip_by_global_norm(grads, self.config.clip_norm)
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.optimizer.step()
+        for p in self.params:
+            p.grad = None
+        if accumulate:
+            torch._foreach_zero_(self._acc)
 
     def _next_mini_step(self) -> tuple:
         """(divisor, apply) of the next mini step, and advance the count."""
@@ -399,14 +430,15 @@ class Trainer:
         """One training step on ``batch`` (a PairBatch or StoreBatch) at
         learning rate ``lr`` (the config's when None) -> (loss, pred [B] f32),
         both left on the device unsynchronised."""
-        batch = batch.to(self.device)
+        batch = self._local(batch).to(self.device)
         self._set_mode(True)
         lr = float(np.float32(self.config.lr if lr is None else lr))
         div, apply = self._next_mini_step()
         if self.config.grad_accum > 1:
             self._div.fill_(div)
-        return self._step(batch.protein, batch.molecule, batch.target, batch.weight, lr,
-                          self._div, apply)
+        loss, pred = self._step(batch.protein, batch.molecule, batch.target, batch.weight, lr,
+                                self._div, apply)
+        return loss, self._gather(pred)
 
     def train_megabatch(self, mega: MegaBatch, lrs) -> tuple:
         """The k = ``mega.n_steps`` training steps of one bucket's megabatch,
@@ -420,7 +452,9 @@ class Trainer:
         optimizer has its state), then the step is captured (with grad_accum >
         1 twice: accumulate only, accumulate and apply) and each later step
         copies its row into the graph's static row and replays. Otherwise
-        every step runs eagerly, through the same code."""
+        every step runs eagerly, through the same code. With a mesh each step
+        takes this rank's rows and the predictions are gathered at the end."""
+        mega = self._local(mega)
         k, b = mega.p_rows.shape
         divs, applies = zip(*(self._next_mini_step() for _ in range(k)))
         packed = upload(graphs.pack_rows(mega.p_rows, mega.m_rows, mega.target, mega.weight,
@@ -438,7 +472,7 @@ class Trainer:
             "train", mega, packed, torch.empty(k, b + 1, device=self.device), body, applies,
             lambda warm: warm < graphs.WARMUP_STEPS or not self._ready(),
             (False, True) if self.config.grad_accum > 1 else (True,))
-        return out[:, b], out[:, :b]
+        return out[:, b], self._gather(out[:, :b], dim=1)
 
     def _run_steps(self, kind, mega, packed, out, body, variants, warming, captured):
         """``out[j] = body(packed[j], variants[j])`` for each step j. Without
@@ -490,9 +524,9 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch) -> torch.Tensor:
         """Predictions [B] f32 in eval mode (no dropout), on the device."""
-        batch = batch.to(self.device)
+        batch = self._local(batch).to(self.device)
         self._set_mode(False)
-        return self._eval_body(batch.protein, batch.molecule)
+        return self._gather(self._eval_body(batch.protein, batch.molecule))
 
     def _eval_body(self, protein, molecule) -> torch.Tensor:
         with f32_precision(), compute_dtype(self.dtype):
@@ -504,6 +538,7 @@ class Trainer:
         """Eval-mode predictions [k, B] f32 of one bucket's megabatch, on the
         device: on the card with ``scan_steps`` the first batch eagerly, then
         replays of the bucket's captured forward, as ``train_megabatch``."""
+        mega = self._local(mega)
         k, b = mega.p_rows.shape
         packed = upload(graphs.pack_rows(mega.p_rows, mega.m_rows, mega.target, mega.weight),
                         self.device)
@@ -514,9 +549,9 @@ class Trainer:
             return self._eval_body(take(mega.p_store, step.p_rows),
                                    take(mega.m_store, step.m_rows))
 
-        return self._run_steps("eval", mega, packed, torch.empty(k, b, device=self.device),
-                               body, [True] * k, lambda warm: warm < graphs.EVAL_WARMUP_STEPS,
-                               (True,))
+        return self._gather(self._run_steps(
+            "eval", mega, packed, torch.empty(k, b, device=self.device), body, [True] * k,
+            lambda warm: warm < graphs.EVAL_WARMUP_STEPS, (True,)), dim=1)
 
     @torch.no_grad()
     def eval_loss(self, batch: PairBatch) -> torch.Tensor:
@@ -643,6 +678,69 @@ class Trainer:
         pred, target, idx = (np.concatenate(x) for x in zip(*out))
         return float(np.average(losses, weights=sizes)), pred, target, idx
 
+    # ------------------------------------------- partitioned sub-epochs
+    def _partitioned_steps(self) -> tuple:
+        """The gp-partitioned (train_step, eval_step), built at first use;
+        the trainer's mesh must have gp > 1."""
+        if self._part_steps is None:
+            from caster_dta_torch.parallel import partition
+
+            if self.mesh is None or self.mesh.gp < 2:
+                raise ValueError("partitioned batches require a mesh with a 'gp' axis "
+                                 "(TrainConfig.gp)")
+
+            def apply_grads(grads, lr):
+                div, apply = self._next_mini_step()
+                if self.config.grad_accum > 1:
+                    self._div.fill_(div)
+                self._apply_grads(grads, float(np.float32(lr)), self._div, apply)
+
+            self._part_steps = partition.make_partitioned_fit_steps(
+                self.model, self.mesh, apply_grads, self.generator, self.dtype)
+        return self._part_steps
+
+    def train_epoch_partitioned(self, loader, lr: float, scheduler=None, epoch: int = 0,
+                                total_train: int = 0, processed0: int = 0, unscale=None,
+                                meter: Optional[ThroughputMeter] = None):
+        """Train the ladder-overflow pairs (data/batching.py PartitionedLoader)
+        edge-partitioned over gp, with train_epoch's bookkeeping; processed0
+        continues the batch scheduler's fractional epoch after the standard
+        sub-epoch -> (mean unscaled train MSE or None, lr, pairs processed)."""
+        train_step, _ = self._partitioned_steps()
+        n_processed = processed0
+        preds, deferred = [], []
+        for batch in loader:
+            _, pred = train_step(batch, lr)
+            mask = (batch.weight > 0).numpy()
+            n_real = int(mask.sum())
+            n_processed += n_real
+            if meter is not None:
+                meter.step(loader.last_batch_edges, n_real)
+            preds.append(pred)
+            deferred.append((mask, batch.target.numpy(), batch.pair_idx.numpy()))
+            if scheduler is not None and total_train:
+                lr = scheduler.step(epoch + n_processed / total_train)
+        if not deferred:
+            return None, lr, n_processed
+        losses, sizes, _ = self._batch_losses(self._split(preds, deferred), deferred, unscale)
+        return float(np.average(losses, weights=sizes)), lr, n_processed
+
+    def eval_epoch_partitioned(self, loader, unscale=None):
+        """eval_epoch over a PartitionedLoader -> (mean unscaled MSE or None,
+        predictions, targets, pair indices)."""
+        _, eval_step = self._partitioned_steps()
+        preds, deferred = [], []
+        with torch.no_grad():
+            for batch in loader:
+                preds.append(eval_step(batch))
+                deferred.append(((batch.weight > 0).numpy(), batch.target.numpy(),
+                                 batch.pair_idx.numpy()))
+        if not deferred:
+            return None, np.zeros(0), np.zeros(0), np.zeros(0, np.int32)
+        losses, sizes, out = self._batch_losses(self._split(preds, deferred), deferred, unscale)
+        pred, target, idx = (np.concatenate(x) for x in zip(*out))
+        return float(np.average(losses, weights=sizes)), pred, target, idx
+
 
 def split_dataset(dataset, seed: int, split_probs=(0.7, 0.15, 0.15)):
     """The dataset's own ``split`` labels ('train'/'val'/'test' per pair)
@@ -677,12 +775,37 @@ def split_leakage_report(dataset, train_idx, val_idx, test_idx) -> dict:
 _LADDER_KEYS = ("protein_node_ladder", "edge_ladder", "molecule_node_ladder",
                 "molecule_edge_ladder", "include_nodepair", "coalesce", "coalesce_min_batches",
                 "pad_cache_bytes")
+_PART_LADDER_KEYS = ("protein_node_ladder", "edge_ladder", "molecule_node_ladder",
+                     "molecule_edge_ladder", "halo_ladder")
+
+
+def _fit_mesh(config: TrainConfig, device):
+    """fit's mesh, as the JAX package builds it: gp > 1 gives the 2-D
+    ``n_dp x gp`` mesh, n_dp > 1 alone a 1-D one, else None (one device).
+    The process group must exist (parallel/mesh.py init_distributed)."""
+    from caster_dta_torch.parallel import mesh as pmesh
+
+    gp, n_dp = config.gp or 1, config.n_dp or 1
+    if gp > 1:
+        return pmesh.make_2d_mesh(n_dp, gp, device)
+    if n_dp > 1:
+        return pmesh.make_mesh(n_dp, device=device)
+    return None
+
+
+def _combine(parts) -> float:
+    """Weighted mean over (loss, n) contributions, skipping empty ones."""
+    parts = [(loss, n) for loss, n in parts if loss is not None and n > 0]
+    if not parts:
+        return np.inf
+    return float(sum(loss * n for loss, n in parts) / sum(n for _, n in parts))
 
 
 def fit(model, dataset, dataset_name: str, output_folder: str, config: TrainConfig,
         max_num: int, max_batch_size: int, n_epochs: Optional[int] = None,
         verbose: bool = True, initial_params: Optional[dict] = None,
-        ladder_kwargs: Optional[dict] = None, device: str | torch.device = "cuda") -> dict:
+        ladder_kwargs: Optional[dict] = None, device: str | torch.device = "cuda",
+        mesh=None) -> dict:
     """A training run with best-train, best-val and final checkpoints (flax
     ``.msgpack`` files that the JAX package reads), early stopping and test
     metrics of the best-val weights (the reference's train_model.py:534-802).
@@ -691,37 +814,91 @@ def fit(model, dataset, dataset_name: str, output_folder: str, config: TrainConf
     ``pair_indices`` (data/batching.PairDataset); its ``unscale_target``, when
     present, reports losses in the original units. As in the JAX package,
     each loader becomes a device-resident store (``DeviceResidentLoader.maybe``)
-    when ``config.device_data_budget`` is set and its stores fit the budget."""
-    os.makedirs(output_folder, exist_ok=True)
+    when ``config.device_data_budget`` is set and its stores fit the budget.
+
+    With ``config.n_dp`` or ``config.gp`` above 1, every rank of the process
+    group calls ``fit`` (parallel/mesh.py ``init_distributed`` first; ``mesh``
+    overrides the mesh the config gives, for example a 1-rank mesh that runs
+    the distributed code on one device). Rank 0 alone writes files and
+    prints; the output folder is the one every rank reads on resume. With
+    ``gp`` > 1, proteins larger than the bucket ladder train edge-partitioned
+    as an extra sub-epoch of each epoch (the reference refuses such proteins,
+    load_data.py:218-222); the result's ``overflow_pairs`` counts them.
+    ``ladder_kwargs`` overrides the bucket ladders."""
+    gp = config.gp or 1
+    if gp > 1:
+        # the partitioned tower is lbamodel's: refuse before any work
+        from caster_dta_torch.models.protein import VectorProteinGNN_LBAModel
+
+        tower = model.protein_gnn.gnn_model
+        if type(tower) is not VectorProteinGNN_LBAModel:
+            raise ValueError(f"TrainConfig.gp: the partitioned protein tower supports "
+                             f"base_conv='lbamodel' only (the model's protein tower is "
+                             f"{type(tower).__name__}); train without gp or switch the "
+                             f"protein tower")
     n_epochs = config.n_epochs if n_epochs is None else n_epochs
-    ladder_kwargs = {k: v for k, v in (ladder_kwargs or {}).items() if k in _LADDER_KEYS}
+    ladder_kwargs = dict(ladder_kwargs or {})
     train_idx, val_idx, test_idx = split_dataset(dataset, config.seed)
 
-    device = resolve_device(device)
+    if mesh is None:
+        mesh = _fit_mesh(config, device)
+    device = resolve_device(mesh.device if mesh is not None else device)
+    writer = mesh is None or mesh.rank == 0
+    verbose = verbose and writer
+    if writer:
+        os.makedirs(output_folder, exist_ok=True)
+
+    # ladder-overflow pairs go to the partitioned path when gp is on
+    ovf = {"train": [], "val": [], "test": []}
+    if gp > 1:
+        split_kw = {k: v for k, v in ladder_kwargs.items() if k == "protein_node_ladder"}
+        train_idx, ovf["train"] = split_overflow_indices(dataset, train_idx, **split_kw)
+        val_idx, ovf["val"] = split_overflow_indices(dataset, val_idx, **split_kw)
+        test_idx, ovf["test"] = split_overflow_indices(dataset, test_idx, **split_kw)
+
+    # standard buckets split over every rank (dp x gp); partitioned batches
+    # split their pairs over dp and each protein over gp
+    n_shard_all = mesh.world if mesh is not None else 1
 
     def mk_loader(idxs, shuffle, seed):
         dl = BucketedLoader(dataset, idxs, max_num=max_num, max_batch_size=max_batch_size,
-                            shuffle=shuffle, seed=seed, **ladder_kwargs)
+                            shuffle=shuffle, seed=seed, batch_multiple=n_shard_all,
+                            **{k: v for k, v in ladder_kwargs.items() if k in _LADDER_KEYS})
         if config.device_data_budget is not None:
             dl = DeviceResidentLoader.maybe(dl, config.device_data_budget, device=device)
         return dl
 
+    def mk_part_loader(idxs, shuffle, seed):
+        if gp <= 1 or not idxs:
+            return None
+        return PartitionedLoader(dataset, idxs, gp=gp, max_num=max_num,
+                                 max_batch_size=max_batch_size, shuffle=shuffle, seed=seed,
+                                 batch_multiple=mesh.n_dp,
+                                 **{k: v for k, v in ladder_kwargs.items()
+                                    if k in _PART_LADDER_KEYS})
+
     train_dl = mk_loader(train_idx, True, config.seed)
     val_dl = mk_loader(val_idx, False, config.seed + 1)
     test_dl = mk_loader(test_idx, False, config.seed + 2)
+    ovf_train_dl = mk_part_loader(ovf["train"], True, config.seed)
+    ovf_val_dl = mk_part_loader(ovf["val"], False, config.seed + 1)
+    ovf_test_dl = mk_part_loader(ovf["test"], False, config.seed + 2)
 
-    trainer = Trainer(model, config, device=device)
+    trainer = Trainer(model, config, device=device, mesh=mesh)
     if initial_params is not None:
         trainer.set_params(initial_params)
     resume_state = checkpoints.load_train_state(output_folder) if config.resume else None
     if resume_state is not None and checkpoints.is_jax_opt_state(resume_state["opt_state"]):
         # a JAX run's optax state, read (or refused) before anything is written
         resume_state["opt_state"] = trainer.opt_state_from_jax(resume_state["opt_state"])
-    leakage = split_leakage_report(dataset, train_idx, val_idx, test_idx)
-    with open(os.path.join(output_folder, "model_summary.txt"), "w") as f:
-        f.write(checkpoints.param_summary(trainer.params_tree()))
-    with open(os.path.join(output_folder, "model_standardprint.txt"), "w") as f:
-        f.write(repr(model))
+    leakage = split_leakage_report(dataset, train_idx + ovf["train"], val_idx + ovf["val"],
+                                   test_idx + ovf["test"])
+    n_train_total = len(train_idx) + len(ovf["train"])
+    if writer:
+        with open(os.path.join(output_folder, "model_summary.txt"), "w") as f:
+            f.write(checkpoints.param_summary(trainer.params_tree()))
+        with open(os.path.join(output_folder, "model_standardprint.txt"), "w") as f:
+            f.write(repr(model))
     if verbose:
         print("Split leakage:", leakage, flush=True)
 
@@ -739,11 +916,11 @@ def fit(model, dataset, dataset_name: str, output_folder: str, config: TrainConf
     def save_best(kind, loss, epoch):
         path = os.path.join(output_folder,
                             checkpoints.best_checkpoint_name(kind, dataset_name, loss, epoch))
-        checkpoints.save_params(trainer.params_tree(), path)
-        old = best_paths[kind]
-        if old is not None and old != path and os.path.exists(old):
-            os.remove(old)
-        best_paths[kind] = path
+        old, best_paths[kind] = best_paths[kind], path
+        if writer:
+            checkpoints.save_params(trainer.params_tree(), path)
+            if old is not None and old != path and os.path.exists(old):
+                os.remove(old)
 
     n_since_best_val = -1
     lr = config.lr
@@ -767,8 +944,9 @@ def fit(model, dataset, dataset_name: str, output_folder: str, config: TrainConf
                 vars(scheduler).update(st["scheduler"])
             # the epoch-indexed shuffles and bucket orders a straight run
             # would use from this epoch (the val loader runs once an epoch)
-            for dl in (train_dl, val_dl):
-                getattr(dl, "loader", dl).epoch = start_epoch
+            for dl in (train_dl, val_dl, ovf_train_dl, ovf_val_dl):
+                if dl is not None:
+                    getattr(dl, "loader", dl).epoch = start_epoch
             # adopt the interrupted run's best files so retention supersedes
             # them in place rather than keeping a second pile
             for kind in ("train", "val"):
@@ -781,6 +959,8 @@ def fit(model, dataset, dataset_name: str, output_folder: str, config: TrainConf
                       f"(best {best['train']:.4f}/{best['val']:.4f})", flush=True)
 
     def save_state(epoch):
+        if not writer:
+            return
         checkpoints.save_train_state(
             output_folder, params=trainer.params_tree(), opt_state=trainer.opt_state_tree(),
             rng=trainer.rng_state(), epoch=epoch, best_train=best["train"],
@@ -796,9 +976,17 @@ def fit(model, dataset, dataset_name: str, output_folder: str, config: TrainConf
     for epoch in range(start_epoch, n_epochs):
         t0 = time.time()
         mean_train, lr = ((np.inf, lr) if len(train_dl) == 0 else trainer.train_epoch(
-            train_dl, lr, scheduler=batch_sched, epoch=epoch, total_train=len(train_idx),
+            train_dl, lr, scheduler=batch_sched, epoch=epoch, total_train=n_train_total,
             unscale=unscale, meter=meter))
+        if ovf_train_dl is not None:
+            ovf_train, lr, _ = trainer.train_epoch_partitioned(
+                ovf_train_dl, lr, scheduler=batch_sched, epoch=epoch, total_train=n_train_total,
+                processed0=len(train_idx), unscale=unscale, meter=meter)
+            mean_train = _combine([(mean_train, len(train_idx)), (ovf_train, len(ovf["train"]))])
         mean_val = trainer.eval_epoch(val_dl, unscale=unscale)[0] if len(val_dl) else np.inf
+        if ovf_val_dl is not None:
+            ovf_val = trainer.eval_epoch_partitioned(ovf_val_dl, unscale=unscale)[0]
+            mean_val = _combine([(mean_val, len(val_idx)), (ovf_val, len(ovf["val"]))])
         n_since_best_val += 1
         marker = ""
         if mean_train < best["train"]:
@@ -831,23 +1019,38 @@ def fit(model, dataset, dataset_name: str, output_folder: str, config: TrainConf
     if config.save_state_every:
         save_state(epoch)
 
-    checkpoints.save_params(trainer.params_tree(), os.path.join(
-        output_folder, checkpoints.best_checkpoint_name("final", dataset_name, mean_val, epoch)))
+    if writer:
+        checkpoints.save_params(trainer.params_tree(), os.path.join(
+            output_folder, checkpoints.best_checkpoint_name("final", dataset_name, mean_val,
+                                                            epoch)))
 
-    # test metrics of the best-val weights (the final ones when no epoch ran)
-    try:
-        trainer.set_params(checkpoints.load_params(
-            checkpoints.get_best_model(output_folder, "val")))
-    except FileNotFoundError:
-        if verbose:
-            print("no best-val checkpoint on disk; test-evaluating with the final params",
-                  flush=True)
+    # test metrics of the best-val weights (the final ones when no epoch ran),
+    # read by rank 0 and sent to the others
+    if writer:
+        try:
+            trainer.set_params(checkpoints.load_params(
+                checkpoints.get_best_model(output_folder, "val")))
+        except FileNotFoundError:
+            if verbose:
+                print("no best-val checkpoint on disk; test-evaluating with the final params",
+                      flush=True)
+    if mesh is not None:
+        mesh.broadcast_params(trainer.model)
+    unscale_test = getattr(dataset, "unscale_target", None)
+    preds, targets = [], []
     if len(test_dl):
-        _, pred, target, _ = trainer.eval_epoch(
-            test_dl, unscale=getattr(dataset, "unscale_target", None))
-        report = metrics_mod.regression_report(pred, target)
+        _, pred, target, _ = trainer.eval_epoch(test_dl, unscale=unscale_test)
+        preds.append(pred)
+        targets.append(target)
+    if ovf_test_dl is not None:
+        _, pred, target, _ = trainer.eval_epoch_partitioned(ovf_test_dl, unscale=unscale_test)
+        preds.append(pred)
+        targets.append(target)
+    if preds:
+        report = metrics_mod.regression_report(np.concatenate(preds), np.concatenate(targets))
     else:
         report = {"note": "test split empty — no test metrics computed"}
     return {"history": history, "test_metrics": report, "best_val": best["val"],
             "best_train": best["train"], "throughput": meter.summary(), "leakage": leakage,
+            "overflow_pairs": {k: len(v) for k, v in ovf.items()},
             "params": trainer.params_tree(), "trainer": trainer}

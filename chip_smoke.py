@@ -126,7 +126,10 @@ Phases, each printed before it starts and after it ends with its wall time:
    eager store step, each with protein edges/s, kernel time, idle share and
    its longest kernels (torch.profiler), and nvidia-smi's SM clock and power
    draw over the timed steps; unfused, then fused (K5 fwd's bf16-step
-   instance from the profiler's kernel names).
+   instance from the profiler's kernel names). Then one line of traffic: the
+   eager flagship bf16 step's bytes at op boundaries (utils/traffic.py, the
+   hand kernels' bytes from their wrappers) and the share of 3.35 TB/s that
+   the replayed step's median time gives (a printed reading, not a metric).
 10. fit: two epochs of ``fit`` on a seeded synthetic dataset of FIT_PAIRS
    pairs in two buckets near the flagship sizes, checkpoints and run
    artifacts in a temporary directory, then ``load_run`` serves the best-val
@@ -162,7 +165,22 @@ Phases, each printed before it starts and after it ends with its wall time:
    zoo-cpd-gatv2 remat (eager and replayed, bit for bit the steps without
    it, peak memory of each). K1, K2 and K3 must launch, K4, K5 and K6 must
    not.
-13. times: each kernel (K3 also at the large protein's merged backward; K1,
+13. multidevice (``multidevice_phase``; this script runs its ranks as
+   children, ``chip_smoke.py --multidevice-child SPEC RANK``): (a) a 1-rank
+   NCCL group: ``fit`` on the flagship bucket (bf16, the store, the step and
+   its all-reduce captured as CUDA graphs) bit for bit the same fit without a
+   group (losses, parameters, launches); (b) ranks sharing the card take gloo
+   (the backend rule of parallel/mesh.py), after a probe of whether this gloo
+   takes CUDA tensors itself: a ``dp=2`` fit, a ``gp=2`` fit of
+   ladder-overflow proteins with dropout on, a ``dp=2 x gp=2`` fit (4 ranks)
+   at runs/davis_seed9's widths, each with dropout on and off, and
+   ``run_partitioned_joint`` on the large-protein request; each against the
+   single-rank card run (the same dropout masks) and, without dropout (the
+   CPU's generator draws other masks), the CPU run (the fits within
+   MD_FIT_TOL, the joint scores within MD_SCORE_TOL of the dense forward). Prints each run's wall time, steps/s,
+   halo bytes and launches per step; ranks sharing one card measure
+   correctness, not scaling. A failing or late child fails the phase.
+14. times: each kernel (K3 also at the large protein's merged backward; K1,
    K2 and K3 also at the zoo's row widths on the flagship graph), its
    plain version and the one PyTorch call that
    computes the same function, replayed from CUDA graphs and timed with CUDA
@@ -188,8 +206,8 @@ they differ, both answers go to a file in ``$CHIP_SMOKE_OUT`` (default
 Any failure raises and the script exits non-zero. On success the line before
 the last is ``{"kernels": [...]}``, whose launch counts are each kernel's over
 the phases that run it: evaluate's replayed runs, the analysis phase and
-the training phases (train, train-fused, train-graph, fit, cli, and zoo's
-training passes) for K1-K3, K5 and K6,
+the training phases (train, train-fused, train-graph, fit, cli, zoo's
+training passes and every rank of multidevice) for K1-K3, K5 and K6,
 serve-blockwise and evaluate for K4, kernels for K7 and K8; and the last
 is ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
@@ -1906,6 +1924,439 @@ def analysis_phase(torch, model_cpu, analysis_launches: dict) -> None:
     print(f"analysis launches over the phase: {analysis_launches}")
 
 
+# ------------------------------------------------------------- multidevice
+# the multidevice phase's runs: the CPU tests' small data at runs/davis_seed9's
+# widths (its model_kwargs, a seeded init), f32 so the CPU tests' tolerances
+# hold; the gp data overflow a (64, 128) ladder into 128-node shards, a
+# 256-row node space, the pad of the single run's (64, 128, 256) ladder
+MD_CFG = dict(n_epochs=2, lr=1e-3, seed=0, scheduler=None, early_stop_epochs=100,
+              print_unscaled_loss=False, save_state_every=0)
+MD_DP = dict(n_pairs=40, n_proteins=4, n_molecules=6, protein_nodes=[(40, 120)],
+             molecule_nodes=(10, 30), seed=3)
+MD_GP = dict(MD_DP, n_pairs=24, protein_nodes=[(130, 190)])
+MD_MIXED = dict(MD_DP, n_pairs=32, n_proteins=6, protein_nodes=[(60, 120), (140, 200)], seed=4)
+MD_LADDER, MD_BIG_LADDER = (64, 128), (64, 128, 256)
+MD_BATCH = 4
+MD_FIT_TOL = dict(rtol=2e-3, atol=2e-4)     # tests/test_torch_multidevice_fit.py's
+MD_SCORE_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_torch_partition.py's joint score
+MD_TIMEOUT_S = 300
+# (a)'s fit: the train-graph phase's store, the flagship bucket
+MD_FLAGSHIP = dict(n_pairs=GRAPH_PAIRS, n_proteins=24, n_molecules=16,
+                   protein_nodes=[(400, 500)], molecule_nodes=(20, 64), seed=1)
+
+
+def md_model(torch, dropout: bool = True, seed: int = 0):
+    """runs/davis_seed9's model at a seeded init, on the CPU; without
+    ``dropout`` every dropout rate 0."""
+    from caster_dta_torch.models.joint import make_joint_gnn
+
+    kw = json.load(open(os.path.join(RUN_DIR, "model_kwargs.json")))
+    pk, mk, jk = kw["protein_gnn_kwargs"], kw["molecule_gnn_kwargs"], kw["joint_gnn_kwargs"]
+    if not dropout:
+        pk, mk, jk = dict(pk, dropout_rate=0.0), dict(mk, dropout_rate=0.0), dict(jk, dropout=0.0)
+    return make_joint_gnn(pk, mk, generator=torch.Generator().manual_seed(seed), **jk)
+
+
+def md_fit(torch, spec: dict, cfg: dict, device, out: str, mesh=None, dropout: bool = True,
+           **fit_kw) -> dict:
+    """``fit`` of md_model on ``synthetic_pair_dataset(**spec)`` -> its losses,
+    wall time, steps and launches."""
+    from caster_dta_torch.data.batching import synthetic_pair_dataset
+    from caster_dta_torch.ops import launches
+    from caster_dta_torch.train.loop import TrainConfig, fit
+
+    ds = synthetic_pair_dataset(**spec)
+    launches.reset()
+    t0 = time.perf_counter()
+    res = fit(md_model(torch, dropout), ds, "synthetic", out, TrainConfig(**cfg), verbose=False,
+              device=device, mesh=mesh, max_num=1_000_000_000, max_batch_size=MD_BATCH,
+              **fit_kw)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trainer = res["trainer"]
+    return {"train": [h["train"] for h in res["history"]],
+            "val": [h["val"] for h in res["history"]],
+            "test_mse": res["test_metrics"].get("mse"), "overflow": res["overflow_pairs"],
+            "wall_s": wall, "steps": trainer.opt_state_tree()["count"],
+            "launches": launches.snapshot(),
+            "params": {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()},
+            "captured": [] if trainer._graphs is None else [k[:2] for k in trainer._graphs.keys()]}
+
+
+def two_sub_epoch_reference(model, ds, cfg: dict, ladder: tuple, gp: int,
+                            max_batch_size: int, device) -> dict:
+    """The single-rank run of what a ``gp`` fit does with ``ladder``: each
+    epoch the standard pairs, then the overflow pairs padded to the
+    partitioned run's node space (gp x the ladder's top), one trainer ->
+    per-epoch train and val losses (fit's weighted means)."""
+    from caster_dta_torch.data.batching import BucketedLoader, split_overflow_indices
+    from caster_dta_torch.train.loop import Trainer, TrainConfig, _combine, split_dataset
+
+    parts = {k: split_overflow_indices(ds, idx, protein_node_ladder=ladder)
+             for k, idx in zip(("train", "val", "test"), split_dataset(ds, cfg["seed"]))}
+    kw = dict(max_num=1_000_000_000, max_batch_size=max_batch_size)
+    std = {k: BucketedLoader(ds, parts[k][0], shuffle=k == "train", seed=cfg["seed"] + s,
+                             protein_node_ladder=ladder, **kw)
+           for s, k in enumerate(("train", "val"))}
+    ovf = {k: BucketedLoader(ds, parts[k][1], shuffle=k == "train", seed=cfg["seed"] + s,
+                             protein_node_ladder=(gp * ladder[-1],), **kw)
+           for s, k in enumerate(("train", "val"))}
+    trainer = Trainer(model, TrainConfig(**dict(cfg, device_data_budget=None)), device=device)
+    out = {"train": [], "val": [], "n_overflow": len(parts["train"][1])}
+
+    def train(dl):
+        return trainer.train_epoch(dl, cfg["lr"])[0] if len(dl) else None
+
+    def val(dl):
+        return trainer.eval_epoch(dl)[0] if len(dl) else None
+
+    for _ in range(cfg["n_epochs"]):
+        out["train"].append(_combine([(train(std["train"]), len(parts["train"][0])),
+                                      (train(ovf["train"]), len(parts["train"][1]))]))
+        out["val"].append(_combine([(val(std["val"]), len(parts["val"][0])),
+                                    (val(ovf["val"]), len(parts["val"][1]))]))
+    return out
+
+
+def md_large_joint(torch, device):
+    """The large-protein request (LARGE, seed as the serve phases') with its
+    proteins partitioned over 2 ranks on shared budgets -> (the batch, the
+    stacked ShardedProteinGraph)."""
+    from caster_dta_torch.data.batching import synthetic_pair_batch
+    from caster_dta_torch.parallel import partition
+
+    batch = synthetic_pair_batch(**LARGE, seed=N_REQUESTS_FLAGSHIP + 1)
+    p = batch.protein
+    graphs = []
+    for i in range(p.batch_size):
+        n, e = int(p.node_mask[i].sum()), int(p.edge_mask[i].sum())
+        graphs.append(dict(node_s=p.node_s[i, :n].numpy(), node_v=p.node_v[i, :n].numpy(),
+                           edge_index=torch.stack([p.edge_src[i, :e], p.edge_dst[i, :e]]).numpy(),
+                           edge_s=p.edge_s[i, :e].numpy(), edge_v=p.edge_v[i, :e].numpy(),
+                           node_type=p.node_type[i, :n].numpy(),
+                           edge_type=p.edge_type[i, :e].numpy()))
+    plans = [partition.partition_protein_graph(**g, n_shards=2, nodes_per_shard=p.n_pad // 2)
+             for g in graphs]
+    budgets = dict(nodes_per_shard=p.n_pad // 2,
+                   interior_edges_per_shard=max(s.int_src.shape[1] for s in plans),
+                   boundary_edges_per_shard=max(s.bnd_src_ext.shape[1] for s in plans),
+                   halo_per_peer=max(s.halo_per_peer for s in plans))
+    return batch, partition.stack_sharded([
+        partition.partition_protein_graph(**g, n_shards=2, **budgets) for g in graphs])
+
+
+def multidevice_child(spec_path: str, rank: int) -> None:
+    """One rank of the multidevice phase (``chip_smoke.py --multidevice-child
+    SPEC RANK``): runs the spec's jobs in order and pickles their results to
+    ``<out>/rank<r>.pt``. Any error exits non-zero."""
+    for v in F32_OVERRIDES:
+        os.environ.pop(v, None)
+    import torch
+
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, HERE)
+    import torch.distributed as dist
+
+    from caster_dta_torch.inference.serve import load_run
+    from caster_dta_torch.ops import launches
+    from caster_dta_torch.parallel import mesh as pmesh
+    from caster_dta_torch.parallel import partition
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = spec["device"]
+    results = {}
+
+    def join():
+        # the backend by the rule: ranks sharing the card take gloo
+        pmesh.init_distributed(spec["group"], spec["world"], rank, device=device,
+                               local_processes=spec["world"])
+        results["backend"] = dist.get_backend()
+
+    for job in spec["jobs"]:
+        kind, name = job["kind"], job["name"]
+        out = os.path.join(spec["out"], f"{name}_rank{rank}")
+        if kind == "nccl1":
+            # the same fit without a process group, then through the
+            # distributed code of a 1-rank NCCL group
+            results[name + " without a group"] = md_fit(torch, job["data"], job["cfg"], device,
+                                                        out + "_plain", **job["fit"])
+            join()
+            results[name] = md_fit(torch, job["data"], job["cfg"], device, out,
+                                   mesh=pmesh.make_mesh(1, device=device), **job["fit"])
+            continue
+        if not dist.is_initialized():
+            join()
+        if kind == "probe":
+            # does this gloo take the card's tensors itself? (the port stages
+            # them through host buffers under gloo either way)
+            found = {}
+            x = torch.arange(4.0, device=device) + 10 * rank
+            for op, call in (("all_to_all_single", lambda: dist.all_to_all_single(
+                                  torch.empty_like(x), x)),
+                             ("all_gather", lambda: dist.all_gather(
+                                  [torch.empty_like(x) for _ in range(spec["world"])], x))):
+                try:
+                    call()
+                    if torch.device(device).type == "cuda":
+                        torch.cuda.synchronize()
+                    found[op] = "takes CUDA tensors"
+                except (RuntimeError, ValueError) as e:
+                    found[op] = f"refuses CUDA tensors ({str(e).splitlines()[0][:120]})"
+            results[name] = found
+        elif kind == "fit":
+            mesh = pmesh.make_2d_mesh(job["n_dp"], job["gp"], device=device)
+            results[name] = md_fit(torch, job["data"], job["cfg"], device, out, mesh=mesh,
+                                   dropout=job["dropout"], **job["fit"])
+            if job["gp"] > 1:
+                from caster_dta_torch.data.batching import (PartitionedLoader,
+                                                            split_overflow_indices,
+                                                            synthetic_pair_dataset)
+                ds = synthetic_pair_dataset(**job["data"])
+                _, ovf = split_overflow_indices(ds, protein_node_ladder=tuple(
+                    job["fit"]["ladder_kwargs"]["protein_node_ladder"]))
+                first = next(iter(PartitionedLoader(
+                    ds, ovf, gp=job["gp"], max_num=1_000_000_000, max_batch_size=MD_BATCH,
+                    batch_multiple=job["n_dp"], **job["fit"]["ladder_kwargs"])))
+                # one rank's send at one exchange: its dp row's pairs
+                results[name]["halo_bytes"] = partition.halo_bytes(
+                    first.sharded.local(0), 28) // job["n_dp"]
+        elif kind == "joint":
+            mesh = pmesh.make_mesh(spec["world"], axis_name="gp", device=device)
+            model = load_run(RUN_DIR, device=device).model.eval()
+            batch, sharded = md_large_joint(torch, device)
+            launches.reset()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                score = partition.run_partitioned_joint(model, sharded, batch.molecule, mesh)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            results[name] = {"score": score.cpu(), "wall_s": time.perf_counter() - t0,
+                             "launches": launches.snapshot(),
+                             "halo_bytes": partition.halo_bytes(sharded.local(0), 28)}
+    torch.save(results, os.path.join(spec["out"], f"rank{rank}.pt"))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def start_ranks(spec: dict, tmp: str) -> list:
+    """Start ``spec['world']`` children running ``multidevice_child``; their
+    output goes to log files in ``tmp``."""
+    path = os.path.join(tmp, f"{spec['tag']}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    procs = []
+    for r in range(spec["world"]):
+        log = open(os.path.join(tmp, f"{spec['tag']}_rank{r}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                        "--multidevice-child", path, str(r)],
+                                       stdout=log, stderr=subprocess.STDOUT, cwd=HERE), log))
+    return procs
+
+
+def wait_ranks(torch, spec: dict, procs: list, tmp: str) -> list:
+    """Wait for every child of ``start_ranks``; a failing or late child stops
+    the others and raises with the end of its log -> each rank's results."""
+    deadline = time.monotonic() + MD_TIMEOUT_S
+    try:
+        while True:
+            codes = [p.poll() for p, _ in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                r = bad[0] if bad else codes.index(None)
+                with open(os.path.join(tmp, f"{spec['tag']}_rank{r}.log")) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"multidevice {spec['tag']}: rank {r} "
+                                     f"{'exited with ' + str(codes[r]) if bad else 'timed out'}"
+                                     f":\n{tail}")
+            if all(c == 0 for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return [torch.load(os.path.join(spec["out"], f"rank{r}.pt"), weights_only=False)
+            for r in range(spec["world"])]
+
+
+def _close_losses(what: str, got: dict, want: dict, tol: dict) -> float:
+    import numpy as np
+
+    for k in ("train", "val"):
+        np.testing.assert_allclose(got[k], want[k], err_msg=f"{what}: {k} losses", **tol)
+    return max(abs(a - b) for k in ("train", "val") for a, b in zip(got[k], want[k]))
+
+
+def multidevice_phase(torch, train_launches: dict, device: str = "cuda") -> None:
+    """(a) a 1-rank NCCL group's fit, its store step captured with the
+    all-reduce, bit for bit the same fit without a group; (b) gloo ranks
+    sharing the card: dp=2, gp=2 (overflow), dp=2 x gp=2 (each with dropout
+    on and off) and the large-protein partitioned joint forward, each
+    against the single-rank card run and, without dropout, the CPU run.
+    Every rank's launches add to ``train_launches``."""
+    import numpy as np
+
+    from caster_dta_torch.nn.common import f32_precision
+
+    on_card = torch.device(device).type == "cuda"
+    fit_dp = dict(cfg=dict(MD_CFG, n_dp=2), data=MD_DP, fit={})
+    fit_gp = dict(cfg=dict(MD_CFG, gp=2, device_data_budget=None), data=MD_GP,
+                  fit={"ladder_kwargs": {"protein_node_ladder": list(MD_LADDER)}})
+    fit_mixed = dict(cfg=dict(MD_CFG, n_dp=2, gp=2, device_data_budget=None), data=MD_MIXED,
+                     fit={"ladder_kwargs": {"protein_node_ladder": list(MD_LADDER)}})
+    nccl_fit = dict(data=MD_FLAGSHIP, cfg=dict(MD_CFG, compute_dtype="bfloat16"),
+                    fit={"ladder_kwargs": {"molecule_node_ladder": [FLAGSHIP["n_m"]]}})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_md_") as tmp:
+        def spec(tag, world, jobs):
+            os.makedirs(os.path.join(tmp, tag), exist_ok=True)
+            return {"tag": tag, "world": world, "device": device,
+                    "group": f"file://{os.path.join(tmp, tag, 'group')}",
+                    "out": os.path.join(tmp, tag), "jobs": jobs}
+
+        s_nccl = spec("nccl1", 1, [dict(kind="nccl1", name="flagship fit", **nccl_fit)])
+        # each fit with dropout (held to the single-rank card run: the same
+        # masks) and without (also held to the CPU run, whose generator
+        # draws other masks)
+        fits = {"dp=2": (2, 1, fit_dp), "gp=2": (1, 2, fit_gp),
+                "dp=2 x gp=2": (2, 2, fit_mixed)}
+        jobs = {name: [dict(kind="fit", name=name + tag, n_dp=n_dp, gp=gp, dropout=drop, **job)
+                       for tag, drop in (("", True), (", dropout off", False))]
+                for name, (n_dp, gp, job) in fits.items()}
+        s_two = spec("gloo2", 2, [dict(kind="probe", name="probe"), *jobs["dp=2"],
+                                  *jobs["gp=2"], dict(kind="joint", name="joint")])
+        s_four = spec("gloo4", 4, jobs["dp=2 x gp=2"])
+        t0 = time.perf_counter()
+        # (a) first alone; then the gloo groups share the card
+        nccl = wait_ranks(torch, s_nccl, start_ranks(s_nccl, tmp), tmp)[0]
+        wall_a = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        running = [(s, start_ranks(s, tmp)) for s in (s_two, s_four)]
+
+        # the single-rank references, on the card and on the CPU, while the
+        # ranks run
+        # (reference, device) for each run: dropout on the card only
+        runs = [("", device, True), (", dropout off", device, False),
+                (", dropout off", "cpu", False)]
+        refs = {}
+        with tempfile.TemporaryDirectory() as rt:
+            from caster_dta_torch.data.batching import synthetic_pair_dataset
+
+            for name, (_, _, job) in fits.items():
+                cfg = {k: v for k, v in job["cfg"].items() if k not in ("n_dp", "gp")}
+                for tag, dev, drop in runs:
+                    if name == "dp=2 x gp=2":
+                        ref = two_sub_epoch_reference(
+                            md_model(torch, drop), synthetic_pair_dataset(**MD_MIXED), cfg,
+                            MD_LADDER, 2, MD_BATCH, dev)
+                    else:
+                        fit_kw = {"ladder_kwargs": {"protein_node_ladder": MD_BIG_LADDER}} if (
+                            name == "gp=2") else {}
+                        ref = md_fit(torch, job["data"], cfg, dev,
+                                     os.path.join(rt, name + tag + dev), dropout=drop, **fit_kw)
+                    refs[(name + tag, dev)] = ref
+            from caster_dta_torch.inference.serve import load_run
+
+            model_card = load_run(RUN_DIR, device=device).model.eval()
+            batch, _ = md_large_joint(torch, device)
+            with torch.no_grad(), f32_precision():
+                dense_card = model_card(batch.protein.to(device), batch.molecule.to(device),
+                                        return_attention=False)[0].cpu()
+            model_cpu = load_run(RUN_DIR, device="cpu").model.eval()
+            with f32_precision():
+                dense_cpu = cpu_reference(torch, lambda: model_cpu(
+                    batch.protein, batch.molecule, return_attention=False)[0].detach(),
+                    "multidevice large-protein dense forward")
+        ranks = {s["tag"]: wait_ranks(torch, s, procs, tmp) for s, procs in running}
+        wall_b = time.perf_counter() - t1
+
+    # (a) bit for bit, captured with the all-reduce
+    a, plain = nccl["flagship fit"], nccl["flagship fit without a group"]
+    if not (a["train"] == plain["train"] and a["val"] == plain["val"]):
+        raise AssertionError(f"multidevice (a): the 1-rank group's losses {a['train']} / "
+                             f"{a['val']} differ from the run without a group's {plain['train']} "
+                             f"/ {plain['val']}")
+    differ = [k for k in a["params"] if not torch.equal(a["params"][k], plain["params"][k])]
+    if differ:
+        raise AssertionError(f"multidevice (a): parameters differ: {differ[:5]}")
+    if a["launches"] != plain["launches"] or a["steps"] != plain["steps"]:
+        raise AssertionError(f"multidevice (a): launches {a['launches']} over {a['steps']} "
+                             f"steps vs {plain['launches']} over {plain['steps']}")
+    if on_card and not any(k[0] == "train" for k in a["captured"]):
+        raise AssertionError("multidevice (a): the store step was not captured")
+    if nccl["backend"] != ("nccl" if on_card else "gloo"):
+        raise AssertionError(f"multidevice (a): backend {nccl['backend']}")
+    per_step = {k: v / a["steps"] for k, v in a["launches"].items() if v}
+    print(f"multidevice (a) 1-rank {nccl['backend']} group, fit on the flagship bucket "
+          f"(bf16, store + {'graphs' if a['captured'] else 'eager steps'}; captured "
+          f"{sorted(set(a['captured']))}): losses, {len(a['params'])} parameters and launches bit "
+          f"for bit the same fit without a group; {a['steps']} steps in {a['wall_s']:.2f} s "
+          f"({a['steps'] / a['wall_s']:.2f} steps/s; without a group {plain['wall_s']:.2f} s); "
+          f"launches per step {per_step}; child wall {wall_a:.1f} s")
+    for k, v in a["launches"].items():
+        train_launches[k] = train_launches.get(k, 0) + v + plain["launches"].get(k, 0)
+
+    two, four = ranks["gloo2"], ranks["gloo4"]
+    print(f"multidevice gloo probe (2 ranks on {device}, backend by the rule: "
+          f"{two[0]['backend']}): {two[0]['probe']}")
+    if any("refuses" in v for v in two[0]["probe"].values()):
+        raise AssertionError("multidevice: this gloo refuses the card's tensors, which "
+                             "parallel/mesh.py hands it")
+    if any(r["backend"] != "gloo" for r in two + four):
+        raise AssertionError("multidevice (b): ranks sharing the card did not take gloo")
+    note = "ranks sharing one card measure correctness, not scaling"
+    for name in (n + tag for n in fits for tag in ("", ", dropout off")):
+        group = four if name.startswith("dp=2 x gp=2") else two
+        results = [r[name] for r in group]
+        errs, cpu_errs = [], []
+        for r in results:
+            errs.append(_close_losses(f"multidevice {name} vs the single-rank card run", r,
+                                      refs[(name, device)], MD_FIT_TOL))
+            if (name, "cpu") in refs:
+                cpu_errs.append(_close_losses(f"multidevice {name} vs the CPU run", r,
+                                              refs[(name, "cpu")], MD_FIT_TOL))
+            if not all(math.isfinite(x) for x in r["train"] + r["val"]):
+                raise AssertionError(f"multidevice {name}: a loss is not finite")
+        r0 = results[0]
+        if "gp=2" in name and not r0["overflow"]["train"]:
+            raise AssertionError(f"multidevice {name}: no pair overflowed the ladder")
+        steps = r0["steps"]
+        per_step = {k: round(v / steps, 2) for k, v in r0["launches"].items() if v}
+        halo = f", halo {r0['halo_bytes']} bytes a rank an exchange" if "halo_bytes" in r0 else ""
+        print(f"multidevice {name} ({len(group)} gloo ranks on {device}): fit {MD_CFG['n_epochs']} "
+              f"epochs in {r0['wall_s']:.2f} s, {steps} steps, {steps / r0['wall_s']:.2f} steps/s"
+              f"{halo}; launches per step on rank 0 {per_step}; train/val losses within "
+              f"{MD_FIT_TOL} of the single-rank card run (max diff {max(errs):.3e})"
+              + (f" and of the CPU run ({max(cpu_errs):.3e})" if cpu_errs else "")
+              + f"; overflow pairs {r0['overflow']}; {note}")
+        for r in results:
+            for k, v in r["launches"].items():
+                train_launches[k] = train_launches.get(k, 0) + v
+    joint = [r["joint"] for r in two]
+    for r in joint:
+        np.testing.assert_allclose(r["score"].numpy(), dense_card.numpy(),
+                                   err_msg="partitioned joint vs the dense card answer",
+                                   **MD_SCORE_TOL)
+        np.testing.assert_allclose(r["score"].numpy(), dense_cpu.numpy(),
+                                   err_msg="partitioned joint vs the dense CPU answer",
+                                   **MD_SCORE_TOL)
+        for k, v in r["launches"].items():
+            train_launches[k] = train_launches.get(k, 0) + v
+    j0 = joint[0]
+    j_launches = {k: v for k, v in j0["launches"].items() if v}
+    print(f"multidevice run_partitioned_joint, large protein B={LARGE['b']} N={LARGE['n_p']} "
+          f"E={LARGE['e_p']} over 2 gloo ranks on {device}: scores within {MD_SCORE_TOL} of the "
+          f"dense card and CPU answers (max diff "
+          f"{(j0['score'] - dense_card).abs().max().item():.3e}); {j0['wall_s']:.3f} s, halo "
+          f"{j0['halo_bytes']} bytes a rank an exchange; launches {j_launches}; {note}")
+    print(f"multidevice wall: (a) {wall_a:.1f} s, (b) {wall_b:.1f} s")
+
+
 def main() -> int:
     # The card-vs-CPU checks hold IEEE f32 against IEEE f32. These variables
     # let cuBLAS (TF32) or oneDNN (BF16) round the inputs of f32 matmuls, which
@@ -2700,6 +3151,22 @@ def main() -> int:
             result[path] = {"step median ms": step_ms, "kernel ms per step": busy or None,
                             "kernels per step": n_kernels, "device idle": idle,
                             "protein edges/s": p_edges / step_ms * 1e3}
+        if not fused:
+            # the eager step the graph was captured from, counted at the op
+            # boundaries (utils/traffic.py; a replay dispatches nothing)
+            from caster_dta_torch.utils.traffic import op_traffic
+
+            nbytes, per_op = op_traffic(eager.train_step, mega.batch(0), float(lrs[0]))
+            torch.cuda.synchronize()
+            in_kernels = sum(v for k, v in per_op.items() if k in launch_counts.bytes_snapshot())
+            top = sorted(per_op, key=per_op.get, reverse=True)[:4]
+            step_ms = result["replayed"]["step median ms"]
+            print(f"traffic: the flagship bf16 step {mega.bucket} moves {nbytes} bytes at op "
+                  f"boundaries (an upper bound on HBM bytes; {in_kernels} of them in the hand "
+                  f"kernels' launches; most in " + ", ".join(f"{k} {per_op[k]}" for k in top)
+                  + f"); at the replayed step's median {step_ms:.3f} ms that is "
+                  f"{nbytes / (step_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of 3.35 TB/s (a printed "
+                  f"reading, not a metric)")
         print(f"{tag}replayed vs eager store step: " + "; ".join(
             f"{name} {result['replayed'][name]} vs {result['eager'][name]}"
             for name in result["eager"]))
@@ -2795,6 +3262,11 @@ def main() -> int:
     with phase("zoo"):
         zoo_phase(torch, train_launches)
         print(f"launches over the evaluate, training and zoo phases: {train_launches}")
+
+    with phase("multidevice"):
+        multidevice_phase(torch, train_launches)
+        print(f"launches over the evaluate, training, zoo and multidevice phases: "
+              f"{train_launches}")
 
     with phase("times"), torch.no_grad():
         rows, module_ms, extra = {}, {}, {}
@@ -3062,4 +3534,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multidevice-child"]:
+        multidevice_child(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
     sys.exit(main())

@@ -5,11 +5,17 @@ have the JAX schemas and values for the same dataset, the JAX package's
 1e-4 pKd of the port, a resumed run equals the straight run bit for bit
 (history and final parameters, as tests/test_pipeline.py holds the JAX
 package's), the zero-epoch "finish" resume gives the same test metrics, and
-the multi-device flags raise. The JAX side trains nothing: it builds its
-dataset, reads the port's files and runs one eager forward.
+the multi-device flags train: ``--n-dp 2`` and ``--gp 2`` start two local
+gloo ranks whose history and final checkpoint match the single-process run's
+within the fit tolerances (rtol 2e-3 / atol 2e-4), ``--coordinator
+--n-processes --process-id`` join a group that the test starts, and flags
+that do not fit together raise before any work. The JAX side trains
+nothing: it builds its dataset, reads the port's files and runs one eager
+forward.
 """
 import json
 import os
+import subprocess
 import sys
 
 import jax
@@ -50,6 +56,21 @@ def _leaves(tree, out=None):
         else:
             out.append(np.asarray(tree[k]))
     return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU runs on one thread: beside other test workers, its
+    OpenMP threads wait on each other's cores (as in
+    tests/test_torch_analysis.py); every comparison here is between runs on
+    the same thread count, and the ranks the CLI starts take one thread
+    each."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
@@ -189,10 +210,12 @@ def test_cache_prefix_differs_from_jax(straight):
     assert not any(n.startswith("00_datasetobj__") for n in names)
 
 
-@pytest.mark.parametrize("flag", [["--n-dp", "2"], ["--gp", "2"], ["--coordinator", "h:1"],
+@pytest.mark.parametrize("flag", [["--n-dp", "0"], ["--gp", "0"], ["--coordinator", "h:1"],
                                   ["--n-processes", "2"], ["--process-id", "0"]])
 def test_multi_device_flags_refused(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+    """A rank count below 1, or a process group named without its size or
+    this process's rank, is refused."""
+    with pytest.raises(SystemExit, match="must be at least 1|process group needs"):
         driver.main(_argv(tmp_path / "data", tmp_path / "x", *flag))
     assert not (tmp_path / "data").exists()   # refused before any work
 
@@ -200,10 +223,66 @@ def test_multi_device_flags_refused(flag, tmp_path):
 def test_train_config_refusals_and_defaults():
     cfg = TrainConfig()
     assert (cfg.save_state_every, cfg.resume, cfg.log_every) == (25, False, 0)
-    for kw in (dict(n_dp=2), dict(gp=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+    assert (TrainConfig(n_dp=2).n_dp, TrainConfig(gp=2).gp) == (2, 2)
+    for kw in (dict(n_dp=0), dict(gp=-1)):
+        with pytest.raises(ValueError, match="must be None or an int >= 1"):
             TrainConfig(**kw)
     TrainConfig(n_dp=1, gp=1, resume=True, save_state_every=0)
+    # the partitioned protein tower is lbamodel's, as in JAX
+    import chip_smoke
+    from caster_dta_torch.train.loop import fit
+
+    other = t_ckpt.build_model(chip_smoke.zoo_configs()["zoo-pocketminer-heat"])
+    with pytest.raises(ValueError, match="base_conv='lbamodel' only"):
+        fit(other, None, "synthetic", "unused", TrainConfig(gp=2), 1, 1, device="cpu")
+
+
+def _final_params(out) -> list:
+    return _leaves(checkpoints.load_params(checkpoints.get_best_model(str(out), "final")))
+
+
+def _close_to_straight(res, out, straight_res, straight_out, epochs=EPOCHS):
+    got, want = _history(res), _history(straight_res)[:epochs]
+    assert [h[0] for h in got] == [h[0] for h in want]
+    np.testing.assert_allclose([h[2:] for h in got], [h[2:] for h in want],
+                               rtol=2e-3, atol=2e-4)
+    with open(out / "train_history.json") as f:
+        assert [h["epoch"] for h in json.load(f)] == list(range(epochs))
+    if epochs == EPOCHS:
+        for a, b in zip(_final_params(out), _final_params(straight_out)):
+            np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("flag", ["--n-dp", "--gp"])
+def test_local_ranks_match_the_single_process_run(straight, tmp_path, flag):
+    """Two ranks started by the CLI (gloo on the CPU): the synthetic proteins
+    fit the ladder, so --gp 2 splits the standard buckets as --n-dp 2 does."""
+    root, res = straight
+    out = tmp_path / "ranks"
+    ranks = driver.main(_argv(root / "data", out, "--n-epochs", str(EPOCHS), flag, "2"))
+    _close_to_straight(ranks, out, res, root / "a")
+    assert ranks["test_metrics"].keys() == res["test_metrics"].keys()
+
+
+def test_group_flags_join_a_group_the_test_started(straight, tmp_path):
+    """Rank 1 in a process of its own, rank 0 in this one, joined through a
+    file:// group that the test names."""
+    root, res = straight
+    out = tmp_path / "joined"
+    argv = _argv(root / "data", out, "--n-epochs", "2", "--n-dp", "2", "--coordinator",
+                 f"file://{tmp_path / 'group'}", "--n-processes", "2")
+    other = subprocess.Popen([sys.executable, "-m", "caster_dta_torch.train.driver", *argv,
+                              "--process-id", "1"], cwd=REPO,
+                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        joined = driver.main(argv + ["--process-id", "0"])
+        _, err = other.communicate(timeout=300)
+    finally:
+        if other.poll() is None:
+            other.kill()
+            other.wait()
+    assert other.returncode == 0, err
+    _close_to_straight(joined, out, res, root / "a", epochs=2)
 
 
 def _reference_run(tmp_path, keys=lambda k: k, molecule=None):

@@ -18,7 +18,10 @@ and evaluates one epoch bucket by bucket over a device-resident store (the
 scan path, eager on the CPU), featurizes a Davis structure and a SMILES
 (rings without networkx, the native host library built here), runs the
 training CLI for one epoch on ``--dataset synthetic`` from its PDB files and
-SMILES, runs the BioLIP analysis on chip_smoke.py's synthetic tables and its
+SMILES, again with ``--n-dp 2`` (two local gloo ranks, each a fresh
+interpreter with the same names hidden: the finder is installed by a
+``sitecustomize`` on ``PYTHONPATH``), imports ``caster_dta_torch.parallel``
+and ``caster_dta_torch.utils`` with every other module, runs the BioLIP analysis on chip_smoke.py's synthetic tables and its
 t-test statistics (a drawing call raises ImportError naming matplotlib), and
 checks that none of the hidden names was loaded. A second case runs
 chip_smoke.py without a card: it must fail and print no result, since
@@ -32,8 +35,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "networkx", "triton",
           "requests", "matplotlib", "caster_dta_tpu")
 
-SCRIPT = """
-import importlib, importlib.abc, importlib.machinery, json, pkgutil, sys
+HIDE = """
+import importlib.abc, importlib.machinery, sys
 HIDDEN = set(%r)
 
 class Refuse(importlib.abc.Loader):
@@ -52,10 +55,21 @@ class Hide(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Hide())
+""" % (HIDDEN,)
+
+SCRIPT = """
+import importlib, json, pkgutil, sys
+HIDDEN = set(%r)
+assert any(type(f).__name__ == "Hide" for f in sys.meta_path)
 import torch
 import caster_dta_torch
-for info in pkgutil.walk_packages(caster_dta_torch.__path__, "caster_dta_torch."):
-    importlib.import_module(info.name)
+names = [info.name for info in pkgutil.walk_packages(caster_dta_torch.__path__,
+                                                     "caster_dta_torch.")]
+for name in names:
+    importlib.import_module(name)
+for name in ("caster_dta_torch.parallel.mesh", "caster_dta_torch.parallel.partition",
+             "caster_dta_torch.utils.profiling", "caster_dta_torch.utils.traffic"):
+    assert name in names, name
 import chip_smoke
 from caster_dta_torch.data.batching import synthetic_pair_batch
 from caster_dta_torch.inference.serve import load_run, predict
@@ -148,6 +162,11 @@ with tempfile.TemporaryDirectory() as tmp:
                        "--n-workers", "0"])
     assert len(res["history"]) == 1 and math.isfinite(res["history"][0]["train"])
     assert os.path.exists(tmp + "/out/train_state.msgpack")
+    ranks = driver.main(["--dataset", "synthetic", "--data-root", tmp + "/data",
+                         "--out-folder", tmp + "/dp", "--n-epochs", "1", "--device", "cpu",
+                         "--n-workers", "0", "--n-dp", "2"])
+    assert abs(ranks["history"][0]["train"] - res["history"][0]["train"]) < 1e-3, ranks
+    assert os.path.exists(tmp + "/dp/train_state.msgpack")
 from caster_dta_torch.analysis.biolip import run_biolip_binding
 from caster_dta_torch.analysis.visualize import visualize_biolip_results
 with tempfile.TemporaryDirectory() as tmp:
@@ -174,10 +193,11 @@ def _env():
     return env
 
 
-def test_port_imports_and_serves_without_jax_flax_msgpack_pandas():
+def test_port_imports_and_serves_without_jax_flax_msgpack_pandas(tmp_path):
     # one OpenMP thread: beside other test workers, torch's threads wait on
     # each other's cores (194 s beside three workers, 13 s with one thread)
-    env = dict(_env(), OMP_NUM_THREADS="1")
+    (tmp_path / "sitecustomize.py").write_text(HIDE)
+    env = dict(_env(), OMP_NUM_THREADS="1", PYTHONPATH=str(tmp_path))
     r = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr

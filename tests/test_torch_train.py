@@ -293,8 +293,11 @@ def test_split_matches_jax(dataset):
 
 @pytest.mark.parametrize("field,value", [("n_dp", 2), ("gp", 2)])
 def test_unported_config_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(**{field: value})
+    """Multi-device training is ported (parallel/): n_dp and gp take a rank
+    count, and a count below 1 raises."""
+    assert getattr(TrainConfig(**{field: value}), field) == value
+    with pytest.raises(ValueError, match=field):
+        TrainConfig(**{field: 0})
     TrainConfig(n_dp=1, gp=1)
 
 
