@@ -54,9 +54,8 @@
 //   and the dtypes of its call (bf16 step: both, es f32, ev bf16; serving:
 //   f32) fixed at compile time, and one that reads them at run time.
 //
-// K5 fwd at other widths, and K5 bwd in f32 or at widths without a warp-tile
-// instance (message_fwd_kernel, message_bwd_kernel): one block per tile of
-// edges stages the packed
+// K5 fwd and bwd at widths without a warp-tile instance (message_fwd_kernel,
+// message_bwd_kernel): one block per tile of edges stages the packed
 // weights (rounded to the compute dtype) and the tile's activations in shared
 // memory as f32, column-major with an odd stride, so a warp reads 32 edges of
 // one column without bank conflicts while the weight it multiplies is
@@ -87,6 +86,33 @@
 // order. What holds it back is scalar work around the mma's (address and
 // fragment arithmetic, the elementwise math, which takes the fast exp,
 // reciprocal and rsqrt intrinsics), at 8 warps an SM.
+//
+// K5 bwd with the f32 compute dtype (message_bwd_f32_kernel, for the widths of
+// MmaNet instances up to BwdF32::MAX_LAYERS layers; the explainer's backward):
+// FFMA, as the f32 forward (TF32 is off by contract). A warp owns a tile of 32
+// edges, a lane's edge held in registers; blocks of 8 warps, one an SM, stage
+// every layer's weights once (F32Layer, [in][out]) and walk the tiles in a
+// fixed order. The warp stages its tile's input rows and dout rows with
+// coalesced loads, runs the forward once to keep each later layer's inputs in
+// the input rows, then runs the layers backwards, each forward recomputed from
+// its inputs just before its backward (the first layer's inputs staged again,
+// since the later layers' took their place). Every input
+// cotangent (d both, d es, d ev and those between layers) is one FFMA chain
+// in the order of the block-tile layer_bwd, its weights read as float4
+// broadcasts along the rows the forward reads, with IEEE division: the
+// block-tile kernel's bits. The weight gradients are sums over edges: each
+// lane writes its edge's operands to the warp's operand rows in three groups,
+// and the lanes split the gradient entries (a lane a column of ws, all its
+// outputs; the narrow matrices' entries also split the edges, their sums
+// added by an xor butterfly) and add the tile's sums to the warp's f32 slab in
+// shared memory, tile after tile; then, as for the bf16 kernel, the block's
+// row of the scratch and reduce_rows_kernel. No atomics: two runs give the
+// same bits. What holds it back on the H100: the registers (255 a thread,
+// with a small spill) and shared memory (~223 KB a block) allow 8 warps an
+// SM, too few to hide the latency of its dependent FFMA chains and
+// shared-memory loads; the weight-gradient passes, the second staging of the
+// first layer's inputs and the ds_in chains cost about 16%, 13% and 8% of its
+// time (scripts/k5_k6_times.py with each removed from a copy of the source).
 //
 // K6: a unit is 16 bytes of the wider dtype (4 f32 and their bf16, or 8
 // bf16), so each warp's loads and stores are contiguous; a thread moves one
@@ -436,7 +462,9 @@ __device__ void layer_bwd(const float* W, float* acc, const Layer& L, int act_s,
         float dgi = 0.f;
         for (int o = 0; o < L.vo; ++o) dgi += rnd<BF>(dz[o * S + e]) * wsv[o * L.so + i];
         const float x = sp[i * S + e];
-        dsp[i * S + e] = ds_out[i * S + e] * dact(act_s, x) + dgi * dact(act_v, x);
+        // one fused multiply-add, written out: which product a compiler
+        // fuses must not decide the bits (the f32 warp tiles give these)
+        dsp[i * S + e] = fmaf(ds_out[i * S + e], dact(act_s, x), dgi * dact(act_v, x));
       } else if (p < n2) {
         const int c = (p - n1) / T, e = (p - n1) - c * T;
         const int j = c / 3, d = c - 3 * j;
@@ -1817,23 +1845,30 @@ __device__ __forceinline__ void mac4(float (&acc)[N], int q, float x, const floa
   }
 }
 
-// One gated GVP layer on a lane's edge (the JAX _layer_fwd in f32): s, v
-// ([xyz][channel]) its inputs, W its staged weights (F32Layer). Each output
-// is one multiply-add chain over its inputs in ascending order, the scalars
-// before the norms, its bias added last, with IEEE sqrt, exp and division:
-// the arithmetic of the block-tile kernel, whose bits it gives.
+// A layer's forward activations on a lane's edge, as its backward needs them.
 template <class L>
-__device__ __forceinline__ void layer_f32(const float* __restrict__ W, int act_s, int act_v,
-                                          const float (&s)[L::SI], const float (&v)[3][L::VI],
-                                          float (&s_out)[L::SO], float (&v_out)[3][L::VO]) {
+struct FwdF32 {
+  float vh[3][L::H], q[L::H], vn[L::H], sp[L::SO], vr[3][L::VO], g[L::VO];
+};
+
+// One gated GVP layer on a lane's edge (the JAX _layer_fwd in f32): s4(k4)
+// gives its scalar inputs s[4 k4 .. 4 k4 + 3] (read where the products need
+// them), v ([xyz][channel]) its vector inputs, W its staged weights
+// (F32Layer). Each output is one multiply-add chain over its inputs in
+// ascending order, the scalars before the norms, its bias added last, with
+// IEEE sqrt, exp and division: the arithmetic of the block-tile kernel, whose
+// bits it gives.
+template <class L, class S4>
+__device__ __forceinline__ void layer_f32_keep(const float* __restrict__ W, int act_v, S4 s4,
+                                               const float (&v)[3][L::VI], FwdF32<L>& f) {
+  static_assert(L::SI % 4 == 0, "the scalar inputs come 4 at a time");
   using F = F32Layer<L>;
   const float4* w4 = reinterpret_cast<const float4*>(W);
   // vh = wh v, each of xyz
-  float vh[3][L::H];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
 #pragma unroll
-    for (int j = 0; j < L::H; ++j) vh[d][j] = 0.f;
+    for (int j = 0; j < L::H; ++j) f.vh[d][j] = 0.f;
   }
 #pragma unroll
   for (int i = 0; i < L::VI; ++i) {
@@ -1841,20 +1876,21 @@ __device__ __forceinline__ void layer_f32(const float* __restrict__ W, int act_s
     for (int q = 0; q < F::HP / 4; ++q) {
       const float4 w = w4[(F::WH + i * F::HP) / 4 + q];
 #pragma unroll
-      for (int d = 0; d < 3; ++d) mac4(vh[d], q, v[d][i], w);
+      for (int d = 0; d < 3; ++d) mac4(f.vh[d], q, v[d][i], w);
     }
   }
   // the clamped norm over xyz; vraw = wv vh
-  float vn[L::H], vr[3][L::VO];
 #pragma unroll
   for (int j = 0; j < L::H; ++j) {
-    const float x = vh[0][j], y = vh[1][j], z = vh[2][j];
-    vn[j] = sqrtf(fmaxf(x * x + y * y + z * z, EPS));
+    const float x = f.vh[0][j], y = f.vh[1][j], z = f.vh[2][j];
+    const float qq = x * x + y * y + z * z;
+    f.q[j] = qq;
+    f.vn[j] = sqrtf(fmaxf(qq, EPS));
   }
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
 #pragma unroll
-    for (int o = 0; o < L::VO; ++o) vr[d][o] = 0.f;
+    for (int o = 0; o < L::VO; ++o) f.vr[d][o] = 0.f;
   }
 #pragma unroll
   for (int j = 0; j < L::H; ++j) {
@@ -1862,45 +1898,77 @@ __device__ __forceinline__ void layer_f32(const float* __restrict__ W, int act_s
     for (int q = 0; q < F::VOP / 4; ++q) {
       const float4 w = w4[(F::WV + j * F::VOP) / 4 + q];
 #pragma unroll
-      for (int d = 0; d < 3; ++d) mac4(vr[d], q, vh[d][j], w);
+      for (int d = 0; d < 3; ++d) mac4(f.vr[d], q, f.vh[d][j], w);
     }
   }
   // spre = ws [s, vn] + bs
-  float sp[L::SO];
 #pragma unroll
-  for (int o = 0; o < L::SO; ++o) sp[o] = 0.f;
+  for (int o = 0; o < L::SO; ++o) f.sp[o] = 0.f;
 #pragma unroll
-  for (int k = 0; k < L::SI; ++k) {
+  for (int k4 = 0; k4 < L::SI / 4; ++k4) {
+    const float4 x4 = s4(k4);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
 #pragma unroll
-    for (int q = 0; q < F::SOP / 4; ++q) mac4(sp, q, s[k], w4[(F::WS + k * F::SOP) / 4 + q]);
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int q = 0; q < F::SOP / 4; ++q) {
+        mac4(f.sp, q, x[c], w4[(F::WS + (4 * k4 + c) * F::SOP) / 4 + q]);
+      }
+    }
   }
 #pragma unroll
   for (int k = 0; k < L::H; ++k) {
 #pragma unroll
     for (int q = 0; q < F::SOP / 4; ++q) {
-      mac4(sp, q, vn[k], w4[(F::WS + (L::SI + k) * F::SOP) / 4 + q]);
+      mac4(f.sp, q, f.vn[k], w4[(F::WS + (L::SI + k) * F::SOP) / 4 + q]);
     }
   }
 #pragma unroll
-  for (int o = 0; o < L::SO; ++o) sp[o] = sp[o] + W[F::BS + o];
+  for (int o = 0; o < L::SO; ++o) f.sp[o] = f.sp[o] + W[F::BS + o];
   // the gate reads the pre-activation scalars through the vector activation
   float z[L::VO];
 #pragma unroll
   for (int o = 0; o < L::VO; ++o) z[o] = 0.f;
 #pragma unroll
   for (int i = 0; i < L::SO; ++i) {
-    const float gi = act(act_v, sp[i]);
+    const float gi = act(act_v, f.sp[i]);
 #pragma unroll
     for (int q = 0; q < F::VOP / 4; ++q) mac4(z, q, gi, w4[(F::WSV + i * F::VOP) / 4 + q]);
   }
 #pragma unroll
-  for (int o = 0; o < L::VO; ++o) {
-    const float g = sigmoid(z[o] + W[F::BSV + o]);
+  for (int o = 0; o < L::VO; ++o) f.g[o] = sigmoid(z[o] + W[F::BSV + o]);
+}
+
+// The layer's outputs s' = act_s(spre), v' = vraw * gate.
+template <class L>
+__device__ __forceinline__ void layer_f32_out(const FwdF32<L>& f, int act_s, float (&s_out)[L::SO],
+                                              float (&v_out)[3][L::VO]) {
 #pragma unroll
-    for (int d = 0; d < 3; ++d) v_out[d][o] = vr[d][o] * g;
+  for (int o = 0; o < L::VO; ++o) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) v_out[d][o] = f.vr[d][o] * f.g[o];
   }
 #pragma unroll
-  for (int o = 0; o < L::SO; ++o) s_out[o] = act(act_s, sp[o]);
+  for (int o = 0; o < L::SO; ++o) s_out[o] = act(act_s, f.sp[o]);
+}
+
+template <class L, class S4>
+__device__ __forceinline__ void layer_f32_s4(const float* __restrict__ W, int act_s, int act_v,
+                                             S4 s4, const float (&v)[3][L::VI],
+                                             float (&s_out)[L::SO], float (&v_out)[3][L::VO]) {
+  FwdF32<L> f;
+  layer_f32_keep<L>(W, act_v, s4, v, f);
+  layer_f32_out<L>(f, act_s, s_out, v_out);
+}
+
+template <class L>
+__device__ __forceinline__ void layer_f32(const float* __restrict__ W, int act_s, int act_v,
+                                          const float (&s)[L::SI], const float (&v)[3][L::VI],
+                                          float (&s_out)[L::SO], float (&v_out)[3][L::VO]) {
+  layer_f32_s4<L>(
+      W, act_s, act_v,
+      [&](int k4) { return make_float4(s[4 * k4], s[4 * k4 + 1], s[4 * k4 + 2], s[4 * k4 + 3]); },
+      v, s_out, v_out);
 }
 
 // ACT_S, ACT_V and DT (both | es << 1 | ev << 2, bf16 where set) fix the
@@ -1998,6 +2066,677 @@ message_fwd_f32_kernel(Inputs in, int n_layers, const float* __restrict__ w, int
     }
     warp_sync();
     write_tile<T, FO>(st, out, in.both_bf16, t.r0, t.n, lane);
+  }
+}
+
+// ---- K5 bwd with the f32 compute dtype: a lane per edge, FFMA ----
+
+constexpr int BWD_F32_WARPS = 8;   // most warps a block; one block an SM
+constexpr int BWD_F32_THREADS = 32 * BWD_F32_WARPS;
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// y[0..N) to p[i..i + N) (f32, or bf16 where set): float4 stores where f32
+// and 16-byte aligned, else one element at a time
+template <int N>
+__device__ __forceinline__ void store_n(void* p, int64_t i, const float (&y)[N], int bf16) {
+  if (!bf16 && N % 4 == 0 && reinterpret_cast<uintptr_t>(static_cast<float*>(p) + i) % 16 == 0) {
+#pragma unroll
+    for (int u = 0; u < N / 4; ++u) {
+      reinterpret_cast<float4*>(static_cast<float*>(p) + i)[u] =
+          make_float4(y[4 * u], y[4 * u + 1], y[4 * u + 2], y[4 * u + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < N; ++c) store(p, i + c, y[c], bf16);
+  }
+}
+
+// A layer's weight-gradient operands in an operand row, three groups one
+// after the other: first dspre [SO], act_v(spre) [SO], dz [VO, padded to 4],
+// vn [H] and a constant 1 (the bias column); then vraw's cotangent [3VO] and
+// vh [3H]; then dvh [3H], each (channel, xyz) interleaved.
+template <class L>
+struct BwdOps {
+  static constexpr int DSP = 0, GI = L::SO, DZ = 2 * L::SO, VN = DZ + cdiv(L::VO, 4) * 4;
+  static constexpr int ONE = VN + L::H, A = ONE + 1;
+  static constexpr int DVR = 0, VH = cdiv(3 * L::VO, 4) * 4, B = VH + 3 * L::H, C = 3 * L::H;
+  static constexpr int W = cmax(A, cmax(B, C));
+};
+
+// The f32 backward's rows: a warp's tile has an input row per edge in its
+// shared memory, [both's source row | es | both's destination row | ev] at
+// row stride SX (later the inputs of layers 1, 2, ... at FO floats each),
+// and an operand row per edge at row stride BO: first the edge's dout, then
+// each layer's weight-gradient operands, a group at a time (OB_* below).
+template <class Net>
+struct BwdF32 {
+  using L0 = typename Net::L0;
+  using L1 = typename Net::L1;
+  static constexpr int NS = Net::NS, NV = Net::NV, SE = Net::SE, VE = Net::VE;
+  static constexpr int FB = NS + 3 * NV, EV = 3 * VE, FO = L0::SO + 3 * L0::VO;
+  static constexpr int O_ES = FB, O_DST = FB + SE, O_EV = 2 * FB + SE;
+  static constexpr int SX = lane_stride(O_EV + EV);
+  static constexpr int MAX_LAYERS = 1 + SX / FO;
+  static constexpr int BO = lane_stride(cmax(FO, cmax(BwdOps<L0>::W, BwdOps<L1>::W)));
+  static_assert(FB % 4 == 0 && SE % 4 == 0 && L0::SI % 4 == 0 && L1::SI % 4 == 0,
+                "the input rows' parts and the chunks of ds_in are read and written as float4s");
+};
+
+// Byte offsets in a block's shared memory of the f32 backward for n_layers
+// layers: the staged weights (F32Layer, as the f32 forward's), then `warps`
+// warps' regions of `per_warp` bytes: input rows, operand rows, and the
+// warp's weight-gradient slab (n_w floats in the packed layout). `warps` is
+// the most of BWD_F32_WARPS that the block's shared memory holds (0: the
+// shape is not taken).
+struct BwdF32Smem {
+  int b1, warp0, per_warp, warps, total;
+};
+
+template <class Net>
+__host__ __device__ inline BwdF32Smem bwd_f32_smem(int n_layers) {
+  using Z = BwdF32<Net>;
+  using L0 = typename Net::L0;
+  using L1 = typename Net::L1;
+  BwdF32Smem s;
+  s.b1 = 4 * F32Layer<L0>::N;
+  s.warp0 = s.b1 + 4 * (n_layers - 1) * F32Layer<L1>::N;
+  s.per_warp = 4 * (32 * (Z::SX + Z::BO) + cdiv(L0::NW + (n_layers - 1) * L1::NW, 4) * 4);
+  s.warps = n_layers > Z::MAX_LAYERS ? 0 : (MAX_SMEM - s.warp0) / s.per_warp;
+  if (s.warps > BWD_F32_WARPS) s.warps = BWD_F32_WARPS;
+  s.total = s.warp0 + s.warps * s.per_warp;
+  return s;
+}
+
+// Whether the f32 backward runs its served instance: (relu, none) with every
+// tensor f32 (dt: both | es << 1 | ev << 2 | dout << 3, bf16 where set).
+__host__ __device__ inline bool bwd_f32_served_instance(int act_s, int act_v, int dt) {
+  return act_s == ACT_RELU && act_v == ACT_NONE && dt == 0;
+}
+
+// The chain acc = sum over k < N, ascending, of x[k] row[k], for the first N
+// floats of a 16-byte-aligned staged row (one float4 broadcast per 4 terms).
+template <int N>
+__device__ __forceinline__ float dot_row(const float* __restrict__ row, const float (&x)[N]) {
+  float acc = 0.f;
+#pragma unroll
+  for (int u = 0; u < cdiv(N, 4); ++u) {
+    const float4 w = reinterpret_cast<const float4*>(row)[u];
+    const float wc[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (4 * u + c < N) acc += x[4 * u + c] * wc[c];
+    }
+  }
+  return acc;
+}
+
+// The same for each of xyz: acc[d] = sum over k < N of x[d][k] row[k].
+template <int N>
+__device__ __forceinline__ void dot_row3(const float* __restrict__ row, const float (&x)[3][N],
+                                         float (&acc)[3]) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) acc[d] = 0.f;
+#pragma unroll
+  for (int u = 0; u < cdiv(N, 4); ++u) {
+    const float4 w = reinterpret_cast<const float4*>(row)[u];
+    const float wc[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        if (4 * u + c < N) acc[d] += x[d][4 * u + c] * wc[c];
+      }
+    }
+  }
+}
+
+// N floats into a 16-byte-aligned row, as float4s (N a multiple of 4)
+template <int N>
+__device__ __forceinline__ void write_row(float* p, const float (&x)[N]) {
+  static_assert(N % 4 == 0, "whole float4s");
+#pragma unroll
+  for (int u = 0; u < N / 4; ++u) {
+    reinterpret_cast<float4*>(p)[u] =
+        make_float4(x[4 * u], x[4 * u + 1], x[4 * u + 2], x[4 * u + 3]);
+  }
+}
+
+__host__ __device__ constexpr int pow2_at_least(int x) {
+  return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2);
+}
+
+// A weight-gradient pass over the tile's n edges: the warp's lanes are NB
+// blocks of gradient entries times S = 32 / NB groups of edges (lane = b +
+// NB g); group g takes the edges g, g + S, ... and step(e) adds edge e's
+// products to the lane's sums acc, and the groups' sums are then added by an
+// xor butterfly (a fixed order: every lane of a block gets the same bits).
+template <int NB, int N, class Step>
+__device__ __forceinline__ void edge_pass(float (&acc)[N], int lane, int n, Step step) {
+  constexpr int S = 32 / NB;
+  static_assert(NB * S == 32, "NB is a power of 2");
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
+#pragma unroll 2
+  for (int e = lane / NB; e < n; e += S) step(e);
+#pragma unroll
+  for (int m = NB; m < 32; m *= 2) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] += shfl_xor(acc[i], m);
+  }
+}
+
+// The backward of one layer on a lane's edge (the JAX _layer_bwd in f32),
+// after its forward f was recomputed. ds, dv: the cotangents of its outputs.
+// Each input cotangent is one multiply-add chain in the order of the
+// block-tile layer_bwd, so it has that kernel's bits: ds_in goes to
+// sink_s(k0, 4 values) for k0 = 0, 4, ... < SI, dv_in to dv_in. The weight
+// gradients of the tile's n edges are added to the warp's slab (the layer's
+// packed layout): each lane writes its edge's operands to its row of `ob`,
+// then the lanes split the gradient entries and the edges (edge_pass). Edge
+// e's inputs are in rows + e * sx: s at in_s(k), v at in_v(i) + xyz.
+template <class L, int BO, class InS, class InV, class SinkS>
+__device__ __forceinline__ void layer_bwd_f32(const float* __restrict__ W, int act_s, int act_v,
+                                              const FwdF32<L>& f, const float (&ds)[L::SO],
+                                              const float (&dv)[3][L::VO], const float* rows,
+                                              int sx, InS in_s, InV in_v, float* ob, float* slab,
+                                              int lane, int n, SinkS sink_s,
+                                              float (&dv_in)[3][L::VI]) {
+  using F = F32Layer<L>;
+  using Op = BwdOps<L>;
+  constexpr int SI = L::SI, VI = L::VI, H = L::H, SO = L::SO, VO = L::VO, SH = SI + H;
+  static_assert(SO % 4 == 0, "dspre is read as float4s");
+  float* const mine = ob + lane * BO;
+  // the gate: dvraw = dv g, dz = (dv . vraw) g (1 - g)
+  float dvr[3][VO], dz[VO];
+#pragma unroll
+  for (int o = 0; o < VO; ++o) {
+    const float gg = f.g[o];
+    float dg = 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      dg += dv[d][o] * f.vr[d][o];
+      dvr[d][o] = dv[d][o] * gg;
+    }
+    dz[o] = dg * gg * (1.f - gg);
+  }
+  // dspre = ds act_s'(spre) + (Wsv^T dz) act_v'(spre)
+  float dsp[SO];
+#pragma unroll
+  for (int i = 0; i < SO; ++i) {
+    const float dgi = dot_row<VO>(W + F::WSV + i * F::VOP, dz);
+    const float x = f.sp[i];
+    dsp[i] = fmaf(ds[i], dact(act_s, x), dgi * dact(act_v, x));   // as layer_bwd writes it
+  }
+  // operands 1: the gradients of ws (the inputs and vn against dspre) and
+  // bs (the constant column), of wsv (act_v(spre) against dz) and bsv
+  {
+    float row[cdiv(Op::A, 4) * 4];
+#pragma unroll
+    for (int o = 0; o < SO; ++o) {
+      row[Op::DSP + o] = dsp[o];
+      row[Op::GI + o] = act(act_v, f.sp[o]);
+    }
+#pragma unroll
+    for (int o = 0; o < Op::VN - Op::DZ; ++o) row[Op::DZ + o] = o < VO ? dz[o] : 0.f;
+#pragma unroll
+    for (int j = 0; j < H; ++j) row[Op::VN + j] = f.vn[j];
+#pragma unroll
+    for (int c = Op::ONE; c < cdiv(Op::A, 4) * 4; ++c) row[c] = 1.f;
+    write_row(mine, row);
+  }
+  warp_sync();
+  {
+    // columns [inputs s, vn, 1] of ws and bs against dspre: 32 columns a
+    // pass, a lane each, then the last ones a lane each in NB-lane blocks
+    constexpr int K = SH + 1, FULL = K / 32, REST = K - 32 * FULL;
+    auto col = [&](int k, int e) {
+      return k < SI ? rows[e * sx + in_s(k)]
+                    : ob[e * BO + (k < SH ? Op::VN + k - SI : Op::ONE)];
+    };
+    auto add = [&](int k, const float (&acc)[SO]) {
+#pragma unroll
+      for (int o = 0; o < SO; ++o) slab[k < SH ? L::P_WS + o * SH + k : L::P_BS + o] += acc[o];
+    };
+    if constexpr (FULL > 0) {
+      float acc[FULL * SO];
+      edge_pass<32>(acc, lane, n, [&](int e) {
+        float y[SO];
+        read_row(ob + e * BO + Op::DSP, y);
+#pragma unroll
+        for (int m = 0; m < FULL; ++m) {
+          const float x = col(lane + 32 * m, e);
+#pragma unroll
+          for (int o = 0; o < SO; ++o) acc[m * SO + o] += x * y[o];
+        }
+      });
+#pragma unroll
+      for (int m = 0; m < FULL; ++m) {
+        float a[SO];
+#pragma unroll
+        for (int o = 0; o < SO; ++o) a[o] = acc[m * SO + o];
+        add(lane + 32 * m, a);
+      }
+    }
+    if constexpr (REST > 0) {
+      constexpr int NB = pow2_at_least(REST);
+      const int c = lane % NB, k = 32 * FULL + (c < REST ? c : REST - 1);
+      float acc[SO];
+      edge_pass<NB>(acc, lane, n, [&](int e) {
+        float y[SO];
+        read_row(ob + e * BO + Op::DSP, y);
+        const float x = col(k, e);
+#pragma unroll
+        for (int o = 0; o < SO; ++o) acc[o] += x * y[o];
+      });
+      if (lane < REST) add(k, acc);
+    }
+  }
+  {
+    // columns [act_v(spre), 1] of wsv and bsv against dz, a lane each
+    constexpr int K = SO + 1, NB = pow2_at_least(K);
+    static_assert(NB == 32, "one pass of a lane a column");
+    const int i = lane < SO ? lane : SO;
+    float acc[VO];
+    edge_pass<NB>(acc, lane, n, [&](int e) {
+      float y[cdiv(VO, 4) * 4];
+      read_row(ob + e * BO + Op::DZ, y);
+      const float x = ob[e * BO + (i < SO ? Op::GI + i : Op::ONE)];
+#pragma unroll
+      for (int o = 0; o < VO; ++o) acc[o] += x * y[o];
+    });
+    if (lane <= SO) {
+#pragma unroll
+      for (int o = 0; o < VO; ++o) slab[i < SO ? L::P_WSV + o * SO + i : L::P_BSV + o] += acc[o];
+    }
+  }
+  warp_sync();
+  // operands 2: the gradient of wv (vh against dvraw)
+  {
+    float row[cdiv(Op::B, 4) * 4];
+#pragma unroll
+    for (int c = 0; c < cdiv(Op::B, 4) * 4; ++c) row[c] = 0.f;
+#pragma unroll
+    for (int o = 0; o < VO; ++o) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) row[Op::DVR + 3 * o + d] = dvr[d][o];
+    }
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) row[Op::VH + 3 * j + d] = f.vh[d][j];
+    }
+    write_row(mine, row);
+  }
+  warp_sync();
+  {
+    // rows j of wv^T, a lane each, against dvraw
+    constexpr int NB = pow2_at_least(H);
+    const int c = lane % NB, j = c < H ? c : H - 1;
+    float acc[VO];
+    edge_pass<NB>(acc, lane, n, [&](int e) {
+      const float* r = ob + e * BO;
+      float y[cdiv(3 * VO, 4) * 4];
+      read_row(r + Op::DVR, y);
+      const float x[3] = {r[Op::VH + 3 * j], r[Op::VH + 3 * j + 1], r[Op::VH + 3 * j + 2]};
+#pragma unroll
+      for (int o = 0; o < VO; ++o) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) acc[o] += x[d] * y[3 * o + d];
+      }
+    });
+    if (lane < H) {
+#pragma unroll
+      for (int o = 0; o < VO; ++o) slab[L::P_WV + o * H + j] += acc[o];
+    }
+  }
+  warp_sync();
+  // dvh = Wv^T dvraw; dsin = Ws^T dspre: ds_in to the sink, 4 at a time,
+  // then dvn
+  float dvh[3][H];
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    float y[3];
+    dot_row3<VO>(W + F::WV + j * F::VOP, dvr, y);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) dvh[d][j] = y[d];
+  }
+#pragma unroll
+  for (int k0 = 0; k0 < SI; k0 += 4) {
+    float y[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) y[c] = dot_row<SO>(W + F::WS + (k0 + c) * F::SOP, dsp);
+    sink_s(k0, y);
+  }
+  float dvn[H];
+#pragma unroll
+  for (int j = 0; j < H; ++j) dvn[j] = dot_row<SO>(W + F::WS + (SI + j) * F::SOP, dsp);
+  // the norm: dvh += vh dvn / vn where |vh|^2 > eps (0 inside the clamp)
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float coef = f.q[j] > EPS ? dvn[j] / f.vn[j] : 0.f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) dvh[d][j] += f.vh[d][j] * coef;
+  }
+  // operands 3: the gradient of wh (the input vectors against dvh)
+  {
+    float row[cdiv(Op::C, 4) * 4];
+#pragma unroll
+    for (int c = Op::C; c < cdiv(Op::C, 4) * 4; ++c) row[c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) row[3 * j + d] = dvh[d][j];
+    }
+    write_row(mine, row);
+  }
+  warp_sync();
+  {
+    // columns i of wh, a lane each, against dvh
+    constexpr int NB = pow2_at_least(VI);
+    const int c = lane % NB, i = c < VI ? c : VI - 1;
+    const int vi = in_v(i);
+    float acc[H];
+    edge_pass<NB>(acc, lane, n, [&](int e) {
+      float y[cdiv(3 * H, 4) * 4];
+      read_row(ob + e * BO, y);
+      const float* r = rows + e * sx + vi;
+      const float x[3] = {r[0], r[1], r[2]};
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) acc[j] += x[d] * y[3 * j + d];
+      }
+    });
+    if (lane < VI) {
+#pragma unroll
+      for (int j = 0; j < H; ++j) slab[L::P_WH + j * VI + i] += acc[j];
+    }
+  }
+  warp_sync();
+  // dv_in = Wh^T dvh
+#pragma unroll
+  for (int i = 0; i < VI; ++i) {
+    float y[3];
+    dot_row3<H>(W + F::WH + i * F::HP, dvh, y);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) dv_in[d][i] = y[d];
+  }
+}
+
+// Stage the warp's tile in its input rows [T][SX] (both's source row, es,
+// both's destination row, ev; rows past the tile's edges hold zeros) and,
+// where dout is given, its dout rows in its operand rows [T][BO].
+template <class Net, int T>
+__device__ __forceinline__ void stage_bwd_rows(const Inputs& in, const TileEdges& t, float* rows,
+                                               const void* dout, int dout_bf16, float* ob,
+                                               int lane) {
+  using Z = BwdF32<Net>;
+  const bool run = t.one_graph();
+  const int64_t src0 = t.src(0), E = in.E;
+  Rows<Z::FB, T> src, dst;
+  Rows<Z::SE, T> es;
+  Rows<Z::EV, T> ev;
+  Rows<Z::FO, T> d;
+  const auto none = [](int) { return (int64_t)0; };
+  src.fetch(in.both, in.both_bf16, run, src0, [&](int e) { return t.src(e); }, t.n, lane);
+  es.fetch(in.es, in.es_bf16, true, t.r0, none, t.n, lane);
+  dst.fetch(in.both, in.both_bf16, run, src0 + E, [&](int e) { return t.src(e) + E; }, t.n, lane);
+  ev.fetch(in.ev, in.ev_bf16, true, t.r0, none, t.n, lane);
+  if (dout != nullptr) d.fetch(dout, dout_bf16, true, t.r0, none, t.n, lane);
+  warp_sync();   // every lane is done with the rows' last contents
+  src.template put<Z::SX>(rows, lane);
+  es.template put<Z::SX>(rows + Z::O_ES, lane);
+  dst.template put<Z::SX>(rows + Z::O_DST, lane);
+  ev.template put<Z::SX>(rows + Z::O_EV, lane);
+  if (dout != nullptr) d.template put<Z::BO>(ob, lane);
+  warp_sync();
+}
+
+// The first layer's vector inputs of the lane's edge from its input row,
+// v = (v_j, ev, v_i); edge_s4(row) gives its scalar inputs s = (s_j, es, s_i)
+// 4 at a time.
+template <class Net>
+__device__ __forceinline__ void read_edge_v(const float* row, float (&xv)[3][Net::L0::VI]) {
+  using Z = BwdF32<Net>;
+  constexpr int NS = Net::NS, NV = Net::NV, VE = Net::VE;
+  float rj[3 * NV], ri[3 * NV], rv[cdiv(Z::EV, 4) * 4];
+  read_row(row + NS, rj);
+  read_row(row + Z::O_DST + NS, ri);
+  read_row(row + Z::O_EV, rv);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      xv[d][i] = rj[3 * i + d];
+      xv[d][NV + VE + i] = ri[3 * i + d];
+    }
+#pragma unroll
+    for (int i = 0; i < VE; ++i) xv[d][NV + i] = rv[3 * i + d];
+  }
+}
+
+// where the first layer's scalar input s[k] is in an input row
+template <class Net>
+__host__ __device__ constexpr int edge_s_at(int k) {
+  using Z = BwdF32<Net>;
+  constexpr int NS = Net::NS, SE = Net::SE;
+  return k < NS ? k : k < NS + SE ? Z::O_ES + k - NS : Z::O_DST + k - NS - SE;
+}
+
+template <class Net>
+__device__ __forceinline__ auto edge_s4(const float* row) {
+  return [row](int k4) { return reinterpret_cast<const float4*>(row + edge_s_at<Net>(4 * k4))[0]; };
+}
+
+// A later layer's inputs (s [SO], v [3][VO]) to and from its place in the
+// lane's input row: s, then v (channel, xyz) interleaved.
+template <class L>
+__device__ __forceinline__ void put_layer_in(float* p, const float (&s)[L::SO],
+                                             const float (&v)[3][L::VO]) {
+  float x[L::SO + 3 * L::VO];
+#pragma unroll
+  for (int c = 0; c < L::SO; ++c) x[c] = s[c];
+#pragma unroll
+  for (int o = 0; o < L::VO; ++o) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) x[L::SO + 3 * o + d] = v[d][o];
+  }
+  write_row(p, x);
+}
+
+// a later layer's scalar inputs, 4 at a time, from its place p in a row
+__device__ __forceinline__ auto layer_s4(const float* p) {
+  return [p](int k4) { return reinterpret_cast<const float4*>(p)[k4]; };
+}
+
+template <class L>
+__device__ __forceinline__ void get_layer_in(const float* p, float (&s)[L::SO],
+                                             float (&v)[3][L::VO]) {
+  float x[L::SO + 3 * L::VO];
+  read_row(p, x);
+#pragma unroll
+  for (int c = 0; c < L::SO; ++c) s[c] = x[c];
+#pragma unroll
+  for (int o = 0; o < L::VO; ++o) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) v[d][o] = x[L::SO + 3 * o + d];
+  }
+}
+
+// ACT_S, ACT_V and DT (both | es << 1 | ev << 2 | dout << 3, bf16 where set)
+// fix the activations and dtypes at compile time where they are >= 0; -1
+// takes them from the arguments. The tiles' outputs as message_bwd_mma_kernel's.
+template <class Net, int ACT_S, int ACT_V, int DT>
+__global__ void __launch_bounds__(BWD_F32_THREADS, 1)
+message_bwd_f32_kernel(Inputs in, int n_layers, const float* __restrict__ w, int act_s, int act_v,
+                       const void* __restrict__ dout, int dout_bf16, void* __restrict__ dboth,
+                       void* __restrict__ des, void* __restrict__ dev,
+                       float* __restrict__ partial, int n_w) {
+  if constexpr (ACT_S >= 0) act_s = ACT_S;
+  if constexpr (ACT_V >= 0) act_v = ACT_V;
+  if constexpr (DT >= 0) {
+    in.both_bf16 = DT & 1;
+    in.es_bf16 = (DT >> 1) & 1;
+    in.ev_bf16 = (DT >> 2) & 1;
+    dout_bf16 = (DT >> 3) & 1;
+  }
+  using L0 = typename Net::L0;
+  using L1 = typename Net::L1;
+  using Z = BwdF32<Net>;
+  constexpr int NS = Net::NS, NV = Net::NV, SE = Net::SE, VE = Net::VE;
+  constexpr int FB = Z::FB, SO = L0::SO, VO = L0::VO, FO = Z::FO, T = F32_ROWS;
+  constexpr int SX = Z::SX, BO = Z::BO;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  const BwdF32Smem s = bwd_f32_smem<Net>(n_layers);
+  float* const W0 = reinterpret_cast<float*>(smem_bytes);
+  auto w_of = [&](int k) {
+    return reinterpret_cast<float*>(smem_bytes + s.b1) + (k - 1) * F32Layer<L1>::N;
+  };
+  stage_layer_f32<L0>(w, W0);
+  for (int k = 1; k < n_layers; ++k) stage_layer_f32<L1>(w + L0::NW + (k - 1) * L1::NW, w_of(k));
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < warps * s.per_warp / 4; i += blockDim.x) {
+    reinterpret_cast<float*>(smem_bytes + s.warp0)[i] = 0.f;
+  }
+  __syncthreads();
+
+  float* const rows = reinterpret_cast<float*>(smem_bytes + s.warp0 + warp * s.per_warp);
+  float* const ob = rows + T * SX;
+  float* const slab0 = ob + T * BO;
+  auto slab_of = [&](int k) { return slab0 + L0::NW + (k - 1) * L1::NW; };
+  float* const mine = rows + lane * SX;
+  // where a later layer k's inputs sit in an input row
+  auto in_at = [&](int k) { return (k - 1) * FO; };
+  const int64_t n_tiles = (in.R + T - 1) / T;
+  const int64_t stride = (int64_t)gridDim.x * warps;
+  for (int64_t tile = (int64_t)blockIdx.x * warps + warp; tile < n_tiles; tile += stride) {
+    const TileEdges t(tile * T, in.R, in.E, T);
+    stage_bwd_rows<Net, T>(in, t, rows, dout, dout_bf16, ob, lane);
+    // the forward, keeping every later layer's inputs in the input rows (a
+    // lane's row is its own until the next warp_sync: they take the place of
+    // its edge's inputs)
+    if (n_layers > 1) {
+      float ys[SO], yv[3][VO];
+      {
+        float xv[3][L0::VI];
+        read_edge_v<Net>(mine, xv);
+        layer_f32_s4<L0>(W0, act_s, act_v, edge_s4<Net>(mine), xv, ys, yv);
+      }
+      put_layer_in<L1>(mine + in_at(1), ys, yv);
+      for (int k = 1; k < n_layers - 1; ++k) {
+        float zs[SO], zv[3][VO];
+        layer_f32_s4<L1>(w_of(k), act_s, act_v, layer_s4(mine + in_at(k)), yv, zs, zv);
+        put_layer_in<L1>(mine + in_at(k + 1), zs, zv);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+#pragma unroll
+          for (int o = 0; o < VO; ++o) yv[d][o] = zv[d][o];
+        }
+      }
+    }
+    // the cotangent of the last layer's output (ds [so], dv [3vo]) is in the
+    // lane's operand row until the layers backwards need it
+    float ds[SO], dv[3][VO];
+    // the later layers backwards, each forward recomputed from its inputs
+    for (int k = n_layers - 1; k >= 1; --k) {
+      const bool last = k == n_layers - 1;
+      const int as = last ? ACT_NONE : act_s, av = last ? ACT_NONE : act_v;
+      FwdF32<L1> f;
+      {
+        float ys[SO], yv[3][VO];
+        get_layer_in<L1>(mine + in_at(k), ys, yv);
+        layer_f32_keep<L1>(w_of(k), av, layer_s4(mine + in_at(k)), yv, f);
+      }
+      if (last) get_layer_in<L0>(ob + lane * BO, ds, dv);
+      float ds_in[SO], dv_in[3][VO];
+      layer_bwd_f32<L1, BO>(
+          w_of(k), as, av, f, ds, dv, rows, SX, [&](int c) { return in_at(k) + c; },
+          [&](int i) { return in_at(k) + SO + 3 * i; }, ob, slab_of(k), lane, t.n,
+          [&](int k0, const float (&y)[4]) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) ds_in[k0 + c] = y[c];
+          },
+          dv_in);
+#pragma unroll
+      for (int o = 0; o < SO; ++o) ds[o] = ds_in[o];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+#pragma unroll
+        for (int o = 0; o < VO; ++o) dv[d][o] = dv_in[d][o];
+      }
+    }
+    // the first layer: its inputs staged again (the later layers' took
+    // their place) while ds, dv wait in the lane's operand row; its input
+    // cotangents stored: d(both) source rows, d(es), d(both) destination
+    // rows; the same for the vectors and d(ev)
+    if (n_layers > 1) {
+      put_layer_in<L0>(ob + lane * BO, ds, dv);
+      stage_bwd_rows<Net, T>(in, t, rows, nullptr, 0, nullptr, lane);
+    }
+    {
+      const bool last = n_layers == 1;
+      const int as = last ? ACT_NONE : act_s, av = last ? ACT_NONE : act_v;
+      FwdF32<L0> f;
+      {
+        float xv[3][L0::VI];
+        read_edge_v<Net>(mine, xv);
+        layer_f32_keep<L0>(W0, av, edge_s4<Net>(mine), xv, f);
+      }
+      get_layer_in<L0>(ob + lane * BO, ds, dv);
+      const bool ok = lane < t.n;
+      const int64_t r = t.r0 + lane, src = t.src(lane), dst = src + in.E;
+      float dv_in[3][L0::VI];
+      layer_bwd_f32<L0, BO>(
+          W0, as, av, f, ds, dv, rows, SX,
+          [](int k) { return edge_s_at<Net>(k); },
+          [](int i) {
+            return i < NV ? NS + 3 * i : i < NV + VE ? Z::O_EV + 3 * (i - NV)
+                                                     : Z::O_DST + NS + 3 * (i - NV - VE);
+          },
+          ob, slab0, lane, t.n,
+          [&](int k0, const float (&y)[4]) {
+            if (!ok) return;
+            if (k0 < NS) {
+              store_n(dboth, src * FB + k0, y, in.both_bf16);
+            } else if (k0 < NS + SE) {
+              store_n(des, r * SE + (k0 - NS), y, in.es_bf16);
+            } else {
+              store_n(dboth, dst * FB + (k0 - NS - SE), y, in.both_bf16);
+            }
+          },
+          dv_in);
+      if (ok) {
+        float vj[3 * NV], vi[3 * NV];
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            vj[3 * i + d] = dv_in[d][i];
+            vi[3 * i + d] = dv_in[d][NV + VE + i];
+          }
+        }
+        store_n(dboth, src * FB + NS, vj, in.both_bf16);
+        store_n(dboth, dst * FB + NS, vi, in.both_bf16);
+#pragma unroll
+        for (int i = 0; i < VE; ++i) {
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            store(dev, r * 3 * VE + 3 * i + d, dv_in[d][NV + i], in.ev_bf16);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // the block's row of weight gradients: the warps' slabs added in warp order
+  for (int p = threadIdx.x; p < n_w; p += blockDim.x) {
+    float sum = 0.f;
+    for (int v = 0; v < warps; ++v) {
+      const float* slab = reinterpret_cast<const float*>(smem_bytes + s.warp0 + v * s.per_warp);
+      sum += slab[T * (SX + BO) + p];
+    }
+    partial[(int64_t)blockIdx.x * n_w + p] = sum;
   }
 }
 
@@ -2275,16 +3014,34 @@ bool is_net(const int* dims, const Shape& sh) {
   return true;
 }
 
-// K5 bwd takes the warp-tile kernel for the bf16 compute dtype at the widths
-// of an MmaNet instance, the block-tile kernel otherwise.
-bool bwd_on_mma(const int* dims, const Shape& sh, int cdt_bf16) {
-  return cdt_bf16 && is_net<ServedNet>(dims, sh);
+// K5 bwd's kernel at these widths and compute dtype: at the widths of an
+// MmaNet instance BWD_MMA (bf16) or BWD_F32 (f32, at the depths whose later
+// layers' inputs fit an input row), else BWD_BLOCK, the block-tile kernel.
+enum { BWD_BLOCK = 0, BWD_MMA = 1, BWD_F32 = 2 };
+
+int bwd_kind(const int* dims, const Shape& sh, int cdt_bf16) {
+  if (!is_net<ServedNet>(dims, sh)) return BWD_BLOCK;
+  if (cdt_bf16) return BWD_MMA;
+  return bwd_f32_smem<ServedNet>(sh.n_layers).warps > 0 ? BWD_F32 : BWD_BLOCK;
 }
 
 // The warp-tile instance for these activations and dtypes (DT_STEP's bits):
 // the served model's bf16 step, (relu, none), has one of its own.
 bool bwd_step_instance(int act_s, int act_v, int dt) {
   return act_s == ACT_RELU && act_v == ACT_NONE && dt == DT_STEP;
+}
+
+// K5 bwd's kernel and instance: 0 the block-tile kernel, 1 the mma.sync
+// kernel's run-time instance, 2 its instance for the bf16 step
+// (bwd_step_instance), 3 the f32 kernel's run-time instance, 4 its served
+// instance (bwd_f32_served_instance); dt: both | es << 1 | ev << 2 | dout << 3,
+// bf16 where set.
+int bwd_route(const int* dims, const Shape& sh, int cdt_bf16, int act_s, int act_v, int dt) {
+  switch (bwd_kind(dims, sh, cdt_bf16)) {
+    case BWD_MMA: return bwd_step_instance(act_s, act_v, dt) ? 2 : 1;
+    case BWD_F32: return bwd_f32_served_instance(act_s, act_v, dt) ? 4 : 3;
+    default: return 0;
+  }
 }
 
 // K5 fwd's kernel: 0 the block-tile kernel, 1 a warp-tile kernel (mma.sync
@@ -2350,11 +3107,16 @@ int launch_fwd_warp(const Inputs& in, int n_layers, const float* w, int act_s, i
   return (int)cudaGetLastError();
 }
 
-int64_t bwd_block_count(int64_t R, bool mma) {
-  if (mma) {
-    const int64_t tiles = (R + MMA_ROWS - 1) / MMA_ROWS;
-    const int64_t blocks = (tiles + MMA_WARPS - 1) / MMA_WARPS;
-    const int64_t resident = (int64_t)sm_count() * MMA_BLOCKS_PER_SM;
+// Blocks of K5 bwd's first launch (rows of its weight-gradient scratch):
+// the warp-tile kernels run persistent blocks, at most the card's resident
+// ones (the f32 kernel one an SM).
+int64_t bwd_block_count(int64_t R, int kind, int n_layers) {
+  if (kind == BWD_MMA || kind == BWD_F32) {
+    const bool mma = kind == BWD_MMA;
+    const int64_t rows = mma ? MMA_ROWS : F32_ROWS;
+    const int64_t warps = mma ? MMA_WARPS : bwd_f32_smem<ServedNet>(n_layers).warps;
+    const int64_t blocks = ((R + rows - 1) / rows + warps - 1) / warps;
+    const int64_t resident = (int64_t)sm_count() * (mma ? MMA_BLOCKS_PER_SM : 1);
     return blocks < resident ? blocks : resident;
   }
   const int64_t tiles = (R + BWD_TILE - 1) / BWD_TILE;
@@ -2362,8 +3124,11 @@ int64_t bwd_block_count(int64_t R, bool mma) {
 }
 
 int64_t bwd_smem_bytes(const int* dims, const Shape& sh, int cdt_bf16) {
-  if (bwd_on_mma(dims, sh, cdt_bf16)) return mma_smem<ServedNet>(sh.n_layers).total;
-  return bwd_smem(widths(dims, sh));
+  switch (bwd_kind(dims, sh, cdt_bf16)) {
+    case BWD_MMA: return mma_smem<ServedNet>(sh.n_layers).total;
+    case BWD_F32: return bwd_f32_smem<ServedNet>(sh.n_layers).total;
+    default: return bwd_smem(widths(dims, sh));
+  }
 }
 
 int reduce_rows(const float* partial, float* dw, int64_t blocks, int n_w, cudaStream_t s) {
@@ -2384,7 +3149,7 @@ int launch_bwd(const Inputs& in, const Shape& sh, const int* dims_dev, const Wid
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
-  const int64_t blocks = bwd_block_count(in.R, false);
+  const int64_t blocks = bwd_block_count(in.R, BWD_BLOCK, sh.n_layers);
   message_bwd_kernel<BF><<<(unsigned)blocks, THREADS, (size_t)bwd_smem(wd), s>>>(
       in, sh, dims_dev, w, act_s, act_v, dout, dout_bf16, dboth, des, dev, partial);
   const cudaError_t err = cudaGetLastError();
@@ -2408,9 +3173,34 @@ int launch_bwd_mma(const Inputs& in, const Shape& sh, int n_w, const float* w, i
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
-  const int64_t blocks = bwd_block_count(in.R, true);
+  const int64_t blocks = bwd_block_count(in.R, BWD_MMA, sh.n_layers);
   const MmaSmem sm = mma_smem<Net>(sh.n_layers);
   kernel<<<(unsigned)blocks, MMA_THREADS, (size_t)sm.total, s>>>(
+      in, sh.n_layers, w, act_s, act_v, dout, dout_bf16, dboth, des, dev, partial, n_w);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return reduce_rows(partial, dw, blocks, n_w, s);
+}
+
+template <int ACT_S, int ACT_V, int DT>
+int launch_bwd_f32(const Inputs& in, const Shape& sh, int n_w, const float* w, int act_s,
+                   int act_v, const void* dout, int dout_bf16, void* dboth, void* des, void* dev,
+                   float* partial, float* dw, cudaStream_t s) {
+  const auto kernel = message_bwd_f32_kernel<ServedNet, ACT_S, ACT_V, DT>;
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  const int64_t blocks = bwd_block_count(in.R, BWD_F32, sh.n_layers);
+  const BwdF32Smem sm = bwd_f32_smem<ServedNet>(sh.n_layers);
+  kernel<<<(unsigned)blocks, 32 * sm.warps, (size_t)sm.total, s>>>(
       in, sh.n_layers, w, act_s, act_v, dout, dout_bf16, dboth, des, dev, partial, n_w);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -2447,21 +3237,23 @@ int k5_fwd_kernel(const int* dims, int n_layers, int ns, int nv, int se, int ve,
 // The kernel K5 bwd runs for this shape, compute dtype, activations and
 // dtypes (both_bf16 | es_bf16 << 1 | ev_bf16 << 2 | dout_bf16 << 3): 0 the
 // block-tile kernel, 1 the warp-tile (mma.sync) kernel, 2 its instance for
-// the served model's bf16 step.
+// the served model's bf16 step, 3 the f32 warp-tile kernel, 4 its served
+// instance (the served model's activations, every tensor f32).
 int k5_bwd_kernel(const int* dims, int n_layers, int ns, int nv, int se, int ve, int cdt_bf16,
                   int act_s, int act_v, int dtypes) {
   const Shape sh = {n_layers, ns, nv, se, ve};
-  if (!valid(dims, sh) || !bwd_on_mma(dims, sh, cdt_bf16)) return 0;
-  return bwd_step_instance(act_s, act_v, dtypes) ? 2 : 1;
+  if (!valid(dims, sh)) return 0;
+  return bwd_route(dims, sh, cdt_bf16, act_s, act_v, dtypes);
 }
 
 // Rows of K5 bwd's weight-gradient scratch for R = B * E edges (on the
-// current device, for the warp-tile kernel).
+// current device, for the warp-tile kernels); block_tiles != 0: for the
+// block-tile kernel whatever the shape (k5_message_bwd_block).
 long long k5_bwd_blocks(const int* dims, int n_layers, int ns, int nv, int se, int ve,
-                        int cdt_bf16, long long R) {
+                        int cdt_bf16, long long R, int block_tiles) {
   const Shape sh = {n_layers, ns, nv, se, ve};
   if (!valid(dims, sh)) return -1;
-  return bwd_block_count(R, bwd_on_mma(dims, sh, cdt_bf16));
+  return bwd_block_count(R, block_tiles ? BWD_BLOCK : bwd_kind(dims, sh, cdt_bf16), n_layers);
 }
 
 // both [B, 2E, ns + 3nv], es [B, E, se], ev [B, E, 3ve] (each f32, or bf16
@@ -2499,6 +3291,29 @@ int k5_message_fwd(const void* both, const void* es, const void* ev, const float
   }
 }
 
+// k5_message_bwd on the block-tile kernel whatever the shape (the kernel of
+// widths without a warp-tile instance; the reference the warp-tile kernels'
+// input gradients are held to bit for bit in f32). partial: f32 scratch of
+// k5_bwd_blocks(..., block_tiles = 1) rows of n_w.
+int k5_message_bwd_block(const void* both, const void* es, const void* ev, const float* w,
+                         const int* dims_dev, const int* dims_host, const void* dout, void* dboth,
+                         void* des, void* dev, float* partial, float* dw, int B, int E, int ns,
+                         int nv, int se, int ve, int n_layers, int n_w, int act_s, int act_v,
+                         int both_bf16, int es_bf16, int ev_bf16, int dout_bf16, int cdt_bf16,
+                         void* stream) {
+  const Shape sh = {n_layers, ns, nv, se, ve};
+  if (!valid(dims_host, sh) || B < 1 || E < 1) return (int)cudaErrorInvalidValue;
+  const Widths wd = widths(dims_host, sh);
+  if (wd.n_w != n_w || bwd_smem(wd) > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const Inputs in = {both, es, ev, both_bf16, es_bf16, ev_bf16, (int64_t)B * E, E};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return cdt_bf16
+             ? launch_bwd<true>(in, sh, dims_dev, wd, w, act_s, act_v, dout, dout_bf16, dboth,
+                                des, dev, partial, dw, s)
+             : launch_bwd<false>(in, sh, dims_dev, wd, w, act_s, act_v, dout, dout_bf16, dboth,
+                                 des, dev, partial, dw, s);
+}
+
 // The inputs as for k5_message_fwd, plus dout [B, E, so + 3vo] (f32, or bf16
 // with dout_bf16). Writes dboth [B, 2E, ns + 3nv], des [B, E, se] and dev
 // [B, E, 3ve] in the dtypes of both, es and ev, and dw [n_w] f32, the weight
@@ -2517,20 +3332,25 @@ int k5_message_bwd(const void* both, const void* es, const void* ev, const float
   }
   const Inputs in = {both, es, ev, both_bf16, es_bf16, ev_bf16, (int64_t)B * E, E};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bwd_on_mma(dims_host, sh, cdt_bf16)) {
-    const int dt = both_bf16 | es_bf16 << 1 | ev_bf16 << 2 | dout_bf16 << 3;
-    return bwd_step_instance(act_s, act_v, dt)
-               ? launch_bwd_mma<ServedNet, ACT_RELU, ACT_NONE, DT_STEP>(
-                     in, sh, n_w, w, act_s, act_v, dout, dout_bf16, dboth, des, dev, partial, dw, s)
-               : launch_bwd_mma<ServedNet, -1, -1, -1>(in, sh, n_w, w, act_s, act_v, dout,
-                                                       dout_bf16, dboth, des, dev, partial, dw,
-                                                       s);
+  const int dt = both_bf16 | es_bf16 << 1 | ev_bf16 << 2 | dout_bf16 << 3;
+  switch (bwd_route(dims_host, sh, cdt_bf16, act_s, act_v, dt)) {
+    case 4:
+      return launch_bwd_f32<ACT_RELU, ACT_NONE, 0>(in, sh, n_w, w, act_s, act_v, dout, dout_bf16,
+                                                   dboth, des, dev, partial, dw, s);
+    case 3:
+      return launch_bwd_f32<-1, -1, -1>(in, sh, n_w, w, act_s, act_v, dout, dout_bf16, dboth,
+                                        des, dev, partial, dw, s);
+    case 2:
+      return launch_bwd_mma<ServedNet, ACT_RELU, ACT_NONE, DT_STEP>(
+          in, sh, n_w, w, act_s, act_v, dout, dout_bf16, dboth, des, dev, partial, dw, s);
+    case 1:
+      return launch_bwd_mma<ServedNet, -1, -1, -1>(in, sh, n_w, w, act_s, act_v, dout, dout_bf16,
+                                                   dboth, des, dev, partial, dw, s);
+    default:
+      return k5_message_bwd_block(both, es, ev, w, dims_dev, dims_host, dout, dboth, des, dev,
+                                  partial, dw, B, E, ns, nv, se, ve, n_layers, n_w, act_s, act_v,
+                                  both_bf16, es_bf16, ev_bf16, dout_bf16, cdt_bf16, stream);
   }
-  return cdt_bf16
-             ? launch_bwd<true>(in, sh, dims_dev, wd, w, act_s, act_v, dout, dout_bf16, dboth,
-                                des, dev, partial, dw, s)
-             : launch_bwd<false>(in, sh, dims_dev, wd, w, act_s, act_v, dout, dout_bf16, dboth,
-                                 des, dev, partial, dw, s);
 }
 
 // y[i] = x[i] for n elements, x and y each f32 or bf16 (by their flags).

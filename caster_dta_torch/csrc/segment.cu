@@ -35,10 +35,35 @@
 // K2  gather_rows: out[b, e, :] = table[b, idx[b, e], :] for any index order.
 //     Replaces the Pallas kernel caster_dta_tpu/ops/pallas_segment.py
 //     ::_onehot_gather_kernel (one-hot MXU matmul against the node table).
-//     Bound by memory bytes: a pure copy. Design: each thread copies one
-//     vector of a row (16, 8, 4 or 2 bytes, the widest that divides the row
-//     bytes), so neighbouring threads read neighbouring addresses of a row.
-//     An exact copy, bit for bit.
+//     Bound by memory bytes: a pure copy. Three kernels, by the row's bytes:
+//     - a row of 16-byte vectors, or of one vector of 2, 4 or 8 bytes
+//       (gather_rows_kernel): each thread copies one vector, the widest that
+//       divides the row's bytes and the table's alignment, so neighbouring
+//       threads read neighbouring addresses of a row;
+//     - any other row (21, 51 or 59 f32 columns, odd bf16 widths, a table off
+//       16-byte alignment). One vector a thread would be 4 or 2 bytes there,
+//       each with two 64-bit divisions and a reload of its row's index, bound
+//       by instructions. Both kernels for these rows store 16-byte vectors of
+//       the output, whatever F is, and find each element's row and column by
+//       fixed steps, not by division:
+//       - where a graph's table fits K2_STAGE_BYTES (the molecule graphs),
+//         a block per 128 edges of a graph stages the whole table in shared
+//         memory with wide loads beside its edges' indices, then writes
+//         their output rows (gather_staged_kernel): one round trip to device
+//         memory before the stores;
+//       - otherwise (gather_runs_kernel) the output [B * E, F] is one
+//         contiguous run of elements, and a warp copies R consecutive output
+//         rows at a time (R of 8, 16 or 32 by the gather's size:
+//         k2_run_rows). Lane l < R reads the index of the run's row l once
+//         (its source row b * N + idx; (graph, edge) split once a run); the
+//         warp's lanes take the run's 16-byte output vectors in turn (a run
+//         of 8 rows starts 16-byte aligned whatever F is). A vector's
+//         elements come from one or more source rows, each row's by shuffle
+//         from the lane that read it, in loads as wide as the row's bytes and
+//         the table's alignment allow. A lane's (row, column) in the run is
+//         the same in every run and moves by a fixed step a round. A partial
+//         last run ends with element stores.
+//     Either way an exact copy, bit for bit.
 //
 // K3  scatter_rows: out[b, n, :] = sum of rows[b, e, :] over every edge e
 //     (no mask) whose id[b, e] == n; the ids are in any order. The transpose
@@ -87,7 +112,7 @@
 //     table rows as K7_WINDOW_BYTES of shared memory hold: each window's rows
 //     are one contiguous, coalesced read into shared memory, and every edge
 //     whose index falls in the window copies its row out of shared memory
-//     (16, 8, 4 or 2 bytes a thread, as K2). Sorted indices (dst) span a few
+//     (16, 8, 4 or 2 bytes a thread, as K2's gather_rows_kernel). Sorted indices (dst) span a few
 //     rows a chunk and read each table row about once; unsorted ones span the
 //     table and read it whole per chunk. Not dispatched on any path, as in the
 //     JAX package, which measured it and kept the resident-table gather.
@@ -119,8 +144,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int K2_THREADS = 256;
+constexpr int K2_THREADS = 256;          // gather_rows_kernel: a vector a thread
 constexpr int K2_MAX_BLOCKS = 132 * 32;  // grid-stride beyond this
+constexpr int K2_RUN_THREADS = 128;      // gather_runs_kernel: a block of 4 warps
+constexpr int K2_RUN_BLOCKS = 132 * 16;  // grid-stride beyond this
+constexpr int K2_RUNS = 2048;            // runs a launch aims at (k2_run_rows)
+constexpr int K2_STAGE_THREADS = 512;    // gather_staged_kernel: a block per 128 edges
+constexpr int K2_STAGE_ROWS = 128;       // output rows a block copies
+constexpr int K2_STAGE_BYTES = 16384;    // the most bytes of a graph's table a block stages
 constexpr int K3_WALK = 64;      // ids per walker that the CSR build aims at
 constexpr int K3_CLUSTER = 8;    // most blocks per graph in the CSR build (portable)
 constexpr int K3_WAVE = 66;      // CSR blocks over all graphs, at most, where B allows
@@ -177,6 +208,149 @@ gather_rows_kernel(const V* __restrict__ table, const int* __restrict__ idx, V* 
     if (src < 0 || src >= N) __trap();
     out[t] = table[(b * N + src) * vec_per_row + c];
   }
+}
+
+// T: an element's bits (uint32_t for f32, uint16_t for bf16); L: one load of
+// sizeof(L) / sizeof(T) elements, which divides F and the table's alignment;
+// R: the rows of a run (a multiple of 8, at most 32).
+template <typename T, typename L>
+__global__ void __launch_bounds__(K2_RUN_THREADS)
+gather_runs_kernel(const T* __restrict__ table, const int* __restrict__ idx, T* __restrict__ out,
+                   int64_t n_rows, int E, int N, int F, int R) {
+  constexpr int VEC = 16 / (int)sizeof(T);   // elements of a 16-byte store
+  constexpr int W = (int)(sizeof(L) / sizeof(T));
+  constexpr int PARTS = VEC / W;             // loads a vector
+  const int lane = threadIdx.x & 31;
+  // the lane's first vector of a run starts at row i0, column c0 of the run;
+  // a round of the warp moves it on by 32 vectors
+  const int i0 = lane * VEC / F, c0 = lane * VEC - i0 * F;
+  const int step_i = 32 * VEC / F, step_c = 32 * VEC - step_i * F;
+  const int64_t n_runs = (n_rows + R - 1) / R;
+  const int64_t warps = (int64_t)gridDim.x * (K2_RUN_THREADS / 32);
+  for (int64_t run = (int64_t)blockIdx.x * (K2_RUN_THREADS / 32) + (threadIdx.x >> 5);
+       run < n_runs; run += warps) {
+    const int64_t r0 = run * R;
+    const int rows = (int)(n_rows - r0 < R ? n_rows - r0 : R);
+    // the source row of the run's row `lane`
+    int64_t src = 0;
+    if (lane < rows) {
+      int64_t b = r0 < INT_MAX ? (int64_t)((uint32_t)r0 / (uint32_t)E) : r0 / E;
+      int e = (int)(r0 - b * E) + lane;
+      while (e >= E) {
+        e -= E;
+        ++b;
+      }
+      // an index outside [0, N) stops the kernel (a launch failure at the
+      // next synchronisation), as the plain version raises on one
+      const int s = idx[r0 + lane];
+      if (s < 0 || s >= N) __trap();
+      src = b * N + s;
+    }
+    T* const dst = out + r0 * F;   // 16-byte aligned: r0 is a multiple of 8
+    const int n_el = rows * F, n_vec = n_el / VEC;
+    int i = i0, c = c0;
+#pragma unroll 4
+    for (int v0 = 0; v0 < n_vec; v0 += 32) {
+      const bool on = v0 + lane < n_vec;
+      union {
+        uint4 q;
+        L part[PARTS];
+      } u;
+      int ii = i, cc = c;
+#pragma unroll
+      for (int p = 0; p < PARTS; ++p) {
+        const int64_t row = __shfl_sync(0xffffffffu, src, ii & 31);
+        if (on) u.part[p] = *reinterpret_cast<const L*>(table + row * F + cc);
+        cc += W;
+        if (cc == F) {
+          cc = 0;
+          ++ii;
+        }
+      }
+      if (on) reinterpret_cast<uint4*>(dst)[v0 + lane] = u.q;
+      c += step_c;
+      i += step_i;
+      if (c >= F) {
+        c -= F;
+        ++i;
+      }
+    }
+    // a partial run's last elements, fewer than a vector
+    const int tail = n_el - n_vec * VEC;
+    if (tail != 0) {
+      const int j = n_vec * VEC + (lane < tail ? lane : 0);
+      const int ii = j / F;
+      const int64_t row = __shfl_sync(0xffffffffu, src, ii & 31);
+      if (lane < tail) dst[j] = table[row * F + (j - ii * F)];
+    }
+  }
+}
+
+// A graph's table of at most K2_STAGE_BYTES (the molecule graphs): block
+// (c, b) stages graph b's whole table in shared memory with loads of L (which
+// divides the table's bytes and the graph's alignment) beside the indices of
+// its K2_STAGE_ROWS edges, then writes those edges' output rows, one run of
+// elements, in 16-byte stores (element stores before the first 16-byte
+// boundary and after the last), each element read from the staged table.
+template <typename T, typename L>
+__global__ void __launch_bounds__(K2_STAGE_THREADS)
+gather_staged_kernel(const T* __restrict__ table, const int* __restrict__ idx,
+                     T* __restrict__ out, int E, int N, int F) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  constexpr int NT = K2_STAGE_THREADS;
+  __shared__ __align__(16) unsigned char s_table[K2_STAGE_BYTES];
+  __shared__ int s_src[K2_STAGE_ROWS];
+  const T* const buf = reinterpret_cast<const T*>(s_table);
+  const int b = blockIdx.y, e0 = blockIdx.x * K2_STAGE_ROWS, t = threadIdx.x;
+  const int rows = min(K2_STAGE_ROWS, E - e0);
+  for (int i = t; i < rows; i += NT) {
+    const int src = idx[(int64_t)b * E + e0 + i];
+    // an index outside [0, N) stops the kernel, as the other K2 kernels'
+    if (src < 0 || src >= N) __trap();
+    s_src[i] = src * F;
+  }
+  const L* const tb = reinterpret_cast<const L*>(table + (int64_t)b * N * F);
+  const int n_loads = N * F / (int)(sizeof(L) / sizeof(T));
+  for (int i = t; i < n_loads; i += NT) reinterpret_cast<L*>(s_table)[i] = tb[i];
+  __syncthreads();
+  // the block's output elements [0, n_el) from dst; its first 16-byte
+  // boundary `head` elements in
+  T* const dst = out + ((int64_t)b * E + e0) * F;
+  const int n_el = rows * F;
+  const int mis = (int)(reinterpret_cast<uintptr_t>(dst) % 16) / (int)sizeof(T);
+  const int head = min(n_el, (VEC - mis) % VEC);
+  const int n_vec = (n_el - head) / VEC;
+  if (t < head) dst[t] = buf[s_src[t / F] + t % F];
+  // thread t's first vector starts at row i, column c; a round of the
+  // block's threads moves it on by NT vectors
+  int i = (head + t * VEC) / F, c = head + t * VEC - i * F;
+  const int step_i = NT * VEC / F, step_c = NT * VEC - step_i * F;
+  uint4* const vdst = reinterpret_cast<uint4*>(dst + head);
+  for (int v = t; v < n_vec; v += NT) {
+    union {
+      uint4 q;
+      T x[VEC];
+    } u;
+    int ii = i, cc = c, row = s_src[ii];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      u.x[k] = buf[row + cc];
+      if (++cc == F) {
+        cc = 0;
+        ++ii;
+        if (k + 1 < VEC) row = s_src[ii];
+      }
+    }
+    vdst[v] = u.q;
+    c += step_c;
+    i += step_i;
+    if (c >= F) {
+      c -= F;
+      ++i;
+    }
+  }
+  const int j = head + n_vec * VEC + t;   // the last elements, fewer than a vector
+  if (j < n_el) dst[j] = buf[s_src[j / F] + j % F];
 }
 
 // The CSR of K3 in the workspace: row_ptr [B, N+1], perm [B, E], n_long [B],
@@ -1025,6 +1199,49 @@ void launch_gather(const void* table, const void* idx, void* out, int B, int E, 
       n_rows, E, N, vec_per_row);
 }
 
+// The rows of gather_runs_kernel's runs for n_rows output rows: 8, 16 or 32
+// (a run of 8 rows starts 16-byte aligned; at most an index a lane), the
+// fewest that leave at most K2_RUNS runs, so that a small gather still has
+// enough warps in flight and a large one copies long runs. On an H100 this
+// chose the fastest of 8, 16 and 32 at every shape scripts/k2_times.py times
+// (4 was never the fastest): 8 for 8,192 rows of 51 columns, 16 for 32,768,
+// 32 for 131,072 rows of 21.
+int k2_run_rows(int64_t n_rows) {
+  return n_rows <= 8 * K2_RUNS ? 8 : n_rows <= 16 * K2_RUNS ? 16 : 32;
+}
+
+template <typename T, typename L>
+int launch_gather_staged(const void* table, const void* idx, void* out, int B, int E, int N,
+                         int F, cudaStream_t stream) {
+  // as much of each SM as shared memory as the blocks can use, whatever
+  // the kernels before left the split between L1 and shared memory at
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(gather_staged_kernel<T, L>,
+                                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  const dim3 grid((E + K2_STAGE_ROWS - 1) / K2_STAGE_ROWS, B);
+  gather_staged_kernel<T, L><<<grid, K2_STAGE_THREADS, 0, stream>>>(
+      static_cast<const T*>(table), static_cast<const int*>(idx), static_cast<T*>(out), E, N, F);
+  return 0;
+}
+
+template <typename T, typename L>
+void launch_gather_runs(const void* table, const void* idx, void* out, int B, int E, int N, int F,
+                        cudaStream_t stream) {
+  const int64_t n_rows = (int64_t)B * E;
+  const int R = k2_run_rows(n_rows);
+  const int64_t runs = (n_rows + R - 1) / R;
+  int64_t blocks = (runs + K2_RUN_THREADS / 32 - 1) / (K2_RUN_THREADS / 32);
+  if (blocks > K2_RUN_BLOCKS) blocks = K2_RUN_BLOCKS;
+  gather_runs_kernel<T, L><<<(unsigned)blocks, K2_RUN_THREADS, 0, stream>>>(
+      static_cast<const T*>(table), static_cast<const int*>(idx), static_cast<T*>(out), n_rows, E,
+      N, F, R);
+}
+
 template <typename V>
 void launch_gather_windowed(const void* table, const void* idx, void* out, int B, int E, int N,
                             int row_bytes, cudaStream_t stream) {
@@ -1272,18 +1489,83 @@ int k1_segment_sum_sorted(const void* msgs, const void* dst, const void* mask, v
                    : walk_launch<float, true>(msgs, dst, mask, out, B, E, N, F, s);
 }
 
-// table [B, N, row_bytes] (any 2- or 4-byte element type), idx [B, E] int32
-// in [0, N), out [B, E, row_bytes]. vec_bytes (16, 8, 4 or 2) divides row_bytes and the
-// alignment of both pointers.
-int k2_gather_rows(const void* table, const void* idx, void* out, int B, int E, int N,
-                   int row_bytes, int vec_bytes, void* stream) {
+// The kernel K2 copies rows of F elements of elem_bytes with, loaded
+// load_bytes at a time from a table of N rows a graph: 0 gather_rows_kernel
+// (rows of 16-byte loads, or of one load), 2 gather_staged_kernel (other rows
+// where a graph's table fits K2_STAGE_BYTES and has at most the rows a block
+// writes: a block stages the whole table, so a longer one would be read many
+// times over), 1 gather_runs_kernel (the rest).
+int k2_kernel(int N, int F, int elem_bytes, int load_bytes) {
+  if (load_bytes == 16 || (int64_t)F * elem_bytes == load_bytes) return 0;
+  const bool fits = (int64_t)N * F * elem_bytes <= K2_STAGE_BYTES && N <= K2_STAGE_ROWS;
+  return fits ? 2 : 1;
+}
+
+// The widest of 16, 8, 4, 2 bytes (at least elem_bytes) that divides n_bytes
+// and the address p.
+int widest_load(const void* p, int64_t n_bytes, int elem_bytes) {
+  for (int v = 16; v > elem_bytes; v /= 2) {
+    if (n_bytes % v == 0 && reinterpret_cast<uintptr_t>(p) % v == 0) return v;
+  }
+  return elem_bytes;
+}
+
+// table [B, N, F] of 2- or 4-byte elements (elem_bytes), idx [B, E] int32 in
+// [0, N), out [B, E, F], 16-byte aligned. load_bytes (16, 8, 4 or 2, at least
+// elem_bytes) divides F * elem_bytes and the table's alignment.
+int k2_gather_rows(const void* table, const void* idx, void* out, int B, int E, int N, int F,
+                   int elem_bytes, int load_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (vec_bytes) {
-    case 16: launch_gather<uint4>(table, idx, out, B, E, N, row_bytes, s); break;
-    case 8: launch_gather<uint2>(table, idx, out, B, E, N, row_bytes, s); break;
-    case 4: launch_gather<uint32_t>(table, idx, out, B, E, N, row_bytes, s); break;
-    case 2: launch_gather<uint16_t>(table, idx, out, B, E, N, row_bytes, s); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0 || F < 1 ||
+      (elem_bytes != 2 && elem_bytes != 4) || load_bytes < elem_bytes ||
+      (int64_t)F * elem_bytes % load_bytes != 0 ||
+      reinterpret_cast<uintptr_t>(table) % load_bytes != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int row_bytes = F * elem_bytes;
+  const int kernel = k2_kernel(N, F, elem_bytes, load_bytes);
+  if (kernel == 2) {
+    // the graph's table in loads as wide as its bytes and address allow
+    const int stage = widest_load(table, (int64_t)N * row_bytes, elem_bytes);
+    int err;
+    if (elem_bytes == 4) {
+      switch (stage) {
+        case 16: err = launch_gather_staged<uint32_t, uint4>(table, idx, out, B, E, N, F, s); break;
+        case 8: err = launch_gather_staged<uint32_t, uint2>(table, idx, out, B, E, N, F, s); break;
+        default: err = launch_gather_staged<uint32_t, uint32_t>(table, idx, out, B, E, N, F, s);
+      }
+    } else {
+      switch (stage) {
+        case 16: err = launch_gather_staged<uint16_t, uint4>(table, idx, out, B, E, N, F, s); break;
+        case 8: err = launch_gather_staged<uint16_t, uint2>(table, idx, out, B, E, N, F, s); break;
+        case 4:
+          err = launch_gather_staged<uint16_t, uint32_t>(table, idx, out, B, E, N, F, s);
+          break;
+        default: err = launch_gather_staged<uint16_t, uint16_t>(table, idx, out, B, E, N, F, s);
+      }
+    }
+    if (err != 0) return err;
+  } else if (kernel == 0) {
+    switch (load_bytes) {
+      case 16: launch_gather<uint4>(table, idx, out, B, E, N, row_bytes, s); break;
+      case 8: launch_gather<uint2>(table, idx, out, B, E, N, row_bytes, s); break;
+      case 4: launch_gather<uint32_t>(table, idx, out, B, E, N, row_bytes, s); break;
+      case 2: launch_gather<uint16_t>(table, idx, out, B, E, N, row_bytes, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else if (elem_bytes == 4) {
+    switch (load_bytes) {
+      case 8: launch_gather_runs<uint32_t, uint2>(table, idx, out, B, E, N, F, s); break;
+      case 4: launch_gather_runs<uint32_t, uint32_t>(table, idx, out, B, E, N, F, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (load_bytes) {
+      case 8: launch_gather_runs<uint16_t, uint2>(table, idx, out, B, E, N, F, s); break;
+      case 4: launch_gather_runs<uint16_t, uint32_t>(table, idx, out, B, E, N, F, s); break;
+      case 2: launch_gather_runs<uint16_t, uint16_t>(table, idx, out, B, E, N, F, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -70,12 +70,14 @@ def load_library() -> build.Built:
         lib.k5_bwd_kernel.restype = i
         lib.k5_fwd_kernel.argtypes = [vp] + [i] * 9
         lib.k5_fwd_kernel.restype = i
-        lib.k5_bwd_blocks.argtypes = [vp, i, i, i, i, i, i, ll]
+        lib.k5_bwd_blocks.argtypes = [vp, i, i, i, i, i, i, ll, i]
         lib.k5_bwd_blocks.restype = ll
         lib.k5_message_fwd.argtypes = [vp] * 7 + [i] * 14 + [vp]
         lib.k5_message_fwd.restype = i
         lib.k5_message_bwd.argtypes = [vp] * 12 + [i] * 15 + [vp]
         lib.k5_message_bwd.restype = i
+        lib.k5_message_bwd_block.argtypes = [vp] * 12 + [i] * 15 + [vp]
+        lib.k5_message_bwd_block.restype = i
         lib.k6_cast_copy.argtypes = [vp, vp, ll, i, i, vp]
         lib.k6_cast_copy.restype = i
         _built = built
@@ -301,7 +303,8 @@ def _check_smem(lib, name, dims, dims_host, spec, se, ve, backward) -> None:
                          f"per block, over the {SMEM_LIMIT} a block can have")
 
 
-BWD_KERNELS = ("block tiles", "warp tiles", "warp tiles, bf16 step")
+BWD_KERNELS = ("block tiles", "warp tiles", "warp tiles, bf16 step", "warp tiles, f32",
+               "warp tiles, f32 served")
 FWD_KERNELS = ("block tiles", "warp tiles", "warp tiles, served")
 
 
@@ -318,10 +321,12 @@ def _route(query, tensors, weights, spec: MessageSpec) -> int:
 
 def bwd_kernel(both, es, ev, weights, dout, spec: MessageSpec) -> str:
     """Which kernel ``message_bwd`` runs for these arguments (one of
-    BWD_KERNELS): the block-tile kernel (f32 products, or widths without a
-    warp-tile instance), the warp-tile kernel (mma.sync, bf16 products), or
-    its instance for the served model's bf16 training step ((relu, none)
-    activations; both, es and dout f32, ev bf16). Builds the library."""
+    BWD_KERNELS): the block-tile kernel (widths without a warp-tile
+    instance), the warp-tile kernel on mma.sync (bf16 products) or its
+    instance for the served model's bf16 training step ((relu, none)
+    activations; both, es and dout f32, ev bf16), or the f32 warp-tile
+    kernel (FFMA) or its served instance ((relu, none), every tensor f32:
+    the explainer's backward). Builds the library."""
     return BWD_KERNELS[_route(load_library().lib.k5_bwd_kernel, (both, es, ev, dout), weights,
                               spec)]
 
@@ -393,11 +398,24 @@ def message_bwd(both: torch.Tensor, es: torch.Tensor, ev: torch.Tensor,
     have a fixed order and no atomics: two runs give the same bits.
 
     Replaces caster_dta_tpu/ops/pallas_gvp_message.py::_bwd_kernel. Bound by
-    memory bytes on the H100 (see the source); with the bf16 compute dtype
-    at the served model's widths it runs on warp tiles of 16 edges and
-    mma.sync (``bwd_kernel``)."""
+    memory bytes on the H100 (see the source); at the served model's widths
+    it runs on warp tiles: 16 edges on mma.sync for the bf16 compute dtype,
+    32 edges on FFMA, an edge a lane, for f32 (``bwd_kernel``)."""
     if both.device.type == "cpu":
         return message_bwd_plain(both, es, ev, weights, dout, spec)
+    return _message_bwd(both, es, ev, weights, dout, spec, block_tiles=False)
+
+
+def _message_bwd_block_tiles(both, es, ev, weights, dout, spec: MessageSpec):
+    """``message_bwd`` on the card on the block-tile kernel
+    (``message_bwd_kernel``) whatever the widths: a test hook, not counted in
+    LAUNCHES, so that the card tests and chip_smoke.py can hold the f32
+    warp-tile kernel's input gradients to the block-tile kernel's bits on
+    the same inputs."""
+    return _message_bwd(both, es, ev, weights, dout, spec, block_tiles=True)
+
+
+def _message_bwd(both, es, ev, weights, dout, spec: MessageSpec, block_tiles: bool):
     if both.device.type != "cuda":
         raise ValueError(f"{K5B}: unsupported device {both.device}")
     dims = _check_message_args(both, es, ev, weights, spec, dout)
@@ -416,19 +434,20 @@ def message_bwd(both: torch.Tensor, es: torch.Tensor, ev: torch.Tensor,
     _check_smem(lib, K5B, dims, dims_host, spec, se, ve, backward=True)
     with torch.cuda.device(both.device):
         rows = lib.k5_bwd_blocks(dims_host, len(dims), spec.ns, spec.nv, se, ve,
-                                 _cdt_bf16(spec), b * e)
+                                 _cdt_bf16(spec), b * e, int(block_tiles))
         partial = torch.empty(rows, w.numel(), dtype=torch.float32, device=both.device)
         dw = torch.empty(w.numel(), dtype=torch.float32, device=both.device)
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.k5_message_bwd(
+        entry = lib.k5_message_bwd_block if block_tiles else lib.k5_message_bwd
+        err = entry(
             both.data_ptr(), es.data_ptr(), ev.data_ptr(), w.data_ptr(), dims_dev.data_ptr(),
             dims_host, dout.data_ptr(), dboth.data_ptr(), des.data_ptr(), dev.data_ptr(),
             partial.data_ptr(), dw.data_ptr(), b, e, spec.ns, spec.nv, se, ve, len(dims),
             w.numel(), _ACT_CODES[spec.act_s], _ACT_CODES[spec.act_v], _is_bf16(both),
             _is_bf16(es), _is_bf16(ev), _is_bf16(dout), _cdt_bf16(spec), stream)
     _raise_on(err, K5B)
-    build.count_launch(LAUNCHES, BYTES, K5B, both, es, ev, w, dout, dboth, des, dev,
-                       dw)
+    if not block_tiles:
+        build.count_launch(LAUNCHES, BYTES, K5B, both, es, ev, w, dout, dboth, des, dev, dw)
     return dboth, des, dev, [g.view(wt.shape) for g, wt in zip(dw.split(sizes), weights)]
 
 

@@ -50,7 +50,8 @@ def load_library() -> build.Built:
         vp, i = ctypes.c_void_p, ctypes.c_int
         built.lib.k1_segment_sum_sorted.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
         built.lib.k1_segment_sum_sorted.restype = i
-        built.lib.k2_gather_rows.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+        built.lib.k2_gather_rows.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
+        built.lib.k2_kernel.argtypes = [i, i, i, i]
         built.lib.k2_gather_rows.restype = i
         built.lib.k3_workspace_ints.argtypes = [i, i, i]
         built.lib.k3_workspace_ints.restype = ctypes.c_int64
@@ -155,6 +156,28 @@ def _vec_bytes(name: str, row_bytes: int, *ptrs: int) -> int:
     raise ValueError(f"{name}: row of {row_bytes} bytes has no 2-byte alignment")
 
 
+def gather_load_bytes(table: torch.Tensor) -> int:
+    """The bytes of each of K2's loads from ``table`` [B, N, F]: the widest of
+    16, 8, 4, 2 that divides a row's bytes and the table's address, and at
+    least one element. K2's stores are 16 bytes whatever this is."""
+    size = table.element_size()
+    return next(v for v in (16, 8, 4, 2) if v == size or (
+        v > size and (table.shape[2] * size) % v == 0 and table.data_ptr() % v == 0))
+
+
+GATHER_KERNELS = ("vectors", "runs", "staged")
+
+
+def gather_kernel(table: torch.Tensor) -> str:
+    """Which of K2's kernels ``gather_rows`` runs for ``table`` [B, N, F] (one
+    of GATHER_KERNELS): gather_rows_kernel (rows of 16-byte loads, or of one
+    load), gather_staged_kernel (other rows, where a graph's table fits its
+    shared memory) or gather_runs_kernel (the rest). Builds the library."""
+    _, n, f = table.shape
+    return GATHER_KERNELS[load_library().lib.k2_kernel(n, f, table.element_size(),
+                                                       gather_load_bytes(table))]
+
+
 def _check_gather(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
     """The device, shape and dtype checks of K2 and K7 on a CUDA tensor."""
     if table.device.type != "cuda":
@@ -194,13 +217,12 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return out
     if n == 0:
         raise ValueError(f"{K2}: gather from an empty table")
-    row_bytes = f * table.element_size()
-    vec = _vec_bytes(K2, row_bytes, table.data_ptr(), out.data_ptr())
+    load = gather_load_bytes(table)
     lib = load_library().lib
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.k2_gather_rows(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                 b, e, n, row_bytes, vec, stream)
+                                 b, e, n, f, table.element_size(), load, stream)
     _raise_on(err, K2)
     build.count_launch(LAUNCHES, BYTES, K2, table, idx, out)
     return out

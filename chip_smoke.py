@@ -398,6 +398,15 @@ K5F_REPLACES = "caster_dta_tpu/ops/pallas_gvp_message.py:267"   # _fwd_kernel
 # its dtypes fixed at compile time (template arguments ACT_S, ACT_V, DT)
 K5F_SERVED = {"f32": re.compile(r"message_fwd_f32_kernel<.*MmaNet<[^>]*>, 1, 0, 0>"),
               "bf16 step": re.compile(r"message_fwd_mma_kernel<.*MmaNet<[^>]*>, 1, 0, 4>")}
+# K5 bwd's served f32 instance (the explainer's backward), as the profiler
+# names it
+K5B_F32_SERVED = re.compile(r"message_bwd_f32_kernel<.*MmaNet<[^>]*>, 1, 0, 0>")
+# K5 bwd's route (cuda_gvp_message.BWD_KERNELS) at the served widths, by kind
+K5B_ROUTES = {"f32": "warp tiles, f32 served", "bf16 step": "warp tiles, bf16 step"}
+# K2's odd widths (loads narrower than its 16-byte stores) checked in the
+# kernels phase beside the served and zoo widths, also from a table off
+# 16-byte alignment
+K2_ODD_WIDTHS = (3, 21, 51, 59)
 K5B_REPLACES = "caster_dta_tpu/ops/pallas_gvp_message.py:284"   # _bwd_kernel
 K6_REPLACES = "caster_dta_tpu/ops/pallas_gvp_message.py:217"    # _cast_kernel
 K4_REPLACES = "caster_dta_tpu/ops/pallas_attention.py:41"       # _mha_kernel
@@ -944,6 +953,78 @@ def k5_close(torch, got, want, bf16: bool, weight: bool, what: str) -> float:
     return err
 
 
+def k5_bwd_float64(torch, cgm, inputs, weights, spec):
+    """message_bwd_plain's arithmetic in float64 on the same inputs: every
+    operand kept in float64 where the plain version rounds it to the compute
+    dtype. -> (d both, d es, d ev) in float64."""
+    from unittest import mock
+
+    both, es, ev, dout = (t.double() for t in inputs)
+    with mock.patch.object(cgm, "_rnd", lambda x, cdt: x.double()):
+        return cgm.message_bwd_plain(both, es, ev, [w.double() for w in weights], dout,
+                                     spec)[:3]
+
+
+def k5_input_grads_close(torch, cgm, what, grads, want, inputs, weights, spec,
+                         tally: dict | None = None) -> float:
+    """K5 bwd's input gradients (d both, d es, d ev) against the plain
+    version's on the same inputs -> the largest |got - want|. Each entry lies
+    within K5_TOL (see there) of the plain version's, or, in f32, where a
+    ReLU pre-activation within f32 rounding of 0 puts the two sum orders on
+    either side of the kink and a whole term moves, it is no farther from the
+    same backward in float64 (k5_bwd_float64) than the plain version is, plus
+    the tolerance. Raises otherwise, or with ``tally`` counts the entries
+    beyond the tolerance, those the rule passed and those it failed there.
+    Prints how many entries the rule passed and the smallest |ReLU
+    pre-activation| of their edges."""
+    bf16 = spec.compute_dtype == torch.bfloat16
+    err, decided, ref64, edges = 0.0, 0, None, set()
+    for name, g, w in zip(("d both", "d es", "d ev"), grads, want):
+        if bf16 or g.dtype == torch.bfloat16:
+            err = max(err, k5_close(torch, g, w, True, False, f"{what} {name}"))
+            continue
+        g, w = g.float(), w.float()
+        if g.shape != w.shape:
+            raise AssertionError(f"{what} {name}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+        if g.numel() == 0:
+            continue
+        tol = K5_TOL["f32"] * (1.0 + w.abs().max().item())
+        diff = (g - w).abs()
+        err = max(err, diff.max().item())
+        beyond = diff > tol
+        if not beyond.any():
+            continue
+        if ref64 is None:
+            ref64 = k5_bwd_float64(torch, cgm, inputs, weights, spec)
+        r = ref64[("d both", "d es", "d ev").index(name)]
+        far = (g.double() - r).abs() > (w.double() - r).abs() + tol
+        if tally is not None:
+            for key, mask in (("beyond", beyond), ("failed", beyond & far)):
+                tally[key] = tally.get(key, 0) + int(mask.sum())
+            beyond = beyond & ~far
+        elif (beyond & far).any():
+            raise AssertionError(f"{what} {name}: max|d| {diff.max().item():.3e} > {tol:.3e}, "
+                                 f"and {int((beyond & far).sum())} of the {int(beyond.sum())} "
+                                 f"entries beyond it lie farther from float64 than the plain "
+                                 f"version plus the tolerance")
+        decided += int(beyond.sum())
+        e = w.shape[1] if name != "d both" else w.shape[1] // 2
+        for gb, j in beyond.nonzero()[:, :2].tolist():
+            edges.add(gb * e + j % e)
+    if tally is not None:
+        tally["passed"] = tally.get("passed", 0) + decided
+    if decided:
+        both, es, ev, _ = inputs
+        _, _, caches = cgm._forward_layers(both, es, ev, weights, spec, keep=True)
+        idx = torch.tensor(sorted(edges), device=caches[0][5].device)
+        nearest = min((caches[k][5][idx].abs().min().item() for k in range(len(caches) - 1)),
+                      default=float("nan"))
+        print(f"{what}: {decided} input-gradient entries beyond K5_TOL on {len(edges)} edges "
+              f"lie no farther from float64 than the plain version plus the tolerance "
+              f"(the edges' smallest |ReLU pre-activation| {nearest:.3e})")
+    return err
+
+
 # the dtypes of K5's inputs (both, es, ev) and products: f32 serving, and the
 # bf16 training step (the conv receives s and es f32, v and ev bf16, and the
 # merged node table promotes to f32)
@@ -980,9 +1061,8 @@ def k5_check(torch, cgm, what, inputs, weights, spec, max_err):
     want = cgm.message_bwd_plain(both, es, ev, weights, dout, spec)
     err_f = k5_close(torch, out, want_out, bf16 or out.dtype == torch.bfloat16, False,
                      f"K5 fwd {what}")
-    err_i = max(k5_close(torch, g, w, bf16 or g.dtype == torch.bfloat16, False,
-                         f"K5 bwd {what} {name}")
-                for name, g, w in zip(("d both", "d es", "d ev"), grads[:3], want[:3]))
+    err_i = k5_input_grads_close(torch, cgm, f"K5 bwd {what}", grads[:3], want[:3], inputs,
+                                 weights, spec)
     err_w = max(k5_close(torch, g, w, bf16, True, f"K5 bwd {what} weight {i}")
                 for i, (g, w) in enumerate(zip(grads[3], want[3])))
     max_err["K5 fwd"] = max(max_err["K5 fwd"], err_f)
@@ -990,6 +1070,20 @@ def k5_check(torch, cgm, what, inputs, weights, spec, max_err):
     print(f"K5 {what}: both {tuple(both.shape)} {str(both.dtype)[6:]}, ev {str(ev.dtype)[6:]}, "
           f"compute {str(spec.compute_dtype)[6:]}: fwd max|d| {err_f:.3e}, bwd input grads "
           f"{err_i:.3e}, weight grads {err_w:.3e}; a second run gave the same bits")
+
+
+def k5_block_bits(torch, cgm, what, inputs, weights, spec) -> None:
+    """K5 bwd's input gradients on its route and on the block-tile kernel
+    (cuda_gvp_message's test hook), same inputs: raise unless bit for bit."""
+    both, es, ev, dout = inputs
+    got = cgm.message_bwd(both, es, ev, weights, dout, spec)
+    block = cgm._message_bwd_block_tiles(both, es, ev, weights, dout, spec)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("d both", "d es", "d ev"), got[:3], block[:3]):
+        if not torch.equal(x, y):
+            raise AssertionError(f"K5 bwd {what} {name}: not the block-tile kernel's bits")
+    print(f"K5 bwd {what}: d both, d es, d ev bit for bit the block-tile kernel's on the same "
+          f"inputs")
 
 
 def check_k5f_served(tag: str, per_kernel: dict, kind: str) -> None:
@@ -1699,6 +1793,8 @@ def evaluate_phase(torch, run, run_cpu, eval_launches: dict) -> None:
                 for k in ("affinity_score", "prot_mol_attention"):
                     if not all(np.array_equal(a, b) for a, b in zip(plain[k], second[k])):
                         raise AssertionError(f"evaluate {path}: {k} moved with the explainer")
+                if path == "fused":
+                    explained_batch_profile(torch, run.model, dataset, batches[0])
             need = {"dense": (cs.K1, cs.K2, cs.K3), "fused": (cgm.K5F, cgm.K5B, cgm.K6, cs.K3),
                     "blockwise": (ca.K4,)}[path]
             if not all(l_second[k] > 0 for k in need):
@@ -1711,6 +1807,32 @@ def evaluate_phase(torch, run, run_cpu, eval_launches: dict) -> None:
                           f"the first {EVAL_CPU_BATCHES} batches ({n_cpu} pairs)")
         for r in (run, run_cpu):
             set_use_pallas(r.model, False)
+
+
+def explained_batch_profile(torch, model, dataset, batch) -> None:
+    """One replayed batch of the fused path with the explainer under
+    torch.profiler (its graphs captured already): its device time by kernel
+    group and K5 bwd's share of it; raises unless every K5 bwd launch is the
+    served f32 instance (K5B_F32_SERVED)."""
+    from caster_dta_torch.inference.evaluation import evaluate_batches
+
+    per_kernel, launches = profile_forward(
+        torch, lambda: evaluate_batches(model, dataset, [batch], do_explainer=True), n=3)
+    k5b = {name.replace("(anonymous namespace)::", "").split("(")[0]: ms
+           for name, ms in per_kernel.items() if "message_bwd" in name}
+    if not k5b or not all(K5B_F32_SERVED.search(name) for name in k5b):
+        raise AssertionError(f"evaluate fused: K5 bwd did not run its served f32 instance: "
+                             f"{sorted(k5b)}")
+    total = sum(per_kernel.values())
+    groups = kernel_groups(per_kernel)
+    share = (groups.get("K5 bwd", 0.0) + groups.get("K5 bwd sum", 0.0)) / total
+    print(f"evaluate fused with the explainer, one replayed batch ({batch.protein.batch_size} "
+          f"pairs, bucket {batch.bucket}): device time {total:.3f} ms in {launches:.0f} "
+          f"launches; K5 bwd {groups.get('K5 bwd', 0.0):.3f} ms and its sum "
+          f"{groups.get('K5 bwd sum', 0.0):.3f} ms, {share:.1%} of it; K5 bwd kernels "
+          + "; ".join(f"{name} {ms:.3f} ms" for name, ms in k5b.items()))
+    print("evaluate fused with the explainer, one replayed batch by group: " + ", ".join(
+        f"{g} {ms:.3f} ms ({ms / total:.1%})" for g, ms in groups.items()))
 
 
 def analysis_phase(torch, model_cpu, analysis_launches: dict) -> None:
@@ -2527,6 +2649,31 @@ def main() -> int:
                 raise AssertionError(f"K2 edge case {name}: not bit-exact")
             torch.cuda.synchronize()
             print(f"edge case {name}: K1 bit for bit the CPU's, empty rows 0; K2 bit-exact")
+        # K2 at odd widths and from a table off 16-byte alignment, on
+        # flagship #0's protein merged and molecule indices (a generator of
+        # their own: the phase's later draws stay as they were)
+        k2_gen = torch.Generator(device="cuda")
+        k2_gen.manual_seed(21)
+        p0, m0 = requests[0][1].protein.to("cuda"), requests[0][1].molecule.to("cuda")
+        for f in K2_ODD_WIDTHS:
+            kernels = set()
+            for graph, n, idx in (("protein merged", p0.n_pad,
+                                   torch.cat([p0.edge_src, p0.edge_dst], 1)),
+                                  ("molecule", m0.n_pad, m0.edge_src)):
+                b = idx.shape[0]
+                for dtype in (torch.float32, torch.bfloat16):
+                    storage = torch.randn(b * n * f + 1, generator=k2_gen, device="cuda").to(dtype)
+                    for where, table in (("aligned", storage[:-1].view(b, n, f)),
+                                         ("off alignment", storage[1:].view(b, n, f))):
+                        kernels.add(f"{graph} {cs.gather_kernel(table)}")
+                        got = cs.gather_rows(table, idx)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, cs.gather_rows_plain(table, idx)):
+                            raise AssertionError(f"K2 {graph} F={f} {dtype} {where}: not "
+                                                 f"bit-exact")
+            print(f"K2 F={f}: flagship #0 protein merged and molecule gathers, f32 and bf16, "
+                  f"from a table at 16-byte alignment and from one an element off it "
+                  f"(kernels: {', '.join(sorted(kernels))}): bit-exact")
         print(f"K1 max_abs_err {max_err['K1']:.3e} against the plain version on the CPU "
               f"(rtol {K1_RTOL}, atol {K1_ATOL}, and bit for bit); K2 max_abs_err "
               f"{max_err['K2']:.1e} (bit-exact)")
@@ -2547,8 +2694,12 @@ def main() -> int:
                 route_f = cgm.fwd_kernel(*inputs[:3], weights, spec)
                 if route_f != "warp tiles, served":
                     raise AssertionError(f"K5 fwd {label} {kind} runs on {route_f}")
+                if route != K5B_ROUTES[kind]:
+                    raise AssertionError(f"K5 bwd {label} {kind} runs on {route}")
                 k5_check(torch, cgm, f"{label} {kind} (K5 fwd on {route_f}, K5 bwd on {route})",
                          inputs, weights, spec, max_err)
+                if kind == "f32":
+                    k5_block_bits(torch, cgm, f"{label} {kind}", inputs, weights, spec)
             table = torch.randn(b, batch.protein.n_pad, 28, generator=gen, device="cuda")
             flat = table.reshape(-1)
             f32, bf16 = torch.float32, torch.bfloat16
@@ -3401,6 +3552,10 @@ def main() -> int:
                 # the forward becomes two (input and weight gradient); the
                 # forward that the kernel recomputes is its design's cost,
                 # not the function's, so it is not in the bound
+                if kind == "f32":   # the kernel it replaced, on the same inputs
+                    extra[("K5 bwd", label, kind)] = "block tiles {:.4f} ms".format(
+                        graph_time_ms(torch, lambda: cgm._message_bwd_block_tiles(
+                            both, es, ev, weights, dout, spec)))
                 rows[("K5 bwd", label, kind)] = (
                     graph_time_ms(torch, lambda: cgm.message_bwd(both, es, ev, weights, dout,
                                                                  spec)),

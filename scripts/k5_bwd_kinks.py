@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where K5 bwd in f32 leaves chip_smoke.py's tolerance, and why.
 
-    python3 scripts/k5_bwd_kinks.py [--seeds 8] [--replay]
+    python3 scripts/k5_bwd_kinks.py [--seeds 8] [--replay] [--kinks N]
 
 At the Davis bucket (B=128, E=4096) with the served model's message weights
 (``runs/davis_seed9``, f32, activations (relu, none)), K5 bwd on the card is
@@ -13,6 +13,20 @@ prints the edge, the smallest |pre-activation| of that edge's ReLU units
 within f32 rounding of 0 takes the other side of the kink under another sum
 order, and its whole term then moves the gradient.
 
+Each case is then held to chip_smoke.py's check of K5 bwd's input
+gradients (``k5_input_grads_close``: an entry beyond the tolerance passes
+only if the kernel is no farther from the same backward in float64 than the
+plain version is, plus the tolerance), and once more with the kernel given a
+weight perturbed by 1e-3 (the first layer's ws[0, 0]), which the check must
+refuse. The script exits 1 if a case fails the check or a perturbed one
+passes it.
+
+``--kinks N`` adds a case built to sit on the kink: seed 0's inputs with the
+first es feature of N edges moved so that one ReLU pre-activation of the
+first layer (unit e mod 16 of edge e) is 0 in float64 up to the rounding of
+that feature to f32; for it the script counts the entries beyond the
+tolerance that the check's float64 rule passes and those it fails.
+
 ``--replay`` first draws the Davis f32 inputs as chip_smoke.py's ``kernels``
 phase drew them in a run where the zoo's kernel cases took their tensors from
 the phase's main stream (seed 0) before the K5 cases: those inputs left the
@@ -23,6 +37,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from unittest import mock
 
 import torch
 
@@ -58,10 +73,32 @@ def replay_inputs():
     return chip_smoke.k5_inputs(torch, gen, davis.protein.batch_size, davis.protein.e_pad, "f32")
 
 
+def kink_inputs(weights, spec, n_kinks: int):
+    """Seed 0's Davis f32 inputs with n_kinks edges put on a ReLU kink of
+    the first layer (see the module's doc)."""
+    both, es, ev, dout = chip_smoke.k5_inputs(
+        torch, torch.Generator(device="cuda").manual_seed(0), chip_smoke.DAVIS["b"],
+        chip_smoke.DAVIS["e_p"], "f32")
+    ws = weights[1].double()             # the first layer's ws [so, si + h]
+    with mock.patch.object(cgm, "_rnd", lambda x, cdt: x.double()):
+        _, _, caches = cgm._forward_layers(both, es, ev, [w.double() for w in weights], spec,
+                                           keep=True)
+    spre = caches[0][5]                  # [R, so], float64
+    b, e, se = es.shape
+    flat = es.reshape(b * e, se)
+    edges = torch.arange(n_kinks, device=es.device) * (b * e // n_kinks)
+    units = torch.arange(n_kinks, device=es.device) % ws.shape[0]
+    ns = spec.ns
+    shift = spre[edges, units] / ws[units, ns]
+    flat[edges, 0] = (flat[edges, 0].double() - shift).float()
+    return both, es, ev, dout
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--seeds", type=int, default=8)
     parser.add_argument("--replay", action="store_true")
+    parser.add_argument("--kinks", type=int, default=0)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("k5_bwd_kinks: needs an NVIDIA card", file=sys.stderr)
@@ -73,16 +110,43 @@ def main() -> int:
     spec = cgm.MessageSpec(16, 4, *conv.activations, torch.float32)
     b, e = chip_smoke.DAVIS["b"], chip_smoke.DAVIS["e_p"]
     n_layers = len(weights) // 6
+    perturbed = [w.clone() for w in weights]
+    perturbed[1][0, 0] += 1e-3
     found = 0
     cases = [(f"seed {seed}", lambda seed=seed: chip_smoke.k5_inputs(
         torch, torch.Generator(device="cuda").manual_seed(seed), b, e, "f32"))
              for seed in range(args.seeds)]
     if args.replay:
         cases.insert(0, ("replay", replay_inputs))
+    if args.kinks:
+        cases.append((f"{args.kinks} edges on a kink", lambda: kink_inputs(weights, spec,
+                                                                            args.kinks)))
+    wrong = 0
     for what, make in cases:
         both, es, ev, dout = make()
-        got = cgm.message_bwd(both, es, ev, weights, dout, spec)[0]
-        want = cgm.message_bwd_plain(both, es, ev, weights, dout, spec)[0]
+        grads = cgm.message_bwd(both, es, ev, weights, dout, spec)[:3]
+        plain = cgm.message_bwd_plain(both, es, ev, weights, dout, spec)[:3]
+        inputs = (both, es, ev, dout)
+        if "kink" in what:
+            tally = {}
+            chip_smoke.k5_input_grads_close(torch, cgm, what, grads, plain, inputs, weights, spec,
+                                            tally)
+            print(f"{what}: {tally.get('beyond', 0)} entries beyond the tolerance; the float64 "
+                  f"rule passes {tally.get('passed', 0)} and fails {tally.get('failed', 0)}")
+            continue
+        for tag, kernel_weights in (("", weights), (" with ws[0, 0] + 1e-3", perturbed)):
+            got = grads if not tag else cgm.message_bwd(both, es, ev, kernel_weights, dout,
+                                                        spec)[:3]
+            try:
+                chip_smoke.k5_input_grads_close(torch, cgm, f"{what}{tag}", got, plain, inputs,
+                                                weights, spec)
+                passed = True
+            except AssertionError as err:
+                print(f"  {err}")
+                passed = False
+            print(f"{what}{tag}: {'passes' if passed else 'fails'} the check")
+            wrong += passed == bool(tag)
+        got, want = grads[0], plain[0]
         tol = chip_smoke.K5_TOL["f32"] * (1.0 + want.abs().max().item())
         diff = (got - want).abs()
         bad = (diff > tol).nonzero().tolist()
@@ -100,8 +164,9 @@ def main() -> int:
                   f"{got[gb, j, f].item():.8g}, plain {want[gb, j, f].item():.8g}; the edge's "
                   f"smallest |ReLU pre-activation| "
                   f"{nearest:.3e}")
-    print(f"{found} of {len(cases)} cases had entries beyond the tolerance")
-    return 0
+    print(f"{found} of {len(cases)} cases had entries beyond the tolerance; {wrong} cases "
+          f"failed the check or passed it with a perturbed weight")
+    return 1 if wrong else 0
 
 
 if __name__ == "__main__":

@@ -62,7 +62,8 @@ extern "C" int k0_empty(void* stream) {
 }
 """
 PTXAS_KERNELS = ("message_fwd", "message_bwd", "reduce_rows", "cast_vec", "cast_copy", "copy16")
-SASS_KERNELS = ("message_bwd_mma_kernel", "message_fwd_mma_kernel", "message_fwd_f32_kernel")
+SASS_KERNELS = ("message_bwd_mma_kernel", "message_bwd_f32_kernel", "message_fwd_mma_kernel",
+                "message_fwd_f32_kernel")
 
 
 def nvcc(source: str, so: str) -> str:
@@ -126,13 +127,18 @@ class Version:
         self.tag, self.lib = tag, lib
         self.new_api = hasattr(lib, "k5_bwd_kernel")
         self.fwd_api = hasattr(lib, "k5_fwd_kernel")
+        # k5_bwd_blocks takes block_tiles where the source has the f32 warp tiles
+        self.block_api = hasattr(lib, "k5_message_bwd_block")
         lib.k5_message_fwd.argtypes = [vp] * 7 + [i] * 14 + [vp]
         lib.k5_message_bwd.argtypes = [vp] * 12 + [i] * 15 + [vp]
         lib.k6_cast_copy.argtypes = [vp, vp, ll, i, i, vp]
         if self.fwd_api:
             lib.k5_fwd_kernel.argtypes = [vp] + [i] * 9
-        if self.new_api:
+        if self.block_api:
+            lib.k5_bwd_blocks.argtypes = [vp, i, i, i, i, i, i, ll, i]
+        elif self.new_api:
             lib.k5_bwd_blocks.argtypes = [vp, i, i, i, i, i, i, ll]
+        if self.new_api:
             lib.k5_bwd_kernel.argtypes = [vp] + [i] * 9
             lib.k5_smem_bytes.argtypes = [vp, i, i, i, i, i, i, i]
         else:
@@ -142,6 +148,8 @@ class Version:
         lib.k5_smem_bytes.restype = ll
 
     def bwd_rows(self, dims_host, n_layers, cdt_bf16, r) -> int:
+        if self.block_api:
+            return self.lib.k5_bwd_blocks(dims_host, n_layers, 16, 4, 32, 1, cdt_bf16, r, 0)
         if self.new_api:
             return self.lib.k5_bwd_blocks(dims_host, n_layers, 16, 4, 32, 1, cdt_bf16, r)
         return self.lib.k5_bwd_blocks(r)

@@ -1,8 +1,9 @@
 """K5's warp-tile kernels in caster_dta_torch/csrc/gvp_message.cu
-(``message_bwd_mma_kernel``, ``message_fwd_mma_kernel`` and
-``message_fwd_f32_kernel``) run on the CPU, warp by warp, against the plain
-versions of K5 bwd and K5 fwd; and the f32 forward against the block-tile
-``message_fwd_kernel``, bit for bit.
+(``message_bwd_mma_kernel``, ``message_bwd_f32_kernel``,
+``message_fwd_mma_kernel`` and ``message_fwd_f32_kernel``) run on the CPU,
+warp by warp, against the plain versions of K5 bwd and K5 fwd; and the f32
+kernels against the block-tile ``message_fwd_kernel`` and
+``message_bwd_kernel``, bit for bit.
 
 The card's compiler is not here, so the kernel's source is compiled with the
 host's C++ compiler against a small emulation of what it uses of CUDA: each
@@ -261,6 +262,70 @@ extern "C" int emu_k5_fwd(const void* both, const void* es, const void* ev, cons
   return s.total;
 }
 
+// Sums the rows of `partial` in order into dw; -1 when an entry was never
+// written.
+static int sum_rows(const std::vector<float>& partial, int rows, int n_w, float* dw) {
+  for (int i = 0; i < n_w; ++i) {
+    float sum = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      if (std::isnan(partial[(size_t)r * n_w + i])) return -1;
+      sum += partial[(size_t)r * n_w + i];
+    }
+    dw[i] = sum;
+  }
+  return 0;
+}
+
+// K5 bwd of the served widths with the f32 compute dtype on its warp-tile
+// kernel, in the instance the launcher picks, on `grid` emulated blocks of
+// as many warps as the launcher gives them. Returns the block's
+// shared-memory bytes, or -1 when a weight's gradient was never written.
+extern "C" int emu_k5_bwd_f32(const void* both, const void* es, const void* ev, const float* w,
+                              const void* dout, void* dboth, void* des, void* dev, float* dw,
+                              int B, int E, int n_layers, int n_w, int act_s, int act_v,
+                              int both_bf16, int es_bf16, int ev_bf16, int dout_bf16, int grid) {
+  const BwdF32Smem s = bwd_f32_smem<ServedNet>(n_layers);
+  std::vector<float> partial((size_t)grid * n_w, NAN);
+  const Inputs in = {both, es, ev, both_bf16, es_bf16, ev_bf16, (int64_t)B * E, E};
+  const int dt = both_bf16 | es_bf16 << 1 | ev_bf16 << 2 | dout_bf16 << 3;
+  const auto kernel = bwd_f32_served_instance(act_s, act_v, dt)
+                          ? message_bwd_f32_kernel<ServedNet, ACT_RELU, ACT_NONE, 0>
+                          : message_bwd_f32_kernel<ServedNet, -1, -1, -1>;
+  run_grid(grid, 32 * s.warps, s.total, [&] {
+    kernel(in, n_layers, w, act_s, act_v, dout, dout_bf16, dboth, des, dev, partial.data(), n_w);
+  });
+  return sum_rows(partial, grid, n_w, dw) < 0 ? -1 : s.total;
+}
+
+// Whether K5 bwd runs the f32 kernel's served instance for these.
+extern "C" int emu_bwd_f32_served(int act_s, int act_v, int dt) {
+  return bwd_f32_served_instance(act_s, act_v, dt);
+}
+
+// K5 bwd of the served widths on the block-tile kernel, as its launcher runs
+// it (dims: the layers' (h, so, vo)).
+extern "C" int emu_k5_bwd_block(const void* both, const void* es, const void* ev, const float* w,
+                                const void* dout, void* dboth, void* des, void* dev, float* dw,
+                                int B, int E, const int* dims, int n_layers, int n_w, int act_s,
+                                int act_v, int both_bf16, int es_bf16, int ev_bf16, int dout_bf16,
+                                int cdt_bf16) {
+  const Shape sh = {n_layers, 16, 4, 32, 1};
+  const Inputs in = {both, es, ev, both_bf16, es_bf16, ev_bf16, (int64_t)B * E, E};
+  const int64_t tiles = (in.R + BWD_TILE - 1) / BWD_TILE;
+  const int blocks = (int)((tiles + BWD_TILES_PER_BLOCK - 1) / BWD_TILES_PER_BLOCK);
+  std::vector<float> partial((size_t)blocks * n_w, NAN);
+  run_grid(blocks, THREADS, (size_t)bwd_smem(widths(dims, sh)), [&] {
+    if (cdt_bf16) {
+      message_bwd_kernel<true>(in, sh, dims, w, act_s, act_v, dout, dout_bf16, dboth, des, dev,
+                               partial.data());
+    } else {
+      message_bwd_kernel<false>(in, sh, dims, w, act_s, act_v, dout, dout_bf16, dboth, des, dev,
+                                partial.data());
+    }
+  });
+  return sum_rows(partial, blocks, n_w, dw);
+}
+
 // K5 fwd of the served widths on the block-tile kernel, as its launcher
 // runs it (dims: the layers' (h, so, vo)).
 extern "C" void emu_k5_fwd_block(const void* both, const void* es, const void* ev,
@@ -321,6 +386,10 @@ def emulated(tmp_path_factory):
     lib.emu_k5_fwd_block.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p] + [ctypes.c_int] * 7
     lib.emu_k5_fwd_block.restype = None
+    lib.emu_k5_bwd_f32.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+    lib.emu_bwd_f32_served.argtypes = [ctypes.c_int] * 3
+    lib.emu_k5_bwd_block.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] + [ctypes.c_int] * 9
     return lib
 
 
@@ -446,3 +515,54 @@ def test_k5_fwd_f32_warp_tiles_give_the_block_tiles_bits_emulated(emulated, b, e
                               0)
     assert not torch.isnan(block).any()
     assert torch.equal(warp, block)
+
+
+# The f32 backward's warp tiles (32 edges, a lane each, 8 warps a block):
+# each input gradient is the block-tile kernel's FFMA chain, so d both, d es
+# and d ev equal the emulated message_bwd_kernel's bits (both compiled alike
+# here; the card tests hold the compiled kernels to each other). Its weight
+# gradients sum over the edges in another order: within chip_smoke.py's
+# K5_TOL["weight"] (2e-4 of each tensor's largest entry) of the plain
+# version. Edge counts off the tiles (a partial last tile; E = 17 puts tiles
+# across graphs), the served instance and the run-time one (other
+# activations, bf16 tensors), and two runs give the same bits.
+@pytest.mark.parametrize("b,e,n_layers,acts,dtypes", [
+    (2, 150, 3, ("relu", None), (F32, F32, F32)),                 # served: 10 tiles on 8 warps
+    (3, 17, 2, ("sigmoid", "sigmoid"), (F32, F32, F32)),
+    (1, 70, 1, ("relu", None), (BF16, F32, BF16)),                # one layer, bf16 tensors
+])
+def test_k5_bwd_f32_warp_tiles_give_the_block_tiles_bits_emulated(emulated, b, e, n_layers, acts,
+                                                                   dtypes):
+    both, es, ev, weights, dout = _case(b, e, n_layers, acts, dtypes, seed=b * 1000 + e + 13)
+    w = cgm._pack(weights)
+    spec = cgm.MessageSpec(16, 4, acts[0], acts[1], F32)
+    dims = cgm._layer_dims(weights, spec, 32, 1)
+    flat = (ctypes.c_int * (3 * len(dims)))(*[x for d in dims for x in d])
+    codes = [cgm._ACT_CODES[a] for a in acts]
+    flags = [cgm._is_bf16(t) for t in (both, es, ev, dout)]
+    dt = flags[0] | flags[1] << 1 | flags[2] << 2 | flags[3] << 3
+    assert emulated.emu_bwd_f32_served(*codes, dt) == (acts == ("relu", None) and dt == 0)
+
+    def run(fn, *extra):
+        grads = [torch.full_like(t, float("nan")) for t in (both, es, ev)]
+        dw = torch.empty(w.numel())
+        got = fn(both.data_ptr(), es.data_ptr(), ev.data_ptr(), w.data_ptr(), dout.data_ptr(),
+                 *[g.data_ptr() for g in grads], dw.data_ptr(), b, e, *extra)
+        assert got >= 0, "a weight gradient was never written"
+        return grads, [g.view(t.shape) for g, t in zip(dw.split([t.numel() for t in weights]),
+                                                        weights)]
+
+    args = (n_layers, w.numel(), *codes, *flags)
+    warp, warp_w = run(emulated.emu_k5_bwd_f32, *args, 1)
+    again, again_w = run(emulated.emu_k5_bwd_f32, *args, 1)
+    block, _ = run(emulated.emu_k5_bwd_block, flat, *args, 0)
+    for x, y, z in zip(warp + warp_w, again + again_w, block + [None] * len(warp_w)):
+        assert not torch.isnan(x).any(), "an output was not written everywhere"
+        assert torch.equal(x, y), "two runs gave different bits"
+        if z is not None:
+            assert torch.equal(x, z), "not the block-tile kernel's bits"
+    want = cgm.message_bwd_plain(both, es, ev, weights, dout, spec)
+    for got, ref in zip(warp_w, want[3]):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        scale = ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= 2e-4 * scale

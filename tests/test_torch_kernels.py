@@ -168,8 +168,15 @@ def test_k1_same_bits_twice(cuda, dtype):
     assert torch.equal(first, cs.segment_sum_sorted(msgs, dst, mask, n))
 
 
+# K2 at the served widths (28: 16-byte loads; 51 and 16), the zoo's (21,
+# 59) and odd ones: rows whose bytes 16 does not divide take narrower loads,
+# from a staged table where a graph's fits (N = 64, 77) or in runs of rows
+# (N = 512, 300; E off the runs leaves a partial last run), and E off the
+# staged blocks' 64 edges a partial block
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,e,f", [(32, 512, 8192, 28), (32, 64, 256, 51), (2, 9, 13, 1)])
+@pytest.mark.parametrize("b,n,e,f", [(32, 512, 8192, 28), (32, 64, 256, 51), (2, 9, 13, 1),
+                                     (32, 512, 4096, 21), (128, 64, 256, 51), (32, 64, 256, 59),
+                                     (3, 77, 1000, 3), (5, 40, 37, 2), (3, 300, 1003, 21)])
 def test_k2_bit_exact(cuda, dtype, b, n, e, f):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(1)
@@ -179,6 +186,31 @@ def test_k2_bit_exact(cuda, dtype, b, n, e, f):
         got = cs.gather_rows(table, idx)
         torch.cuda.synchronize()
     assert torch.equal(got, cs.gather_rows_plain(table, idx))
+
+
+# a table that starts off 16-byte alignment (one element into its storage):
+# the loads narrow to what the address allows, the stores stay 16 bytes
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [28, 21, 3, 64])
+def test_k2_bit_exact_off_alignment(cuda, dtype, f):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    b, n, e = 4, 70, 333
+    storage = torch.randn(b * n * f + 1, generator=gen, device=cuda).to(dtype)
+    table = storage[1:].view(b, n, f)
+    assert table.data_ptr() % 16 != 0 and cs.gather_load_bytes(table) < 16
+    idx = torch.randint(0, n, (b, e), generator=gen, device=cuda, dtype=torch.int32)
+    before = cs.LAUNCHES[cs.K2]
+    got = cs.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES[cs.K2] == before + 1
+    assert torch.equal(got, cs.gather_rows_plain(table, idx))
+
+
+def test_k2_traps_on_an_index_out_of_range(cuda):
+    _trap_in_child("cs.gather_rows(t, i)")
+    with pytest.raises(IndexError, match="outside"):
+        cs.gather_rows(torch.ones(1, 4, 3), torch.tensor([[0, 1, 5, 2]], dtype=torch.int32))
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -511,7 +543,7 @@ def test_k5_bwd_off_the_tiles(cuda, b, e, dtypes, cdt):
     both, es, ev, weights, dout = _k5_case(cuda, b, e, 3, ("relu", None), dtypes)
     spec = cgm.MessageSpec(16, 4, "relu", None, cdt)
     assert cgm.bwd_kernel(both, es, ev, weights, dout, spec) == (
-        "warp tiles, bf16 step" if cdt == BF16 else "block tiles")
+        "warp tiles, bf16 step" if cdt == BF16 else "warp tiles, f32 served")
     before = cgm.LAUNCHES[cgm.K5B]
     got = cgm.message_bwd(both, es, ev, weights, dout, spec)
     torch.cuda.synchronize()
@@ -537,6 +569,43 @@ def test_k5_bwd_warp_tiles_other_depths(cuda, n_layers, acts):
         assert torch.equal(a, b)
     for i, (g, ref) in enumerate(zip(list(runs[0][:3]) + runs[0][3], list(want[:3]) + want[3])):
         _k5_close(g, ref, BF16, f"output {i}", weight=i >= 3)
+
+
+# K5 bwd's f32 warp tiles (32 edges, a lane each): every input gradient is
+# the block-tile kernel's FFMA chain, so d both, d es and d ev equal
+# message_bwd_kernel's bits on the same inputs (reached through the test
+# hook); the weight gradients sum in another order, within 2e-4 of the plain
+# version's largest entry (chip_smoke.K5_TOL["weight"]), the same bits twice.
+# The served instance at the flagship and Davis edges and off the tiles; the
+# run-time instance for other activations, bf16 tensors and depths; five
+# layers do not fit the input rows and stay on the block-tile kernel.
+@pytest.mark.parametrize("b,e,n_layers,acts,dtypes,kernel", [
+    (32, 4096, 3, ("relu", None), (F32, F32, F32), "warp tiles, f32 served"),
+    (128, 4096, 3, ("relu", None), (F32, F32, F32), "warp tiles, f32 served"),
+    (3, 32 * 9 + 5, 3, ("relu", None), (F32, F32, F32), "warp tiles, f32 served"),
+    (3, 1000, 3, ("sigmoid", "sigmoid"), (F32, F32, F32), "warp tiles, f32"),
+    (2, 130, 2, ("relu", "sigmoid"), (BF16, F32, BF16), "warp tiles, f32"),
+    (5, 7, 1, ("relu", None), (F32, F32, F32), "warp tiles, f32 served"),
+    (2, 77, 4, ("relu", None), (F32, F32, F32), "warp tiles, f32 served"),
+    (2, 77, 5, ("relu", None), (F32, F32, F32), "block tiles"),
+])
+def test_k5_bwd_f32_warp_tiles_give_the_block_tiles_bits(cuda, b, e, n_layers, acts, dtypes,
+                                                          kernel):
+    both, es, ev, weights, dout = _k5_case(cuda, b, e, n_layers, acts, dtypes)
+    spec = cgm.MessageSpec(16, 4, acts[0], acts[1], F32)
+    assert cgm.bwd_kernel(both, es, ev, weights, dout, spec) == kernel
+    before = cgm.LAUNCHES[cgm.K5B]
+    runs = [cgm.message_bwd(both, es, ev, weights, dout, spec) for _ in range(2)]
+    block = cgm._message_bwd_block_tiles(both, es, ev, weights, dout, spec)
+    torch.cuda.synchronize()
+    assert cgm.LAUNCHES[cgm.K5B] == before + 2
+    for x, y in zip(list(runs[0][:3]) + runs[0][3], list(runs[1][:3]) + runs[1][3]):
+        assert torch.equal(x, y)
+    for what, x, y in zip(("d both", "d es", "d ev"), runs[0][:3], block[:3]):
+        assert torch.equal(x, y), f"{what}: not the block-tile kernel's bits"
+    want = cgm.message_bwd_plain(both, es, ev, weights, dout, spec)
+    for i, (g, ref) in enumerate(zip(runs[0][3], want[3])):
+        _k5_close(g, ref, F32, f"weight {i}", weight=True)
 
 
 # K5 fwd's warp-tile kernels at the flagship and Davis protein edges, in the
