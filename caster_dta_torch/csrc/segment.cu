@@ -29,8 +29,14 @@
 //     warp 0 adds them in order. A graph of at most SMALL_FLOATS message
 //     values (the molecules) takes one block instead (segment_small_kernel):
 //     it stages the graph's messages, dst and mask with one round of loads and
-//     sums every row from shared memory. Deterministic, no atomics; a row with
-//     no real edge comes out 0.
+//     sums every row from shared memory. Rows of at most K1_NARROW_F columns
+//     (the zoo's in-degrees and segment_softmax's denominators) take the
+//     narrow kernel (segment_narrow_kernel, k1_route): there a warp-per-row
+//     walk leaves a lane in 32 at work and its searches and the padding
+//     row's pass are fixed costs that no byte pays for, so a block per
+//     (graph, slice of rows) keeps the slice's real edges in edge order (a
+//     ballot per 32 edges, one scan) and a thread adds each row. Deterministic,
+//     no atomics; a row with no real edge comes out 0.
 //
 // K2  gather_rows: out[b, e, :] = table[b, idx[b, e], :] for any index order.
 //     Replaces the Pallas kernel caster_dta_tpu/ops/pallas_segment.py
@@ -78,7 +84,14 @@
 //     large-protein bucket, and partials of 128 ids added in order land up to
 //     15x the 1e-5 tolerance away from the edge-order sum
 //     (scripts/k3_split_sum_error.py). Deterministic, no atomics on values;
-//     an empty row comes out 0. A graph whose rows (as f32), ids and CSR fit
+//     an empty row comes out 0. Rows of at most K3_NARROW_F columns (the
+//     cotangents of segment_softmax's gathers, H = 1 or 2) take one launch of
+//     the narrow kernel (scatter_narrow_kernel, k3_route): a block per
+//     (graph, slice of rows) counts its ids a row and warp, places each
+//     kept edge's values in row order, and a thread adds each row, the
+//     padding row's values 16 bytes a load ahead of its chain of adds; an
+//     edge whose values are all +-0 is left out (it cannot move an in-order
+//     sum from +0). Wider rows: a graph whose rows (as f32), ids and CSR fit
 //     one block's shared memory (the molecule graphs) takes one launch,
 //     scatter_small_kernel: its block stages them, builds the CSR as below
 //     with one block, and a warp per (row, 32 features) adds the row's staged
@@ -188,6 +201,20 @@ constexpr int SMALL_FLOATS = 16384;  // a graph of at most this many message val
 constexpr int SMALL_EDGES = 512;     // edges
 constexpr int SMALL_ROWS = 1024;     // and rows is summed by one block (segment_small_kernel)
 constexpr int SMALL_BYTES = SMALL_FLOATS * 4 + SMALL_EDGES * 5 + (SMALL_ROWS + 1) * 4;
+// K1 and K3 at rows of at most K1_NARROW_F / K3_NARROW_F columns (the
+// narrow kernels): a thread per output row, a block per (graph, slice of
+// rows). The cut-off is 2 by measurement on an H100: at 3 and 4 columns K3's
+// narrow kernel lost to index_add_ and spilled registers, and no path runs K1
+// at those widths (scripts/k1_k3_times.py --set K3_NARROW_F=4,K1_NARROW_F=4)
+constexpr int K1_NARROW_F = 2;       // widest K1 row on the narrow kernel
+constexpr int K3_NARROW_F = 2;       // widest K3 row on the narrow kernel
+constexpr int NARROW_IPT = 8;        // most edges a thread holds (chunks of 32 a warp)
+constexpr int NARROW_MIN_WARPS = 4;  // fewest warps a block (a small graph's edges spread)
+constexpr int NARROW_EDGES = 32 * 32 * NARROW_IPT;  // most edges of a graph (8192)
+constexpr int NARROW_SLICES = 4;     // most blocks a graph
+constexpr int NARROW_SLICE_ROWS = 64;  // fewest rows a slice of more than one takes
+constexpr int NARROW_SMEM = 232448 - 1024;  // most dynamic shared memory a block
+constexpr int NARROW_TABLE = 33;     // K3's counts: a row's 32 warps, padded off the banks
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -1476,15 +1503,436 @@ int walk_launch(const void* msgs, const void* dst, const void* mask, void* out, 
   return (int)cudaGetLastError();
 }
 
+// ---- the narrow kernels: K1 and K3 at rows of one or a few columns
+//
+// A block per (graph, slice of slice_rows rows) of nw warps. Warp w owns the
+// graph's edges [w * chunks * 32, (w + 1) * chunks * 32), 32 a chunk, lane l
+// edge 32 * chunk + l, so the block's edges go in edge order by (warp,
+// chunk, lane); every edge's id and F values are loaded at once, in one
+// round of loads. Each block keeps the edges that fall in its slice (K3: of
+// which not every value is +-0; K1: real) and lays their values out in
+// shared memory by row, each row's in edge order; then thread r adds row
+// r's values in order (narrow_chain). A long row (the padding row on random
+// rows) is one thread's chain of dependent f32 adds, its values read 16
+// bytes at a time ahead of the adds.
+
+// The layout of a narrow launch: nw warps of chunks of 32 edges, slices
+// blocks a graph of slice_rows rows each, the offset (in 4-byte words, a
+// multiple of 4) of the values in its dynamic shared memory, and its bytes.
+struct NarrowPlan {
+  int warps;
+  int chunks;
+  int slices;
+  int slice_rows;
+  int vals_at;
+  int64_t bytes;
+};
+
+NarrowPlan narrow_plan(int B, int E, int N, int F, bool k3) {
+  NarrowPlan p;
+  // as few warps as hold the edges at NARROW_IPT a thread, but at least
+  // NARROW_MIN_WARPS: on an H100 this was the fastest of 1, 2, 4 and 8 edges
+  // a thread at the zoo's protein graph (E = 4096: 16 warps) and, by 4
+  // warps, at its molecule graph (E = 256)
+  p.warps = min(32, max(NARROW_MIN_WARPS, (E + 32 * NARROW_IPT - 1) / (32 * NARROW_IPT)));
+  p.chunks = (E + 32 * p.warps - 1) / (32 * p.warps);
+  // more blocks a graph where the graphs leave SMs idle, each of at least
+  // NARROW_SLICE_ROWS rows
+  p.slices = max(1, min(min(NARROW_SLICES, 132 / max(B, 1)), N / NARROW_SLICE_ROWS));
+  p.slice_rows = (N + p.slices - 1) / p.slices;
+  // K3: [rows][NARROW_TABLE] counts and [rows + 1] starts; K1: [rows + 1]
+  // starts and [E] rows of the kept edges; then [E][F] f32 values, 16-byte
+  // aligned (a slice may keep every edge)
+  const int64_t ints = k3 ? (int64_t)NARROW_TABLE * p.slice_rows + p.slice_rows + 1
+                          : (int64_t)p.slice_rows + 1 + E;
+  p.vals_at = (int)((ints + 3) / 4 * 4);
+  p.bytes = ((int64_t)p.vals_at + (int64_t)E * F) * 4;
+  return p;
+}
+
+bool narrow_fits(const NarrowPlan& p, int E) {
+  return E <= NARROW_EDGES && p.chunks <= NARROW_IPT && p.bytes <= NARROW_SMEM;
+}
+
+// Warp 0 zeroes the entries of warp_sum past the block's nw warps, which no
+// warp writes, so that narrow_warp_prefix reads all 32 unconditionally.
+__device__ __forceinline__ void narrow_warp_sums_init(int* warp_sum, int nw) {
+  if (threadIdx.x >= nw && threadIdx.x < 32) warp_sum[threadIdx.x] = 0;
+}
+
+// The sum of warp_sum[w] over the warps before this one, and over all 32
+// (a barrier after they were written).
+__device__ __forceinline__ int2 narrow_warp_prefix(const int* warp_sum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s = warp_sum[lane];  // 0 past nw (narrow_warp_sums_init)
+  int before = lane < warp ? s : 0, total = s;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    before += __shfl_xor_sync(0xffffffffu, before, o);
+    total += __shfl_xor_sync(0xffffffffu, total, o);
+  }
+  return make_int2(before, total);
+}
+
+// acc[x % F] += v[x] for x = a .. b - 1 in order (v 16-byte aligned): up to
+// three values one at a time, then 16 bytes a load with the next 16 values
+// in flight while the previous 16 are added (one dependent f32 add a value
+// and column is the chain's floor), then the rest.
+template <int F>
+__device__ __forceinline__ void narrow_chain(const float* v, int a, int b, float (&acc)[F]) {
+  if constexpr (4 % F != 0) {
+    for (int x = a; x < b; ++x) acc[x % F] += v[x];
+  } else {
+    const auto add4 = [&](float4 c) {
+      acc[0] += c.x;
+      acc[1 % F] += c.y;
+      acc[2 % F] += c.z;
+      acc[3 % F] += c.w;
+    };
+    const int head = min(b, (a + 3) & ~3);
+    for (int x = a; x < head; ++x) acc[x % F] += v[x];
+    const float4* q = reinterpret_cast<const float4*>(v) + head / 4;
+    const int n4 = max(0, b - head) / 4;
+    int k = 0;
+    if (n4 >= 4) {
+      // two buffers in turn (no copies): x holds loads [k, k + 4) as the loop starts
+      float4 x[4], y[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) x[u] = q[u];
+      for (; k + 12 <= n4; k += 8) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) y[u] = q[k + 4 + u];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) add4(x[u]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) x[u] = q[k + 8 + u];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) add4(y[u]);
+      }
+      if (k + 8 <= n4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) y[u] = q[k + 4 + u];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) add4(x[u]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) add4(y[u]);
+        k += 8;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) add4(x[u]);
+        k += 4;
+      }
+    }
+    for (; k < n4; ++k) add4(q[k]);
+    for (int x = head + 4 * n4; x < b; ++x) acc[x % F] += v[x];
+  }
+}
+
+// Thread r of the block writes out_rows[r] = the sum of row r's values,
+// vals[start[r] * F, start[r + 1] * F) (rows [0, nr)).
+template <int F>
+__device__ __forceinline__ void narrow_sums(const float* vals, const int* start, int nr,
+                                            float* __restrict__ out_rows) {
+  for (int r = threadIdx.x; r < nr; r += blockDim.x) {
+    float acc[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = 0.f;
+    narrow_chain<F>(vals, start[r] * F, start[r + 1] * F, acc);
+#pragma unroll
+    for (int f = 0; f < F; ++f) out_rows[(int64_t)r * F + f] = acc[f];
+  }
+}
+
+// K3 at rows of F <= K3_NARROW_F columns. Each warp counts its kept ids a
+// row in its own column of the [nr][NARROW_TABLE] table, each edge's rank
+// among its warp's edges of its row read before the count moves (no second
+// pass); a row's entries become each warp's offset within the row, the rows'
+// counts their starts (one scan of the block), and each kept edge writes its
+// F values straight to start + offset + rank. An edge whose F values are all
+// +-0 is not kept: an in-order f32 sum from +0 is never -0, so adding +-0
+// leaves it as it was, and the row's bits are the plain version's either way
+// (segment_softmax's cotangents are +-0 on the masked edges of the padding
+// row). An id outside [0, N) traps. Shared-memory reads are unconditional
+// (an index clamped into range where the value is not used): a read under a
+// condition compiles to a branch, and the reads would not overlap.
+template <typename T, int F>
+__global__ void __launch_bounds__(1024)
+scatter_narrow_kernel(const T* __restrict__ rows, const int* __restrict__ ids,
+                      float* __restrict__ out, int E, int N, int chunks, int slice_rows,
+                      int vals_at) {
+  extern __shared__ int narrow_smem[];
+  __shared__ int warp_sum[32];
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * slice_rows;
+  const int nr = min(N - r0, slice_rows);
+  if (nr <= 0) return;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  narrow_warp_sums_init(warp_sum, nw);
+  int* table = narrow_smem;                                  // [nr][NARROW_TABLE]
+  int* start = table + NARROW_TABLE * nr;                    // [nr + 1]
+  float* vals = reinterpret_cast<float*>(narrow_smem + vals_at);  // [kept][F]
+  int* mine = table + warp;                                  // this warp's column
+  const int* ids_b = ids + (int64_t)b * E;
+  const T* rows_b = rows + (int64_t)b * E * F;
+
+  int id[NARROW_IPT];
+  float v[NARROW_IPT][F];
+#pragma unroll
+  for (int j = 0; j < NARROW_IPT; ++j) {
+    const int e = (warp * chunks + j) * 32 + lane;
+    const bool ok = j < chunks && e < E;
+    id[j] = ok ? ids_b[e] : -1;
+#pragma unroll
+    for (int f = 0; f < F; ++f) v[j][f] = ok ? to_f32(rows_b[(int64_t)e * F + f]) : 0.f;
+  }
+  for (int r = lane; r < nr; r += 32) mine[r * NARROW_TABLE] = 0;
+  __syncwarp();
+
+  // each kept edge's group: the lanes of its chunk with the same row (all
+  // chunks' matches in flight at once, before the counts)
+  unsigned group[NARROW_IPT];
+#pragma unroll
+  for (int j = 0; j < NARROW_IPT; ++j) {
+    group[j] = 0;
+    if (j < chunks) {  // the same for the whole block
+      const int e = (warp * chunks + j) * 32 + lane;
+      // an id outside [0, N) stops the kernel, as the plain version raises
+      if (e < E && (unsigned)id[j] >= (unsigned)N) __trap();
+      bool nonzero = false;
+#pragma unroll
+      for (int f = 0; f < F; ++f) nonzero |= v[j][f] != 0.f;
+      const int q = id[j] - r0;
+      const bool kept = e < E && nonzero && q >= 0 && q < nr;
+      id[j] = kept ? q : -1;  // from here on: the row in the slice, -1 not kept
+      group[j] = __match_any_sync(0xffffffffu, id[j]);
+    }
+  }
+  int rank[NARROW_IPT];  // among the warp's kept edges of the same row
+#pragma unroll
+  for (int j = 0; j < NARROW_IPT; ++j) {
+    rank[j] = 0;
+    if (j < chunks) {
+      const int before = __popc(group[j] & lanemask_lt());
+      const int qq = max(id[j], 0);
+      const int at = mine[qq * NARROW_TABLE];
+      __syncwarp();
+      if (id[j] >= 0 && before == 0) mine[qq * NARROW_TABLE] = at + __popc(group[j]);
+      __syncwarp();
+      rank[j] = at + before;
+    }
+  }
+  __syncthreads();
+
+  // per row (a thread a run of consecutive rows): the warps' counts -> each
+  // warp's offset within the row, the row's count; then the counts scanned
+  const int per = (nr + blockDim.x - 1) / blockDim.x;
+  const int lo = min(nr, tid * per), hi = min(nr, lo + per);
+  int own = 0;
+  for (int r = lo; r < hi; ++r) {
+    int* row = table + r * NARROW_TABLE;
+    int run = 0;
+    for (int w0 = 0; w0 < nw; w0 += 8) {
+      int c[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) c[k] = row[min(w0 + k, 31)];  // in the row's NARROW_TABLE
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (w0 + k < nw) row[w0 + k] = run;
+        run += c[k] * (w0 + k < nw);
+      }
+    }
+    start[r] = run;
+    own += run;
+  }
+  int inc = own;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += x;
+  }
+  if (lane == 31) warp_sum[warp] = inc;
+  __syncthreads();
+  const int2 pre = narrow_warp_prefix(warp_sum);
+  int at = pre.x + inc - own;
+  for (int r = lo; r < hi; ++r) {
+    const int c = start[r];
+    start[r] = at;
+    at += c;
+  }
+  if (tid == 0) start[nr] = pre.y;
+  __syncthreads();
+
+#pragma unroll
+  for (int j = 0; j < NARROW_IPT; ++j) {
+    const int q = max(id[j], 0);
+    const int p = start[q] + mine[q * NARROW_TABLE] + rank[j];
+    if (id[j] >= 0) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) vals[p * F + f] = v[j][f];
+    }
+  }
+  __syncthreads();
+  narrow_sums<F>(vals, start, nr, out + ((int64_t)b * N + r0) * F);
+}
+
+// K1 at rows of F <= K1_NARROW_F columns: each block keeps the real edges of
+// its slice's rows, compacted in edge order by a ballot a chunk and one scan
+// of the warps' counts (a masked edge costs its bit of a ballot; the
+// padding row has no pass of its own), beside each kept edge's row. Kept
+// edge k whose row follows kept edge k - 1's starts the rows between, so
+// every row's start comes from one pass over the kept edges.
+template <typename T, int F>
+__global__ void __launch_bounds__(1024)
+segment_narrow_kernel(const T* __restrict__ msgs, const int* __restrict__ dst,
+                      const uint8_t* __restrict__ mask, float* __restrict__ out, int E, int N,
+                      int chunks, int slice_rows, int vals_at) {
+  extern __shared__ int narrow_smem[];
+  __shared__ int warp_sum[32];
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * slice_rows;
+  const int nr = min(N - r0, slice_rows);
+  if (nr <= 0) return;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  narrow_warp_sums_init(warp_sum, nw);
+  int* start = narrow_smem;                                  // [nr + 1]
+  int* krow = start + nr + 1;                                // [kept]
+  float* vals = reinterpret_cast<float*>(narrow_smem + vals_at);  // [kept][F]
+  const int* dst_b = dst + (int64_t)b * E;
+  const uint8_t* mask_b = mask + (int64_t)b * E;
+  const T* msgs_b = msgs + (int64_t)b * E * F;
+
+  int q[NARROW_IPT];
+  bool real[NARROW_IPT];
+  float v[NARROW_IPT][F];
+#pragma unroll
+  for (int j = 0; j < NARROW_IPT; ++j) {
+    const int e = (warp * chunks + j) * 32 + lane;
+    const bool ok = j < chunks && e < E;
+    q[j] = ok ? dst_b[e] - r0 : -1;
+    real[j] = ok && mask_b[e] != 0;
+#pragma unroll
+    for (int f = 0; f < F; ++f) v[j][f] = ok ? to_f32(msgs_b[(int64_t)e * F + f]) : 0.f;
+  }
+  unsigned kept[NARROW_IPT];
+  int count = 0;
+#pragma unroll
+  for (int j = 0; j < NARROW_IPT; ++j) {
+    kept[j] = __ballot_sync(0xffffffffu, real[j] && q[j] >= 0 && q[j] < nr);
+    count += __popc(kept[j]);
+  }
+  if (lane == 0) warp_sum[warp] = count;
+  __syncthreads();
+  const int2 pre = narrow_warp_prefix(warp_sum);
+  const int total = pre.y;
+  int at = pre.x;
+  int k[NARROW_IPT];  // each kept edge's place among the kept edges; -1 not kept
+#pragma unroll
+  for (int j = 0; j < NARROW_IPT; ++j) {
+    k[j] = (kept[j] >> lane) & 1u ? at + __popc(kept[j] & lanemask_lt()) : -1;
+    at += __popc(kept[j]);
+    if (k[j] >= 0) {
+      krow[k[j]] = q[j];
+#pragma unroll
+      for (int f = 0; f < F; ++f) vals[k[j] * F + f] = v[j][f];
+    }
+  }
+  __syncthreads();
+  int from[NARROW_IPT];  // rows (the previous kept edge's row, q] start at k
+#pragma unroll
+  for (int j = 0; j < NARROW_IPT; ++j) from[j] = krow[max(k[j], 1) - 1] + 1;
+#pragma unroll
+  for (int j = 0; j < NARROW_IPT; ++j) from[j] = k[j] > 0 ? from[j] : 0;
+#pragma unroll
+  for (int j = 0; j < NARROW_IPT; ++j) {
+    if (k[j] >= 0) {
+      for (int r = from[j]; r <= q[j]; ++r) start[r] = k[j];
+    }
+  }
+  // the rows past the last kept edge start (and end) at the total
+  const int last = total > 0 ? krow[total - 1] : -1;
+  for (int r = last + 1 + tid; r <= nr; r += blockDim.x) start[r] = total;
+  __syncthreads();
+  narrow_sums<F>(vals, start, nr, out + ((int64_t)b * N + r0) * F);
+}
+
+template <typename T, int F>
+int k3_launch_narrow(const void* rows, const void* ids, void* out, int B, int E, int N,
+                     cudaStream_t s) {
+  const NarrowPlan p = narrow_plan(B, E, N, F, true);
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        scatter_narrow_kernel<T, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, NARROW_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  scatter_narrow_kernel<T, F><<<dim3(p.slices, B), 32 * p.warps, (size_t)p.bytes, s>>>(
+      static_cast<const T*>(rows), static_cast<const int*>(ids), static_cast<float*>(out), E, N,
+      p.chunks, p.slice_rows, p.vals_at);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int F>
+int k1_launch_narrow(const void* msgs, const void* dst, const void* mask, void* out, int B,
+                     int E, int N, cudaStream_t s) {
+  const NarrowPlan p = narrow_plan(B, E, N, F, false);
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        segment_narrow_kernel<T, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, NARROW_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  segment_narrow_kernel<T, F><<<dim3(p.slices, B), 32 * p.warps, (size_t)p.bytes, s>>>(
+      static_cast<const T*>(msgs), static_cast<const int*>(dst),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), E, N, p.chunks, p.slice_rows,
+      p.vals_at);
+  return (int)cudaGetLastError();
+}
+
+// The narrow launch of F columns (1 <= F <= FMAX), one instance a width.
+template <typename T, int FMAX>
+int k3_narrow_width(const void* rows, const void* ids, void* out, int B, int E, int N, int F,
+                    cudaStream_t s) {
+  if (F == FMAX) return k3_launch_narrow<T, FMAX>(rows, ids, out, B, E, N, s);
+  if constexpr (FMAX > 1) return k3_narrow_width<T, FMAX - 1>(rows, ids, out, B, E, N, F, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int FMAX>
+int k1_narrow_width(const void* msgs, const void* dst, const void* mask, void* out, int B,
+                    int E, int N, int F, cudaStream_t s) {
+  if (F == FMAX) return k1_launch_narrow<T, FMAX>(msgs, dst, mask, out, B, E, N, s);
+  if constexpr (FMAX > 1)
+    return k1_narrow_width<T, FMAX - 1>(msgs, dst, mask, out, B, E, N, F, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
+
+// K1's kernel for B graphs of E edges into N rows of F columns: 0 the narrow
+// kernel (rows of at most K1_NARROW_F columns of a graph that one block
+// holds), 1 segment_small_kernel (a graph that one block stages), 2
+// segment_walk_kernel (the rest).
+int k1_route(int B, int E, int N, int F) {
+  if (F >= 1 && F <= K1_NARROW_F && narrow_fits(narrow_plan(B, E, N, F, false), E)) return 0;
+  return walk_small_fits(E, N, F) ? 1 : 2;
+}
 
 // msgs [B, E, F] f32 (msgs_bf16 == 0) or bf16 (msgs_bf16 != 0), dst [B, E]
 // int32 sorted per graph, mask [B, E] bool, out [B, N, F] f32. All contiguous.
 int k1_segment_sum_sorted(const void* msgs, const void* dst, const void* mask, void* out,
                           int B, int E, int N, int F, int msgs_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k1_route(B, E, N, F) == 0) {
+    return msgs_bf16
+               ? k1_narrow_width<__nv_bfloat16, K1_NARROW_F>(msgs, dst, mask, out, B, E, N, F, s)
+               : k1_narrow_width<float, K1_NARROW_F>(msgs, dst, mask, out, B, E, N, F, s);
+  }
   return msgs_bf16 ? walk_launch<__nv_bfloat16, true>(msgs, dst, mask, out, B, E, N, F, s)
                    : walk_launch<float, true>(msgs, dst, mask, out, B, E, N, F, s);
 }
@@ -1585,15 +2033,30 @@ int k3_scatter_csr(const void* ids, void* ws, int B, int E, int N, void* stream)
   return k3_launch_csr(ids, ws, B, E, N, static_cast<cudaStream_t>(stream));
 }
 
+// K3's kernels for B graphs of E ids into N rows of F columns: 0 the narrow
+// kernel (rows of at most K3_NARROW_F columns of a graph that one block
+// holds), 1 scatter_small_kernel (a graph whose rows and CSR fit one block),
+// 2 scatter_csr_kernel then scatter_sum_kernel (the rest).
+int k3_route(int B, int E, int N, int F) {
+  if (F >= 1 && F <= K3_NARROW_F && narrow_fits(narrow_plan(B, E, N, F, true), E)) return 0;
+  return k3_small_bytes(E, N, F) != 0 ? 1 : 2;
+}
+
 // rows [B, E, F] f32 (rows_bf16 == 0) or bf16 (rows_bf16 != 0), ids [B, E]
 // int32 in [0, N) in any order, ws as k3_scatter_csr's, out [B, N, F] f32.
-// All contiguous. One launch where a graph fits a block's shared memory, else
-// two: the CSR build, then the row sums.
+// All contiguous. One launch on the narrow kernel and where a graph fits a
+// block's shared memory, else two: the CSR build, then the row sums.
 int k3_scatter_rows(const void* rows, const void* ids, void* ws, void* out, int B, int E, int N,
                     int F, int rows_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t small = k3_small_bytes(E, N, F);
-  if (small != 0) {
+  const int route = k3_route(B, E, N, F);
+  if (route == 0) {
+    return rows_bf16
+               ? k3_narrow_width<__nv_bfloat16, K3_NARROW_F>(rows, ids, out, B, E, N, F, s)
+               : k3_narrow_width<float, K3_NARROW_F>(rows, ids, out, B, E, N, F, s);
+  }
+  if (route == 1) {
+    const size_t small = k3_small_bytes(E, N, F);
     return rows_bf16 ? k3_launch_small<__nv_bfloat16>(rows, ids, out, B, E, N, F, small, s)
                      : k3_launch_small<float>(rows, ids, out, B, E, N, F, small, s);
   }

@@ -31,6 +31,13 @@ K8 = "k8_segment_sum_2d"
 LAUNCHES = {K1: 0, K2: 0, K3: 0, K7: 0, K8: 0}
 # the bytes each kernel\'s launches read and wrote (build.count_launch)
 BYTES = dict.fromkeys(LAUNCHES, 0)
+# K1's and K3's kernels by route, as csrc/segment.cu's k1_route and k3_route
+# number them
+K1_ROUTES = ("narrow", "small", "walk")
+K3_ROUTES = ("narrow", "small", "csr + sum")
+# the K1 and K3 launches that took the narrow kernel (rows of one or two
+# columns), eager calls and captures; a graph replay adds nothing here
+NARROW_LAUNCHES = {K1: 0, K3: 0}
 K7_WINDOW_BYTES = 32768     # a table row must fit one window of csrc/segment.cu's K7
 K3_LONG = 64                # csrc/segment.cu's K3: a row of more ids is summed by a block
 
@@ -40,6 +47,8 @@ _built: build.Built | None = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = BYTES[k] = 0
+    for k in NARROW_LAUNCHES:
+        NARROW_LAUNCHES[k] = 0
 
 
 def load_library() -> build.Built:
@@ -50,6 +59,10 @@ def load_library() -> build.Built:
         vp, i = ctypes.c_void_p, ctypes.c_int
         built.lib.k1_segment_sum_sorted.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
         built.lib.k1_segment_sum_sorted.restype = i
+        built.lib.k1_route.argtypes = [i, i, i, i]
+        built.lib.k1_route.restype = i
+        built.lib.k3_route.argtypes = [i, i, i, i]
+        built.lib.k3_route.restype = i
         built.lib.k2_gather_rows.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
         built.lib.k2_kernel.argtypes = [i, i, i, i]
         built.lib.k2_gather_rows.restype = i
@@ -84,6 +97,34 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
 
 
+_routes: dict = {}
+
+
+def _route(name: str, b: int, e: int, n: int, f: int) -> int:
+    key = (name, b, e, n, f)
+    if key not in _routes:
+        lib = load_library().lib
+        _routes[key] = (lib.k1_route if name == K1 else lib.k3_route)(b, e, n, f)
+    return _routes[key]
+
+
+def k1_route(b: int, e: int, n: int, f: int) -> str:
+    """Which of K1's kernels (K1_ROUTES) sums B graphs of E edges into N rows
+    of F columns: the narrow kernel (rows of one or two columns of a graph
+    that one block holds), segment_small_kernel or segment_walk_kernel. The
+    rule is csrc/segment.cu's ``k1_route``. Builds the library."""
+    return K1_ROUTES[_route(K1, b, e, n, f)]
+
+
+def k3_route(b: int, e: int, n: int, f: int) -> str:
+    """Which of K3's kernels (K3_ROUTES) scatters B graphs of E rows of F
+    columns into N rows: the narrow kernel (rows of one or two columns of a
+    graph that one block holds), scatter_small_kernel or the CSR build and
+    the row sums. The rule is csrc/segment.cu's ``k3_route``. Builds the
+    library."""
+    return K3_ROUTES[_route(K3, b, e, n, f)]
+
+
 # ---------------------------------------------------------------- K1
 
 def segment_sum_sorted_plain(msgs: torch.Tensor, dst: torch.Tensor,
@@ -105,8 +146,11 @@ def segment_sum_sorted(msgs: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor
 
     On the card a warp sums a few short rows at once and a row of many edges
     (the padding row N-1) goes to its whole block, which skips its masked
-    edges a pass of 4096 at a time. Every row is summed in f32 in edge order,
-    so the result equals the plain version's on the CPU bit for bit.
+    edges a pass of 4096 at a time. Rows of one or two columns (``k1_route``)
+    take the narrow kernel instead: a block per slice of a graph's rows keeps
+    their real edges in edge order and a thread adds each row. Every row is
+    summed in f32 in edge order, so the result equals the plain version's on
+    the CPU bit for bit.
 
     Replaces caster_dta_tpu/ops/pallas_segment.py::_segment_kernel_t
     (via pallas_segment_sum). Bound by memory bytes on the H100."""
@@ -136,6 +180,7 @@ def segment_sum_sorted(msgs: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor
             b, e, num_nodes, f, int(msgs.dtype == torch.bfloat16), stream)
     _raise_on(err, K1)
     build.count_launch(LAUNCHES, BYTES, K1, msgs, dst, mask, out)
+    NARROW_LAUNCHES[K1] += _route(K1, b, e, num_nodes, f) == 0
     return out
 
 
@@ -296,7 +341,11 @@ def scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num_segments: int) -> to
     [0, N) in any order, no mask (every row counts). The sum is taken in f32,
     in edge order; the output is [B, N, F] f32. Any N.
 
-    On the card, one launch where a graph's rows, ids and CSR fit one
+    On the card, rows of one or two columns (``k3_route``) take one launch
+    of the narrow kernel: a block per slice of a graph's rows lays each row's
+    values out in edge order and a thread adds each row (an edge whose
+    values are all +-0 is left out: it would not move the sum's bits).
+    Wider rows take one launch where a graph's rows, ids and CSR fit one
     block's shared memory (the molecule graphs), else two: the stable CSR of
     the ids (``scatter_csr``), then the row sums over it, a warp per row of
     at most ``K3_LONG`` ids and a block per longer row. Every row is summed
@@ -324,8 +373,10 @@ def scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num_segments: int) -> to
     if out.numel() == 0:
         return out
     lib = load_library().lib
-    ws = torch.empty(lib.k3_workspace_ints(b, e, num_segments), dtype=torch.int32,
-                     device=rows.device)
+    narrow = _route(K3, b, e, num_segments, f) == 0
+    # the narrow kernel needs no workspace
+    ws = torch.empty(0 if narrow else lib.k3_workspace_ints(b, e, num_segments),
+                     dtype=torch.int32, device=rows.device)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.k3_scatter_rows(rows.data_ptr(), ids.data_ptr(), ws.data_ptr(),
@@ -333,6 +384,7 @@ def scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num_segments: int) -> to
                                   int(rows.dtype == torch.bfloat16), stream)
     _raise_on(err, K3)
     build.count_launch(LAUNCHES, BYTES, K3, rows, ids, out)
+    NARROW_LAUNCHES[K3] += narrow
     return out
 
 

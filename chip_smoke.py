@@ -40,8 +40,9 @@ Phases, each printed before it starts and after it ends with its wall time:
    masked rows, and its refusal of bf16. K7 and K8 lie on no path: their
    launch counts are those of this phase. K1, K2 and K3 (in the k3 phase)
    also at the model zoo's row widths (ZOO_WIDTHS: 1, 2, 21, 2 x 16,
-   2 x 64) on the flagship protein graph and (ZOO_MOLECULE_WIDTHS: 1, 59)
-   on its molecule graph, bit for bit as above.
+   2 x 64) on the flagship protein graph and (ZOO_MOLECULE_WIDTHS: 1, 2,
+   59) on its molecule graph, bit for bit as above (K1 and K3 at 1 and 2 on
+   their narrow kernels).
 4. serve: loads the trained ``runs/davis_seed9`` model onto the card, answers
    seeded synthetic requests at two buckets twice: eagerly
    (``predict(eager=True)``) and as CUDA-graph replays fed from a pinned
@@ -95,7 +96,9 @@ Phases, each printed before it starts and after it ends with its wall time:
    version on the CPU (same edge order) at the merged src||dst backward of
    the flagship, Davis and large-protein buckets and the molecule widths, f32
    and bf16, and on edge cases (repeated ids, all ids on one row, empty rows,
-   E and N off any block, N = 6000), within K3_RTOL/K3_ATOL and bit for bit;
+   E and N off any block, N = 6000) and on segment_softmax's own cotangents
+   (``softmax_cotangent_cases``: +-0 on the masked edges, which the narrow
+   kernel leaves out), within K3_RTOL/K3_ATOL and bit for bit;
    a second call must give the first call's bits, and K3's CSR launch alone
    (``scatter_csr``) must give ``scatter_csr_plain``'s row_ptr and perm.
 8. autograd: gather_nodes and segment_sum (ops/segment.py) at the flagship
@@ -164,7 +167,8 @@ Phases, each printed before it starts and after it ends with its wall time:
    (replayed and eager bit for bit, the first batch against the CPU); on
    zoo-cpd-gatv2 remat (eager and replayed, bit for bit the steps without
    it, peak memory of each). K1, K2 and K3 must launch, K4, K5 and K6 must
-   not.
+   not. Each configuration's eager forward and steps print their K1 and K3
+   launches on the narrow kernels (rows of one or two columns).
 13. multidevice (``multidevice_phase``; this script runs its ranks as
    children, ``chip_smoke.py --multidevice-child SPEC RANK``): (a) a 1-rank
    NCCL group: ``fit`` on the flagship bucket (bf16, the store, the step and
@@ -180,8 +184,11 @@ Phases, each printed before it starts and after it ends with its wall time:
    MD_FIT_TOL, the joint scores within MD_SCORE_TOL of the dense forward). Prints each run's wall time, steps/s,
    halo bytes and launches per step; ranks sharing one card measure
    correctness, not scaling. A failing or late child fails the phase.
-14. times: each kernel (K3 also at the large protein's merged backward; K1,
-   K2 and K3 also at the zoo's row widths on the flagship graph), its
+14. times: first an empty kernel's replay time (the floor of one launch);
+   then each kernel (K3 also at the large protein's merged backward; K1,
+   K2 and K3 also at the zoo's row widths on the flagship graph, and K3 on
+   segment_softmax's own cotangents; each K1 and K3 line names its route,
+   ``cuda_segment.k1_route`` / ``k3_route``), its
    plain version and the one PyTorch call that
    computes the same function, replayed from CUDA graphs and timed with CUDA
    events, beside the least time the card could take (the larger of bytes
@@ -345,9 +352,20 @@ ZOO_STORE = dict(n_pairs=ZOO_PAIRS, n_proteins=24, n_molecules=16, protein_nodes
 ZOO_WIDTHS = {"K1": (1, 2, 32, 128), "K2": (1, 2, 21, 32, 128), "K3": (1, 2, 32, 128)}
 # and on the molecule graph, where the zoo-lba-* towers bring widths the
 # trained GINE tower (51 and 16, kernel_cases) does not: 1 (AttentiveFP's
-# attention scores and softmax denominators, PNA's in-degree) and 59 (GPS's
+# attention scores and softmax denominators, PNA's in-degree), 2
+# (segment_softmax's per-head max and denominators in the molecule towers of
+# zoo-cpd-gatv2 and zoo-pocketminer-heat, H = 2; also the narrow kernels'
+# cut-off, csrc/segment.cu's K1_NARROW_F and K3_NARROW_F) and 59 (GPS's
 # first local GINEConv: 41 features, 10 atom types, the PE's 8)
-ZOO_MOLECULE_WIDTHS = {"K1": (1, 59), "K2": (1, 59), "K3": (1,)}
+ZOO_MOLECULE_WIDTHS = {"K1": (1, 2, 59), "K2": (1, 2, 59), "K3": (1, 2)}
+# an empty kernel, built beside the sources: its replay time is the floor of
+# one launch under graph_time_ms
+EMPTY_KERNEL = """__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
 # the scalar protein layout (data/build.py's feature dims with
 # vectorize_features=False; tests/test_torch_zoo_models.py holds them
 # against a built graph): 17 + 3 x 3 node and 32 + 3 edge channels
@@ -674,6 +692,27 @@ def smi_samples(samples: list):
             samples.append((clock, power))
 
 
+def empty_kernel_library():
+    """EMPTY_KERNEL built with the port's nvcc flags into its build
+    directory and loaded (ctypes) -> the library, whose ``empty_launch(stream)``
+    launches one block of 32 threads that does nothing."""
+    import ctypes
+
+    from caster_dta_torch.ops import build
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    stem = os.path.join(build.BUILD_DIR, f"empty_launch_{os.getpid()}")
+    with open(stem + ".cu", "w") as f:
+        f.write(EMPTY_KERNEL)
+    r = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", stem + ".so", stem + ".cu"],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"nvcc failed on the empty kernel:\n{r.stdout}{r.stderr}")
+    lib = ctypes.CDLL(stem + ".so")
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+    return lib
+
+
 def graph_time_ms(torch, fn, launches: int = 20, replays: int = 7) -> float:
     """Median device time of one ``fn()`` call: ``launches`` calls captured in
     one CUDA graph, each replay timed with CUDA events."""
@@ -852,6 +891,40 @@ def zoo_kernel_cases(torch, batch, gen, dev="cuda"):
         + [(f"zoo molecule backward F={f}", randn(b, m.e_pad, f), m.edge_dst, m.n_pad)
            for f in ZOO_MOLECULE_WIDTHS["K3"]],
     }
+
+
+def softmax_cotangent_cases(torch, batch, gen, dev="cuda"):
+    """K3's inputs in segment_softmax's backward on a request's protein and
+    molecule graphs at H = 1 and 2 (N(0, 9) logits, N(0, 1) weights of a
+    sum): the cotangents of its gathers of the denominators and of the row
+    max by dst, +-0 on the masked edges, captured from ops/segment.py's
+    Functions on the card."""
+    from caster_dta_torch.ops import cuda_segment as cs
+    from caster_dta_torch.ops import segment
+
+    out = []
+    for what, g in (("zoo", batch.protein.to(dev)), ("zoo molecule", batch.molecule.to(dev))):
+        for heads in (1, 2):
+            logits = torch.randn(g.batch_size, g.e_pad, heads, generator=gen, device=dev) * 3
+            weight = torch.randn(g.batch_size, g.e_pad, heads, generator=gen, device=dev)
+            seen, scatter = [], cs.scatter_rows
+
+            def record(rows, ids, n):
+                seen.append((rows.detach().clone(), ids, n))
+                return scatter(rows, ids, n)
+
+            cs.scatter_rows = record
+            try:
+                with torch.enable_grad():
+                    x = logits.requires_grad_()
+                    w = segment.segment_softmax(x, g.edge_dst, g.edge_mask, g.n_pad)
+                    (w * weight).sum().backward()
+            finally:
+                cs.scatter_rows = scatter
+            for piece, (rows, ids, n) in zip(("denominators", "max"), seen):
+                out.append((f"{what} backward F={heads}, softmax cotangent ({piece})",
+                            rows.float(), ids, n))
+    return out
 
 
 def k3_edge_cases(torch, gen, dev="cuda"):
@@ -1463,9 +1536,11 @@ def zoo_phase(torch, train_launches: dict) -> None:
         per_request, worst = None, [0.0, 0.0]
         for i, batch in enumerate(reqs):
             launch_counts.reset()
+            narrow_before = dict(cs.NARROW_LAUNCHES)
             aff_e, attn_e = predict(run, batch, eager=True)
             torch.cuda.synchronize()
             eager_l = launched()
+            narrow = {k: v - narrow_before[k] for k, v in cs.NARROW_LAUNCHES.items()}
             launch_counts.reset()
             aff, attn = predict(run, batch)
             torch.cuda.synchronize()
@@ -1490,7 +1565,9 @@ def zoo_phase(torch, train_launches: dict) -> None:
         check_path(f"{tag} serving", per_request, must)
         print(f"{tag}: {len(reqs)} requests {reqs[0].bucket} B={reqs[0].protein.batch_size}, "
               f"replayed bit for bit the eager answers (affinities and attention maps), "
-              f"launches per request {per_request} both ways; card vs CPU max|d affinity| "
+              f"launches per request {per_request} both ways, of which on the narrow kernels "
+              f"(rows of one or two columns) per forward: K1 {narrow[cs.K1]}, K3 "
+              f"{narrow[cs.K3]}; card vs CPU max|d affinity| "
               f"{worst[0]:.3e} (atol {AFFINITY_ATOL}), max|d attention| {worst[1]:.3e} (atol "
               f"{ATTENTION_ATOL})")
         if worst[0] > AFFINITY_ATOL or worst[1] > ATTENTION_ATOL:
@@ -1589,10 +1666,13 @@ def zoo_phase(torch, train_launches: dict) -> None:
                     torch.cuda.reset_peak_memory_stats()
                     base = torch.cuda.memory_allocated()
                     launch_counts.reset()
+                    narrow_before = dict(cs.NARROW_LAUNCHES)
                     want = [eager.train_step(mega.batch(j), float(lrs[j])) for j in range(k)]
                     torch.cuda.synchronize()
                     peak[r] = (torch.cuda.max_memory_allocated() - base, base)
                     eager_l = launched()
+                    narrow = {key: (v - narrow_before[key]) / k
+                              for key, v in cs.NARROW_LAUNCHES.items()}
                     launch_counts.reset()
                     losses, preds = graph.train_megabatch(mega, lrs)
                     torch.cuda.synchronize()
@@ -1617,7 +1697,9 @@ def zoo_phase(torch, train_launches: dict) -> None:
                       f"{[round(x, 6) for x in losses.tolist()]}; the graph path "
                       f"({'warm-up, capture, replays' if n == 0 else 'replays'}) bit for bit "
                       f"the eager steps; launches per step "
-                      f"{ {name: v // k for name, v in graph_l.items()} }")
+                      f"{ {name: v // k for name, v in graph_l.items()} }, of which on the "
+                      f"narrow kernels (rows of one or two columns): K1 {narrow[cs.K1]:g}, K3 "
+                      f"{narrow[cs.K3]:g}")
         params = [t.params for t in trainers.values()]
         if not all(all(torch.equal(a, b) for a, b in zip(params[0], p)) for p in params[1:]):
             raise AssertionError(f"{tag}: parameters differ between the eager and graph "
@@ -2527,8 +2609,10 @@ def main() -> int:
 
     with phase("build"):
         # one nvcc per source, all started together
-        with ThreadPoolExecutor(3) as pool:
+        with ThreadPoolExecutor(4) as pool:
+            empty_lib = pool.submit(empty_kernel_library)
             builds = list(pool.map(lambda module: module.load_library(), (cs, cgm, ca)))
+            empty_lib = empty_lib.result()
         for built in builds:
             for line in built.log.splitlines():
                 if "ptxas" in line and ("registers" in line or "Compiling entry" in line
@@ -3069,6 +3153,8 @@ def main() -> int:
                 check_k3(f"{label} {name}", rows, ids, n)
         for name, rows, ids, n in zoo_kernel_cases(torch, requests[0][1], zoo_gen)["K3"]:
             check_k3(f"{requests[0][0]} {name}", rows, ids, n)
+        for name, rows, ids, n in softmax_cotangent_cases(torch, requests[0][1], zoo_gen):
+            check_k3(f"{requests[0][0]} {name}", rows, ids, n)
         for name, rows, ids, n in k3_edge_cases(torch, gen):
             check_k3(f"edge case {name}", rows, ids, n)
         print(f"K3 max_abs_err {max_err['K3']:.3e} against the plain version on the CPU "
@@ -3421,6 +3507,10 @@ def main() -> int:
 
     with phase("times"), torch.no_grad():
         rows, module_ms, extra = {}, {}, {}
+        floor_ms = graph_time_ms(torch, lambda: empty_lib.empty_launch(
+            torch.cuda.current_stream().cuda_stream))
+        print(f"launch floor: an empty kernel (one block of 32 threads) {floor_ms:.4f} ms a "
+              f"launch, replayed as every kernel below is (graph_time_ms, 20 launches a graph)")
 
         def time_k3(label, name, r32, ids, n):
             b, e, f = r32.shape
@@ -3440,6 +3530,8 @@ def main() -> int:
                 nbytes = r.numel() * r.element_size() + ids.numel() * 4 + b * n * f * 4
                 rows[("K3", label, f"{name} {str(dtype)[6:]}")] = (
                     ms, plain, lib, nbytes, b * e * f, F32_OPS_PER_S)
+                extra[("K3", label, f"{name} {str(dtype)[6:]}")] = (
+                    f"route {cs.k3_route(b, e, n, f)}")
         def time_k1(label, name, msgs, dst, mask, n):
             b, e, f = msgs.shape
             out = torch.empty(b * n, f, device="cuda")
@@ -3459,7 +3551,9 @@ def main() -> int:
             nbytes = (n_real * f * msgs.element_size() + dst.numel() * 4
                       + mask.numel() + b * n * f * 4)
             rows[("K1", label, name)] = (ms, plain, lib, nbytes, n_real * f, F32_OPS_PER_S)
-            extra[("K1", label, name)] = f"longest dst range {longest_range(dst)}"
+            extra[("K1", label, name)] = (
+                f"longest dst range {longest_range(dst)}, route "
+                f"{cs.k1_route(b, e, n, f)}")
 
         def time_k8(label, p):
             b, n, e = p.batch_size, p.n_pad, p.e_pad
@@ -3503,6 +3597,11 @@ def main() -> int:
                 time_k1(label, name, msgs, dst, mask, n)
             for name, r32, ids, n in k3_cases(torch, batch, gen) + cases.get("K3", []):
                 time_k3(label, name, r32, ids, n)
+            if batch is requests[0][1]:
+                # the narrow K3 leaves out rows of +-0: on segment_softmax's
+                # own cotangents (+-0 on the masked edges) beside the random rows
+                for name, r32, ids, n in softmax_cotangent_cases(torch, batch, zoo_gen):
+                    time_k3(label, name, r32, ids, n)
             # K5 at the served model's message widths with the trained
             # weights; its reference point is the device time of the port's
             # unfused message chain (the GVP modules) on the same tensors,

@@ -2,7 +2,9 @@
 scatter-add), K4 (blockwise masked attention), K5 (fused GVP message MLP,
 forward and backward), K6 (copy-cast), K7 (windowed row gather) and K8
 (row-major segment-sum) of caster_dta_torch against their plain PyTorch
-versions (K1, K2 and K3 also at the model zoo's row widths), and
+versions (K1, K2 and K3 also at the model zoo's row widths, and on the narrow
+kernels of rows of one or two columns, whose route rule is held against its
+CPU mirror, tests/segment_narrow_mirror.py), and
 the autograd Functions built on them, segment_max and segment_softmax against
 the same functions on the CPU, on the card.
 
@@ -28,6 +30,7 @@ from caster_dta_torch.ops import cuda_attention as ca
 from caster_dta_torch.ops import cuda_gvp_message as cgm
 from caster_dta_torch.ops import cuda_segment as cs
 from caster_dta_torch.ops import segment
+import segment_narrow_mirror as mirror
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -112,24 +115,98 @@ def test_k1_equals_the_cpu_bit_for_bit(cuda, dtype, case, f):
     assert cs.LAUNCHES[cs.K1] == before + (1 if got.numel() else 0)
 
 
+# the model zoo's row widths on a flagship protein graph: 1 (in-degrees), 2
+# (segment_softmax's per-head max and denominators), 3 (one above the narrow
+# kernels' cut-off), 21 (CPD's type one-hot, gathered by src), 2 x 16 and
+# 2 x 64 (GATv2's per-head rows); the narrow widths and the one above also
+# at B = 1 and 3 (its first graphs), and 1 and 2 on its molecule graph
+ZOO_CARD_CASES = ([("protein", 32, f) for f in (1, 2, 3, 21, 32, 128)]
+                  + [("protein", b, f) for b in (1, 3) for f in (1, 2, 3)]
+                  + [("molecule", 32, f) for f in (1, 2)])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("f", [1, 2, 21, 32, 128])
-def test_k1_k2_k3_at_the_zoo_widths(cuda, dtype, f):
-    """The model zoo's row widths on a flagship protein graph: 1 (in-degrees),
-    2 (segment_softmax's per-head max and denominators), 21 (CPD's type
-    one-hot, gathered by src), 2 x 16 and 2 x 64 (GATv2's per-head rows). K1
-    and K3 bit for bit their plain versions on the CPU, K2 bit-exact."""
-    p = synthetic_pair_batch(32, 512, 4096, 64, 256, seed=0).protein
+@pytest.mark.parametrize("graph,b,f", ZOO_CARD_CASES)
+def test_k1_k2_k3_at_the_zoo_widths(cuda, dtype, graph, b, f):
+    """K1 and K3 bit for bit their plain versions on the CPU, K2 bit-exact,
+    one launch a call each; rows of one or two columns on the narrow
+    kernels (``k1_route``, ``k3_route``, as the CPU mirror names them)."""
+    batch = synthetic_pair_batch(32, 512, 4096, 64, 256, seed=0)
+    g = batch.protein if graph == "protein" else batch.molecule
+    src, dst, mask = (t[:b].contiguous() for t in (g.edge_src, g.edge_dst, g.edge_mask))
     gen = torch.Generator().manual_seed(f)
-    n, e = p.n_pad, p.e_pad
-    table = torch.randn(32, n, f, generator=gen).to(dtype)
-    idx = p.edge_src if f == 21 else p.edge_dst
+    n, e = g.n_pad, g.e_pad
+    table = torch.randn(b, n, f, generator=gen).to(dtype)
+    idx = src if f == 21 else dst
     assert torch.equal(cs.gather_rows(table.to(cuda), idx.to(cuda)).cpu(),
                        cs.gather_rows_plain(table, idx))
-    msgs = torch.randn(32, e, f, generator=gen).to(dtype)
-    got = cs.segment_sum_sorted(msgs.to(cuda), p.edge_dst.to(cuda), p.edge_mask.to(cuda), n)
-    assert torch.equal(got.cpu(), cs.segment_sum_sorted_plain(msgs, p.edge_dst, p.edge_mask, n))
-    _k3_against_plain(msgs, p.edge_dst, n, cuda)
+    msgs = torch.randn(b, e, f, generator=gen).to(dtype)
+    assert cs.k1_route(b, e, n, f) == mirror.k1_route(b, e, n, f)
+    assert cs.k3_route(b, e, n, f) == mirror.k3_route(b, e, n, f)
+    before = (cs.LAUNCHES[cs.K1], cs.LAUNCHES[cs.K3], dict(cs.NARROW_LAUNCHES))
+    got = cs.segment_sum_sorted(msgs.to(cuda), dst.to(cuda), mask.to(cuda), n)
+    assert torch.equal(got.cpu(), cs.segment_sum_sorted_plain(msgs, dst, mask, n))
+    _k3_against_plain(msgs, dst, n, cuda)
+    assert (cs.LAUNCHES[cs.K1], cs.LAUNCHES[cs.K3]) == (before[0] + 1, before[1] + 1)
+    for k, route in ((cs.K1, cs.k1_route), (cs.K3, cs.k3_route)):
+        narrow = route(b, e, n, f) == "narrow"
+        assert narrow == (f <= 2)
+        assert cs.NARROW_LAUNCHES[k] == before[2][k] + narrow
+
+
+@pytest.mark.parametrize("kernel,shape,want", mirror.TIMED_ROUTES)
+def test_narrow_route_rule_matches_its_mirror(cuda, kernel, shape, want):
+    """The compiled route rules (k1_route, k3_route) name the kernel that the
+    CPU mirror names at every shape chip_smoke.py times."""
+    rule, mirrored = ((cs.k1_route, mirror.k1_route) if kernel == "K1"
+                      else (cs.k3_route, mirror.k3_route))
+    assert rule(*shape) == mirrored(*shape) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("graph,b,f", [("protein", 32, 1), ("protein", 32, 2),
+                                       ("protein", 3, 2), ("molecule", 32, 1),
+                                       ("molecule", 32, 2)])
+def test_narrow_routes_give_the_same_bits_twice(cuda, dtype, graph, b, f):
+    batch = synthetic_pair_batch(32, 512, 4096, 64, 256, seed=0)
+    g = batch.protein if graph == "protein" else batch.molecule
+    dst, mask = g.edge_dst[:b].contiguous().to(cuda), g.edge_mask[:b].contiguous().to(cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(12)
+    msgs = torch.randn(b, g.e_pad, f, generator=gen, device=cuda).to(dtype)
+    assert cs.k1_route(b, g.e_pad, g.n_pad, f) == cs.k3_route(b, g.e_pad, g.n_pad, f) == "narrow"
+    first = cs.segment_sum_sorted(msgs, dst, mask, g.n_pad)
+    assert torch.equal(first, cs.segment_sum_sorted(msgs, dst, mask, g.n_pad))
+    first = cs.scatter_rows(msgs, dst, g.n_pad)
+    assert torch.equal(first, cs.scatter_rows(msgs, dst, g.n_pad))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["unsorted ids", "one row", "empty rows", "E=0",
+                                  "signed zeros"])
+def test_k3_narrow_edge_cases(cuda, dtype, case):
+    """The narrow K3 kernel bit for bit the CPU's plain version on unsorted
+    ids, all ids on one row, empty rows (0), no ids, and rows of +-0 (left
+    out: the sums keep their bits, never -0)."""
+    gen = torch.Generator().manual_seed(13)
+    b, e, n = {"one row": (2, 4096, 9), "empty rows": (3, 1000, 200), "E=0": (2, 0, 30)}.get(
+        case, (2, 4096, 512))
+    if case == "one row":
+        ids = torch.full((b, e), 4, dtype=torch.int32)
+    elif case == "empty rows":
+        ids = (torch.randint(0, 50, (b, e), generator=gen) * 2).to(torch.int32)
+    else:
+        ids = torch.stack([torch.randperm(e, generator=gen) % n for _ in range(b)]).to(
+            torch.int32) if e else torch.zeros(b, 0, dtype=torch.int32)
+    for f in (1, 2):
+        rows = (mirror.signed_zero_rows(ids, f) if case == "signed zeros"
+                else torch.randn(b, e, f, generator=gen)).to(dtype)
+        assert cs.k3_route(b, e, n, f) == "narrow"
+        got, want = _k3_against_plain(rows, ids, n, cuda)
+        counts = (torch.stack([torch.bincount(x.long(), minlength=n) for x in ids]) if e
+                  else torch.zeros(b, n, dtype=torch.long))
+        assert torch.all(got[counts == 0] == 0)
+        assert not torch.signbit(got[got == 0]).any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -403,6 +480,8 @@ def _trap_in_child(call: str) -> None:
 
 def test_k3_traps_on_an_id_out_of_range(cuda):
     _trap_in_child("cs.scatter_rows(t, i, 4)")
+    # the narrow kernel (rows of one column)
+    _trap_in_child("cs.scatter_rows(t[..., :1].contiguous(), i, 4)")
     with pytest.raises(IndexError, match="outside"):
         cs.scatter_rows(torch.ones(1, 4, 3), torch.tensor([[0, 1, 5, 2]], dtype=torch.int32), 4)
 
