@@ -178,4 +178,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from caster_dta_torch.device import pin_mkl_code_path
+
+    pin_mkl_code_path()
     main()

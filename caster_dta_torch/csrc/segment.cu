@@ -26,10 +26,13 @@
 //     with none costs one barrier and no message load, so the masked padding
 //     row costs ~E_pad / WALK_SPAN barriers), then 15 warps keep a ring of
 //     tiles of the listed message rows in flight (cp.async for f32) while
-//     warp 0 adds them in order. A graph of at most SMALL_FLOATS message
-//     values (the molecules) takes one block instead (segment_small_kernel):
-//     it stages the graph's messages, dst and mask with one round of loads and
-//     sums every row from shared memory. Rows of at most K1_NARROW_F columns
+//     warp 0 adds them in order. A molecule-sized graph (at most SMALL_EDGES
+//     edges, SMALL_ROWS rows and SMALL_FLOATS message values) takes the tile
+//     kernel instead (segment_tile_kernel, "the tile kernels" below): a block
+//     per (column slice, row slice) stages the graph's dst, mask and messages
+//     in its columns with one round of loads, reads each row's edge range off
+//     the sorted dst, and a thread per (row, columns) adds the row's real
+//     edges, found by a ballot a chunk of 32, in order. Rows of at most K1_NARROW_F columns
 //     (the zoo's in-degrees and segment_softmax's denominators) take the
 //     narrow kernel (segment_narrow_kernel, k1_route): there a warp-per-row
 //     walk leaves a lane in 32 at work and its searches and the padding
@@ -91,11 +94,17 @@
 //     kept edge's values in row order, and a thread adds each row, the
 //     padding row's values 16 bytes a load ahead of its chain of adds; an
 //     edge whose values are all +-0 is left out (it cannot move an in-order
-//     sum from +0). Wider rows: a graph whose rows (as f32), ids and CSR fit
-//     one block's shared memory (the molecule graphs) takes one launch,
-//     scatter_small_kernel: its block stages them, builds the CSR as below
-//     with one block, and a warp per (row, 32 features) adds the row's staged
-//     values. A larger graph takes two launches:
+//     sum from +0). Wider rows of a molecule-sized graph (as K1's) take one
+//     launch of the tile kernel (scatter_tile_kernel, "the tile kernels"
+//     below): a block per (column slice, slice of at most 32 rows) stages
+//     the graph's ids and its rows in the block's columns, marks each row's
+//     edges in a bit word a chunk of 32 edges, sorts the edges by (row, edge)
+//     from the words' counts, and a thread per (row, columns) adds the row's
+//     run in order. Another graph whose rows (as f32), ids and CSR fit
+//     one block's shared memory takes one launch, scatter_small_kernel: its
+//     block stages them, builds the CSR as below with one block, and a warp
+//     per (row, 32 features) adds the row's staged values. A larger graph
+//     takes two launches:
 //     1. scatter_csr_kernel: a stable CSR by id per graph, row_ptr[B, N+1] and
 //        perm[B, E] (each graph's edges in (id, e) order), and the list of
 //        its rows of more than K3_LONG ids. A cluster of up to 8 blocks per
@@ -197,10 +206,21 @@ constexpr int WALK_RING = 3;       // stage buffers: two in flight while warp 0 
 constexpr int WALK_COPIES = WALK_TILE * 32 / WALK_LOADERS;  // elements a loader stages a tile
 constexpr int WALK_STAGE_BYTES = WALK_RING * WALK_TILE * 32 * 4;  // f32 ring (90 KB)
 static_assert(WALK_COPIES * WALK_LOADERS == WALK_TILE * 32, "a tile splits evenly over loaders");
-constexpr int SMALL_FLOATS = 16384;  // a graph of at most this many message values,
+constexpr int SMALL_FLOATS = 16384;  // a graph of at most this many values,
 constexpr int SMALL_EDGES = 512;     // edges
-constexpr int SMALL_ROWS = 1024;     // and rows is summed by one block (segment_small_kernel)
-constexpr int SMALL_BYTES = SMALL_FLOATS * 4 + SMALL_EDGES * 5 + (SMALL_ROWS + 1) * 4;
+constexpr int SMALL_ROWS = 1024;     // and rows is molecule-sized: the tile kernels take it
+// The tile kernels (K1, K8, and K3 at rows wider than the narrow kernels',
+// on a molecule-sized graph): a block per (column slice, row slice, graph)
+constexpr int TILE_EDGES = SMALL_EDGES;  // most edges of a graph
+constexpr int TILE_COL_SLICES = 4;       // most column slices a graph
+constexpr int TILE_BLOCKS = 128;         // blocks a launch aims at: rows split below it
+constexpr int TILE_MIN_ROWS = 16;        // fewest rows a row slice of more than one takes
+constexpr int TILE_MIN_THREADS = 128;    // fewest threads a block (they share the loads)
+constexpr int TILE_THREADS = 512;        // most threads a block (registers: 128 a thread)
+constexpr int TILE_LOADS = 8;            // loads in flight a thread while it stages
+constexpr int TILE_BATCH = 8;            // staged values a thread has in flight while it adds
+constexpr int TILE_K3_ROWS = 32;         // most rows of a K3 tile (warp 0 scans their counts)
+constexpr int TILE_SMEM = 232448 - 1024; // most dynamic shared memory a block
 // K1 and K3 at rows of at most K1_NARROW_F / K3_NARROW_F columns (the
 // narrow kernels): a thread per output row, a block per (graph, slice of
 // rows). The cut-off is 2 by measurement on an H100: at 3 and 4 columns K3's
@@ -1395,95 +1415,18 @@ int k3_launch_sum(const void* rows, void* ws, void* out, int B, int E, int N, in
   return (int)cudaGetLastError();
 }
 
-// K1 (MASKED) and K8 for a small graph (the molecules): one block per graph
-// stages all of its messages (as f32), dst and mask in shared memory with
-// one round of loads (every load issued before any store), finds each row's
-// range from the row starts among the staged dst, and a warp per row adds
-// the row's real edges, found 32 at a time by a ballot on the staged mask, in
-// edge order. A masked padding row costs a ballot per 32 edges.
-template <typename T, bool MASKED>
-__global__ void __launch_bounds__(WALK_THREADS)
-segment_small_kernel(const T* __restrict__ msgs, const int* __restrict__ dst,
-                     const uint8_t* __restrict__ mask, float* __restrict__ out, int E, int N,
-                     int F) {
-  extern __shared__ float small_smem[];
-  float* s_msgs = small_smem;                                         // [E * F]
-  int* s_dst = reinterpret_cast<int*>(small_smem + SMALL_FLOATS);     // [E]
-  int* s_ptr = s_dst + SMALL_EDGES;                                   // [N + 1]: lb(n)
-  uint8_t* s_real = reinterpret_cast<uint8_t*>(s_ptr + SMALL_ROWS + 1);  // [E]
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int EF = E * F;
-  const T* msgs_b = msgs + (int64_t)b * EF;
-  float* out_b = out + (int64_t)b * N * F;
-  const int* dst_b = dst + (int64_t)b * E;
-
-  float v[SMALL_FLOATS / WALK_THREADS];
-#pragma unroll
-  for (int k = 0; k < SMALL_FLOATS / WALK_THREADS; ++k) {
-    const int i = k * WALK_THREADS + tid;
-    v[k] = i < EF ? to_f32(msgs_b[i]) : 0.f;
-  }
-  const int d = tid < E ? dst_b[tid] : 0;
-  const bool real = tid < E && (!MASKED || mask[(int64_t)b * E + tid] != 0);
-#pragma unroll
-  for (int k = 0; k < SMALL_FLOATS / WALK_THREADS; ++k) {
-    const int i = k * WALK_THREADS + tid;
-    if (i < EF) s_msgs[i] = v[k];
-  }
-  if (tid < E) {
-    s_dst[tid] = d;
-    s_real[tid] = real;
-  }
-  for (int r = tid; r <= N; r += WALK_THREADS) s_ptr[r] = E;  // rows past the last edge
-  __syncthreads();
-  if (tid < E) {  // edge tid starts the rows (dst[tid - 1], dst[tid]]
-    const int prev = tid > 0 ? s_dst[tid - 1] : -1;
-    for (int r = prev + 1; r <= min(d, N); ++r) s_ptr[r] = tid;
-  }
-  __syncthreads();
-
-  for (int r = warp; r < N; r += WALK_THREADS / 32) {
-    const int rb = s_ptr[r], re = s_ptr[r + 1];
-    for (int c0 = 0; c0 < F; c0 += 32) {
-      const int f = min(c0 + lane, F - 1);
-      float acc = 0.f;
-      for (int i0 = rb; i0 < re; i0 += 32) {
-        for (unsigned bits = __ballot_sync(0xffffffffu, i0 + lane < re && s_real[i0 + lane]);
-             bits != 0; bits &= bits - 1) {
-          acc += s_msgs[(i0 + __ffs(bits) - 1) * F + f];
-        }
-      }
-      if (c0 + lane < F) out_b[(int64_t)r * F + c0 + lane] = acc;
-    }
-  }
-}
-
-// A graph the one-block path takes: its messages, dst, mask and row bounds
-// fit SMALL_BYTES of shared memory.
+// A molecule-sized graph: the tile kernels take it (K1, K8 and K3 at rows
+// wider than the narrow kernels').
 inline bool walk_small_fits(int E, int N, int F) {
   return E <= SMALL_EDGES && N <= SMALL_ROWS && (int64_t)E * F <= SMALL_FLOATS;
 }
 
-// One launch of the walker, or of the one-block path for a small graph; the
-// first call of each instantiation raises its dynamic shared memory limit.
+// One launch of the walker; the first call of each instantiation raises its
+// dynamic shared memory limit. (A molecule-sized graph takes the tile
+// kernel: k1_tile.)
 template <typename T, bool MASKED>
 int walk_launch(const void* msgs, const void* dst, const void* mask, void* out, int B, int E,
                 int N, int F, cudaStream_t s) {
-  if (walk_small_fits(E, N, F)) {
-    static bool small_attr = false;
-    if (!small_attr) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          segment_small_kernel<T, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          SMALL_BYTES);
-      if (err != cudaSuccess) return (int)err;
-      small_attr = true;
-    }
-    segment_small_kernel<T, MASKED><<<B, WALK_THREADS, SMALL_BYTES, s>>>(
-        static_cast<const T*>(msgs), static_cast<const int*>(dst),
-        static_cast<const uint8_t*>(mask), static_cast<float*>(out), E, N, F);
-    return (int)cudaGetLastError();
-  }
   const size_t bytes = WALK_STAGE_BYTES + (MASKED ? WALK_SPAN * sizeof(int) : 0);
   static bool attr = false;
   if (!attr) {
@@ -1910,13 +1853,454 @@ int k1_narrow_width(const void* msgs, const void* dst, const void* mask, void* o
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ---- the tile kernels: K1 and K3 on a molecule-sized graph (walk_small_fits)
+//
+// A block per (column slice, row slice, graph): a tile of the graph's output.
+// A unit is 4 columns (the last of a row may hold fewer); the graph's units
+// split into at most TILE_COL_SLICES slices, and where B times that leaves
+// the card short of TILE_BLOCKS blocks its rows split too (slices of at least
+// TILE_MIN_ROWS; K3's of at most TILE_K3_ROWS). In one round of loads every
+// thread fetches its share of the graph's ids (K1: dst and mask) and of all
+// E edges' values in the tile's columns, widened to f32, into shared memory:
+// a unit a load (16 bytes of f32, 8 of bf16) where F splits into units and
+// the addresses allow (WIDE), else an element a load. The edges of each row
+// become bit masks over chunks of 32 edges, each chunk one warp's. K1 reads
+// each row's range off the sorted dst and keeps a ballot of the real edges a
+// chunk; one barrier; then a thread per (row, unit) walks its range's real
+// bits, chunk by chunk. K3's warp zeroes its chunk's words and ORs each
+// edge's bit into its row's word (one store where all 32 edges share a row,
+// as the padding row's do); a barrier; warp 0 turns the words into each
+// row's start among the edges sorted by (row, edge); a barrier; every edge
+// copies its units to its place; a barrier; a thread per (row, unit) adds its
+// row's run. (Walking K3's scattered bits as K1 does, a row's ~4 ids over all
+// 8 chunks of a molecule graph, took 2.5 us of sums on an H100 against 0.5
+// sorted: scripts/k1_phase_times.py.) The sums are 4 f32
+// accumulators from +0 in edge order, 16 bytes a shared-memory read: up to
+// TILE_BATCH reads in flight, and 32 consecutive edges (the padding row's,
+// any run of a row's edges) with the next 8 reads in flight while 8 are
+// added. An in-order sum from +0 is never -0, so an edge left out (K1:
+// masked) leaves the plain version's bits (which add +0 for it). No atomics
+// on values.
+
+// The layout of a tile launch.
+struct TilePlan {
+  int su;          // units a column slice
+  int col_slices;
+  int row_slices;
+  int slice_rows;
+  int threads;
+  int nch;         // chunks of 32 edges
+  int vals_at;     // 4-byte words before the staged values (a multiple of 4)
+  int64_t bytes;   // dynamic shared memory
+};
+
+TilePlan tile_plan(int B, int E, int N, int F, bool wide, bool k3) {
+  TilePlan p;
+  const int units = (F + 3) / 4;
+  const int want = min(units, TILE_COL_SLICES);
+  p.su = (units + want - 1) / want;
+  p.col_slices = (units + p.su - 1) / p.su;
+  const int per_graph = (TILE_BLOCKS + B * p.col_slices - 1) / max(1, B * p.col_slices);
+  p.row_slices = max(1, min(per_graph, N / TILE_MIN_ROWS));
+  if (k3) p.row_slices = max(p.row_slices, (N + TILE_K3_ROWS - 1) / TILE_K3_ROWS);
+  p.slice_rows = (N + p.row_slices - 1) / p.row_slices;
+  p.row_slices = N > 0 ? (N + p.slice_rows - 1) / p.slice_rows : 1;
+  // a thread a (row, unit) of the tile, and enough threads to stage the
+  // tile's columns in one round of TILE_LOADS loads a thread (a unit a load
+  // where WIDE, else an element)
+  const int lanes = p.slice_rows * p.su;
+  const int loads = E * p.su * (wide ? 1 : 4);
+  const int want_threads = max(lanes, (loads + TILE_LOADS - 1) / TILE_LOADS);
+  p.threads = min(TILE_THREADS, max(TILE_MIN_THREADS, (want_threads + 31) / 32 * 32));
+  p.nch = (E + 31) / 32;
+  // K3: [nch][slice_rows] masks and chunk offsets, [slice_rows + 1] row
+  // starts; K1: [slice_rows + 1] row starts and [nch] real-edge words; then
+  // [E][su][4] f32 values (K3: twice, in edge order and sorted by row)
+  const int ints = k3 ? 2 * p.nch * p.slice_rows + p.slice_rows + 1 : p.slice_rows + 1 + p.nch;
+  p.vals_at = (ints + 3) / 4 * 4;
+  p.bytes = ((int64_t)p.vals_at + (k3 ? 2 : 1) * (int64_t)E * p.su * 4) * 4;
+  return p;
+}
+
+// Every thread stages its share of the E edges' units [u0, u0 + nu) (of a
+// slice of su) of a graph's rows (F columns of T) into vals[(e * su + u) * 4
+// + c] as f32, 0 past F, TILE_LOADS loads in flight before any store. WIDE:
+// a unit a load (the slice's units past nu are neither read nor stored).
+template <bool WIDE, typename T>
+__device__ __forceinline__ void tile_stage(const T* __restrict__ rows_b, int E, int F, int u0,
+                                           int su, int nu, float* vals) {
+  const int nt = blockDim.x;
+  if constexpr (WIDE) {
+    const int items = E * su;
+    for (int i0 = threadIdx.x; i0 < items; i0 += TILE_LOADS * nt) {
+      float4 v[TILE_LOADS];
+#pragma unroll
+      for (int k = 0; k < TILE_LOADS; ++k) {
+        const int i = min(i0 + k * nt, items - 1);
+        const int e = i / su, u = min(i - e * su, nu - 1);  // read unconditionally, in the row
+        const T* p = rows_b + (int64_t)e * F + (u0 + u) * 4;
+        if constexpr (sizeof(T) == 4) {
+          v[k] = *reinterpret_cast<const float4*>(p);
+        } else {  // four bf16 in one 8-byte load; the low half of a word comes first
+          const uint2 q = *reinterpret_cast<const uint2*>(p);
+          v[k] = make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
+                             __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < TILE_LOADS; ++k) {
+        const int i = i0 + k * nt;
+        if (i < items && i % su < nu) reinterpret_cast<float4*>(vals)[i] = v[k];
+      }
+    }
+  } else {
+    const int width = su * 4, items = E * width;
+    const int de = nt / width, dc = nt - de * width;  // item i + nt: edge + de, column + dc
+    for (int i0 = threadIdx.x; i0 < items; i0 += TILE_LOADS * nt) {
+      float v[TILE_LOADS];
+      int e = i0 / width, c = i0 - e * width;
+#pragma unroll
+      for (int k = 0; k < TILE_LOADS; ++k) {
+        const int col = u0 * 4 + c;
+        v[k] = i0 + k * nt < items && col < F ? to_f32(rows_b[(int64_t)e * F + col]) : 0.f;
+        e += de;
+        c += dc;
+        if (c >= width) {
+          c -= width;
+          ++e;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < TILE_LOADS; ++k) {
+        const int i = i0 + k * nt;
+        if (i < items) vals[i] = v[k];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void tile_add(float4& acc, const float4 v) {
+  acc.x += v.x;
+  acc.y += v.y;
+  acc.z += v.z;
+  acc.w += v.w;
+}
+
+// acc += the staged units of the 32 edges c0 .. c0 + 31, in order: groups of
+// 8, the next group's reads in flight while one group is added (the chain of
+// dependent adds is the floor); `at` points at edge c0's unit and
+// consecutive edges lie `stride` units apart.
+__device__ __forceinline__ void tile_run(const float4* at, int stride, float4& acc) {
+  constexpr int G = 8;
+  float4 x[G], y[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) x[k] = at[k * stride];
+#pragma unroll
+  for (int g = 0; g < 32; g += 2 * G) {
+#pragma unroll
+    for (int k = 0; k < G; ++k) y[k] = at[(g + G + k) * stride];
+#pragma unroll
+    for (int k = 0; k < G; ++k) tile_add(acc, x[k]);
+    if (g + 2 * G < 32) {
+#pragma unroll
+      for (int k = 0; k < G; ++k) x[k] = at[(g + 2 * G + k) * stride];
+    }
+#pragma unroll
+    for (int k = 0; k < G; ++k) tile_add(acc, y[k]);
+  }
+}
+
+// acc += the staged units of the edges c0 + j for the set bits j of `bits`,
+// in order: a run of 32 where every bit is set, else TILE_BATCH reads at a
+// time.
+__device__ __forceinline__ void tile_chunk(unsigned bits, const float4* at, int stride,
+                                           float4& acc) {
+  if (bits == ~0u) {
+    tile_run(at, stride, acc);
+    return;
+  }
+  while (bits != 0u) {
+    int j[TILE_BATCH];
+#pragma unroll
+    for (int k = 0; k < TILE_BATCH; ++k) {
+      j[k] = __ffs(bits) - 1;  // -1 once the bits run out
+      bits &= bits - 1;
+    }
+    float4 v[TILE_BATCH];
+#pragma unroll
+    for (int k = 0; k < TILE_BATCH; ++k) v[k] = at[max(j[k], 0) * stride];  // unconditional
+#pragma unroll
+    for (int k = 0; k < TILE_BATCH; ++k) {
+      if (j[k] >= 0) tile_add(acc, v[k]);
+    }
+  }
+}
+
+// acc += the staged units of the n consecutive edges at `at`, in order: runs
+// of 32, then TILE_BATCH reads at a time.
+__device__ __forceinline__ void tile_range(const float4* at, int stride, int n, float4& acc) {
+  int i = 0;
+  for (; i + 32 <= n; i += 32) tile_run(at + i * stride, stride, acc);
+  for (; i < n; i += TILE_BATCH) {
+    float4 v[TILE_BATCH];
+#pragma unroll
+    for (int k = 0; k < TILE_BATCH; ++k) v[k] = at[min(i + k, n - 1) * stride];  // unconditional
+#pragma unroll
+    for (int k = 0; k < TILE_BATCH; ++k) {
+      if (i + k < n) tile_add(acc, v[k]);
+    }
+  }
+}
+
+// A unit of sums to out: one 16-byte store where WIDE, else the columns
+// [col, min(col + 4, F)).
+template <bool WIDE>
+__device__ __forceinline__ void tile_store(float* __restrict__ out, int col, int F,
+                                           const float4 acc) {
+  if constexpr (WIDE) {
+    *reinterpret_cast<float4*>(out + col) = acc;
+  } else {
+    const float a[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (col + c < F) out[col + c] = a[c];
+    }
+  }
+}
+
+// K3 on a molecule-sized graph: a tile of at most TILE_K3_ROWS rows. masks[c][q]
+// holds bit j where edge 32c + j has id r0 + q; warp 0 turns them into each
+// row's start among the tile's edges sorted by (row, edge) and each chunk's
+// offset within its row (pre[c][q]); every edge copies its units to its
+// place (sorted), and a thread per (row, unit) adds its row's run of units
+// in order. An id outside [0, N) traps (every block checks every id).
+template <typename T, bool WIDE>
+__global__ void __launch_bounds__(TILE_THREADS)
+scatter_tile_kernel(const T* __restrict__ rows, const int* __restrict__ ids,
+                    float* __restrict__ out, int E, int N, int F, int su, int slice_rows, int nch,
+                    int vals_at) {
+  extern __shared__ int tile_smem[];
+  const int b = blockIdx.z;
+  const int u0 = blockIdx.x * su, nu = min((F + 3) / 4 - u0, su);
+  const int r0 = blockIdx.y * slice_rows, nr = min(N - r0, slice_rows);
+  unsigned* masks = reinterpret_cast<unsigned*>(tile_smem);      // [nch][nr]
+  int* pre = tile_smem + nch * slice_rows;                         // [nch][nr]
+  int* start = pre + nch * slice_rows;                             // [nr + 1]
+  float4* vals = reinterpret_cast<float4*>(tile_smem + vals_at);   // [E][su]
+  float4* sorted = vals + E * su;                                  // [E][su]
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const int* ids_b = ids + (int64_t)b * E;
+
+  constexpr int PER = TILE_EDGES / TILE_MIN_THREADS;
+  int q[PER];  // edge tid + k * nt's row in the tile, -1 outside it
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int e = tid + k * nt;
+    q[k] = e < E ? ids_b[e] : 0;
+  }
+  tile_stage<WIDE>(rows + (int64_t)b * E * F, E, F, u0, su, nu, reinterpret_cast<float*>(vals));
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    // nt is a multiple of 32: chunk c of 32 edges is one warp's, and so are
+    // its words masks[c][*]
+    const int e = tid + k * nt, c = e >> 5;
+    if (c < nch) {  // the same for the whole warp
+      for (int r = lane; r < nr; r += 32) masks[c * nr + r] = 0u;
+      int rel = -1;
+      if (e < E) {
+        // an id outside [0, N) stops the kernel, as the plain version raises
+        if ((unsigned)q[k] >= (unsigned)N) __trap();
+        rel = q[k] - r0 >= 0 && q[k] - r0 < nr ? q[k] - r0 : -1;
+      }
+      q[k] = rel;
+      const int q0 = __shfl_sync(0xffffffffu, rel, 0);
+      const bool one_row = __all_sync(0xffffffffu, rel == q0);
+      __syncwarp();  // the zeros land before any bit
+      if (one_row) {
+        if (lane == 0 && q0 >= 0) masks[c * nr + q0] = ~0u;
+      } else if (rel >= 0) {
+        atomicOr(&masks[c * nr + rel], 1u << lane);
+      }
+    } else {
+      q[k] = -1;
+    }
+  }
+  __syncthreads();
+  if (tid < 32) {  // lane r: row r's count, its chunks' offsets; the rows scanned
+    int run = 0;
+#pragma unroll
+    for (int c = 0; c < TILE_EDGES / 32; ++c) {
+      if (c < nch) {
+        const unsigned m = lane < nr ? masks[c * nr + lane] : 0u;
+        if (lane < nr) pre[c * nr + lane] = run;
+        run += __popc(m);
+      }
+    }
+    int inc = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += x;
+    }
+    if (lane < nr) start[lane] = inc - run;
+    if (lane == 31) start[nr] = inc;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    if (q[k] >= 0) {
+      const int e = tid + k * nt, c = e >> 5, w = c * nr + q[k];
+      const int at = start[q[k]] + pre[w] + __popc(masks[w] & lanemask_lt());
+      for (int u = 0; u < nu; ++u) sorted[at * su + u] = vals[e * su + u];
+    }
+  }
+  __syncthreads();
+
+  // a thread per (row, unit): the row's run of sorted units, in order
+  float* out_b = out + ((int64_t)b * N + r0) * F;
+  for (int l = tid; l < nr * nu; l += nt) {
+    const int r = l / nu, u = l - r * nu;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    tile_range(sorted + start[r] * su + u, su, start[r + 1] - start[r], acc);
+    tile_store<WIDE>(out_b + (int64_t)r * F, (u0 + u) * 4, F, acc);
+  }
+}
+
+// K1 (MASKED) and K8 on a molecule-sized graph: start[q] is the first edge
+// of row r0 + q (start[nr] the first past the tile's rows), from the edges
+// where the sorted dst steps; real[c] holds bit j where edge 32c + j is real.
+template <typename T, bool WIDE, bool MASKED>
+__global__ void __launch_bounds__(TILE_THREADS)
+segment_tile_kernel(const T* __restrict__ msgs, const int* __restrict__ dst,
+                    const uint8_t* __restrict__ mask, float* __restrict__ out, int E, int N,
+                    int F, int su, int slice_rows, int nch, int vals_at) {
+  extern __shared__ int tile_smem[];
+  const int b = blockIdx.z;
+  const int u0 = blockIdx.x * su, nu = min((F + 3) / 4 - u0, su);
+  const int r0 = blockIdx.y * slice_rows, nr = min(N - r0, slice_rows);
+  int* start = tile_smem;                                              // [nr + 1]
+  unsigned* real = reinterpret_cast<unsigned*>(tile_smem + slice_rows + 1);  // [nch]
+  const float4* vals = reinterpret_cast<const float4*>(tile_smem + vals_at);  // [E][su]
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const int* dst_b = dst + (int64_t)b * E;
+
+  constexpr int PER = TILE_EDGES / TILE_MIN_THREADS;
+  int d[PER], dp[PER];  // edge tid + k * nt's row and the previous edge's
+  bool m[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int e = tid + k * nt;
+    d[k] = e < E ? dst_b[e] : 0;
+    dp[k] = e < E && e > 0 ? dst_b[e - 1] : -1;
+    m[k] = e < E && (!MASKED || mask[(int64_t)b * E + e] != 0);
+  }
+  tile_stage<WIDE>(msgs + (int64_t)b * E * F, E, F, u0, su, nu, reinterpret_cast<float*>(
+      tile_smem + vals_at));
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int e = tid + k * nt;
+    // nt is a multiple of 32: a warp's lanes hold the 32 edges of one chunk
+    const unsigned bits = __ballot_sync(0xffffffffu, m[k]);
+    if (lane == 0 && (e >> 5) < nch) real[e >> 5] = bits;
+    if (e < E) {
+      // edge e starts the rows (dst[e - 1], dst[e]]; the last edge ends the
+      // rows after it at E; each row of the tile (and its end, nr) is
+      // written once
+      const int hi = e == E - 1 ? N : min(d[k], N);
+      for (int r = max(dp[k] + 1, r0); r <= min(hi, r0 + nr); ++r)
+        start[r - r0] = r <= d[k] ? e : E;
+    }
+  }
+  if (E == 0) {
+    for (int q = tid; q <= nr; q += nt) start[q] = 0;
+  }
+  __syncthreads();
+
+  float* out_b = out + ((int64_t)b * N + r0) * F;
+  for (int l = tid; l < nr * nu; l += nt) {
+    const int q = l / nu, u = l - q * nu;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    // the real edges of [start[q], start[q + 1]), chunk by chunk
+    const int lo = start[q], hi = start[q + 1];
+    for (int c = lo >> 5; c < (hi + 31) >> 5; ++c) {
+      unsigned bits = real[c];
+      if (c == lo >> 5) bits &= ~0u << (lo & 31);
+      if (c == hi >> 5) bits &= (1u << (hi & 31)) - 1u;
+      tile_chunk(bits, vals + (c * 32) * su + u, su, acc);
+    }
+    tile_store<WIDE>(out_b + (int64_t)q * F, (u0 + u) * 4, F, acc);
+  }
+}
+
+// Whether the tile kernels load and store whole units: F splits into them,
+// rows sit on 4 elements and out on 16 bytes.
+template <typename T>
+bool tile_wide(const void* rows, const void* out, int F) {
+  return F % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % (4 * sizeof(T)) == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+}
+
+template <typename T, bool WIDE>
+int k3_launch_tile(const void* rows, const void* ids, void* out, int B, int E, int N, int F,
+                   cudaStream_t s) {
+  const TilePlan p = tile_plan(B, E, N, F, WIDE, true);
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        scatter_tile_kernel<T, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, TILE_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  scatter_tile_kernel<T, WIDE><<<dim3(p.col_slices, p.row_slices, B), p.threads,
+                                 (size_t)p.bytes, s>>>(
+      static_cast<const T*>(rows), static_cast<const int*>(ids), static_cast<float*>(out), E, N,
+      F, p.su, p.slice_rows, p.nch, p.vals_at);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool WIDE, bool MASKED>
+int k1_launch_tile(const void* msgs, const void* dst, const void* mask, void* out, int B, int E,
+                   int N, int F, cudaStream_t s) {
+  const TilePlan p = tile_plan(B, E, N, F, WIDE, false);
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(segment_tile_kernel<T, WIDE, MASKED>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 TILE_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  segment_tile_kernel<T, WIDE, MASKED><<<dim3(p.col_slices, p.row_slices, B), p.threads,
+                                         (size_t)p.bytes, s>>>(
+      static_cast<const T*>(msgs), static_cast<const int*>(dst),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), E, N, F, p.su, p.slice_rows,
+      p.nch, p.vals_at);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int k3_tile(const void* rows, const void* ids, void* out, int B, int E, int N, int F,
+            cudaStream_t s) {
+  return tile_wide<T>(rows, out, F) ? k3_launch_tile<T, true>(rows, ids, out, B, E, N, F, s)
+                                    : k3_launch_tile<T, false>(rows, ids, out, B, E, N, F, s);
+}
+
+template <typename T, bool MASKED>
+int k1_tile(const void* msgs, const void* dst, const void* mask, void* out, int B, int E, int N,
+            int F, cudaStream_t s) {
+  return tile_wide<T>(msgs, out, F)
+             ? k1_launch_tile<T, true, MASKED>(msgs, dst, mask, out, B, E, N, F, s)
+             : k1_launch_tile<T, false, MASKED>(msgs, dst, mask, out, B, E, N, F, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // K1's kernel for B graphs of E edges into N rows of F columns: 0 the narrow
 // kernel (rows of at most K1_NARROW_F columns of a graph that one block
-// holds), 1 segment_small_kernel (a graph that one block stages), 2
+// holds), 1 segment_tile_kernel (a molecule-sized graph), 2
 // segment_walk_kernel (the rest).
 int k1_route(int B, int E, int N, int F) {
   if (F >= 1 && F <= K1_NARROW_F && narrow_fits(narrow_plan(B, E, N, F, false), E)) return 0;
@@ -1932,6 +2316,10 @@ int k1_segment_sum_sorted(const void* msgs, const void* dst, const void* mask, v
     return msgs_bf16
                ? k1_narrow_width<__nv_bfloat16, K1_NARROW_F>(msgs, dst, mask, out, B, E, N, F, s)
                : k1_narrow_width<float, K1_NARROW_F>(msgs, dst, mask, out, B, E, N, F, s);
+  }
+  if (walk_small_fits(E, N, F)) {
+    return msgs_bf16 ? k1_tile<__nv_bfloat16, true>(msgs, dst, mask, out, B, E, N, F, s)
+                     : k1_tile<float, true>(msgs, dst, mask, out, B, E, N, F, s);
   }
   return msgs_bf16 ? walk_launch<__nv_bfloat16, true>(msgs, dst, mask, out, B, E, N, F, s)
                    : walk_launch<float, true>(msgs, dst, mask, out, B, E, N, F, s);
@@ -2035,17 +2423,20 @@ int k3_scatter_csr(const void* ids, void* ws, int B, int E, int N, void* stream)
 
 // K3's kernels for B graphs of E ids into N rows of F columns: 0 the narrow
 // kernel (rows of at most K3_NARROW_F columns of a graph that one block
-// holds), 1 scatter_small_kernel (a graph whose rows and CSR fit one block),
-// 2 scatter_csr_kernel then scatter_sum_kernel (the rest).
+// holds), 3 scatter_tile_kernel (a molecule-sized graph), 1
+// scatter_small_kernel (another graph whose rows and CSR fit one block), 2
+// scatter_csr_kernel then scatter_sum_kernel (the rest).
 int k3_route(int B, int E, int N, int F) {
   if (F >= 1 && F <= K3_NARROW_F && narrow_fits(narrow_plan(B, E, N, F, true), E)) return 0;
+  if (walk_small_fits(E, N, F)) return 3;
   return k3_small_bytes(E, N, F) != 0 ? 1 : 2;
 }
 
 // rows [B, E, F] f32 (rows_bf16 == 0) or bf16 (rows_bf16 != 0), ids [B, E]
 // int32 in [0, N) in any order, ws as k3_scatter_csr's, out [B, N, F] f32.
-// All contiguous. One launch on the narrow kernel and where a graph fits a
-// block's shared memory, else two: the CSR build, then the row sums.
+// All contiguous. One launch on the narrow and tile kernels and where a
+// graph fits a block's shared memory, else two: the CSR build, then the row
+// sums.
 int k3_scatter_rows(const void* rows, const void* ids, void* ws, void* out, int B, int E, int N,
                     int F, int rows_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -2054,6 +2445,10 @@ int k3_scatter_rows(const void* rows, const void* ids, void* ws, void* out, int 
     return rows_bf16
                ? k3_narrow_width<__nv_bfloat16, K3_NARROW_F>(rows, ids, out, B, E, N, F, s)
                : k3_narrow_width<float, K3_NARROW_F>(rows, ids, out, B, E, N, F, s);
+  }
+  if (route == 3) {
+    return rows_bf16 ? k3_tile<__nv_bfloat16>(rows, ids, out, B, E, N, F, s)
+                     : k3_tile<float>(rows, ids, out, B, E, N, F, s);
   }
   if (route == 1) {
     const size_t small = k3_small_bytes(E, N, F);
@@ -2086,8 +2481,11 @@ int k7_gather_windowed(const void* table, const void* idx, void* out, int B, int
 // out [B, N, F] f32. All contiguous.
 int k8_segment_sum_2d(const void* msgs, const void* dst, void* out, int B, int E, int N, int F,
                       void* stream) {
-  return walk_launch<float, false>(msgs, dst, nullptr, out, B, E, N, F,
-                                   static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (walk_small_fits(E, N, F)) {
+    return k1_tile<float, false>(msgs, dst, nullptr, out, B, E, N, F, s);
+  }
+  return walk_launch<float, false>(msgs, dst, nullptr, out, B, E, N, F, s);
 }
 
 }  // extern "C"

@@ -32,9 +32,9 @@ LAUNCHES = {K1: 0, K2: 0, K3: 0, K7: 0, K8: 0}
 # the bytes each kernel\'s launches read and wrote (build.count_launch)
 BYTES = dict.fromkeys(LAUNCHES, 0)
 # K1's and K3's kernels by route, as csrc/segment.cu's k1_route and k3_route
-# number them
-K1_ROUTES = ("narrow", "small", "walk")
-K3_ROUTES = ("narrow", "small", "csr + sum")
+# number them ("tiles": the tile kernels of a molecule-sized graph)
+K1_ROUTES = ("narrow", "tiles", "walk")
+K3_ROUTES = ("narrow", "small", "csr + sum", "tiles")
 # the K1 and K3 launches that took the narrow kernel (rows of one or two
 # columns), eager calls and captures; a graph replay adds nothing here
 NARROW_LAUNCHES = {K1: 0, K3: 0}
@@ -111,17 +111,20 @@ def _route(name: str, b: int, e: int, n: int, f: int) -> int:
 def k1_route(b: int, e: int, n: int, f: int) -> str:
     """Which of K1's kernels (K1_ROUTES) sums B graphs of E edges into N rows
     of F columns: the narrow kernel (rows of one or two columns of a graph
-    that one block holds), segment_small_kernel or segment_walk_kernel. The
-    rule is csrc/segment.cu's ``k1_route``. Builds the library."""
+    that one block holds), segment_tile_kernel (a molecule-sized graph: at
+    most 512 edges, 1,024 rows and 16,384 message values) or
+    segment_walk_kernel. The rule is csrc/segment.cu's ``k1_route``. Builds
+    the library."""
     return K1_ROUTES[_route(K1, b, e, n, f)]
 
 
 def k3_route(b: int, e: int, n: int, f: int) -> str:
     """Which of K3's kernels (K3_ROUTES) scatters B graphs of E rows of F
     columns into N rows: the narrow kernel (rows of one or two columns of a
-    graph that one block holds), scatter_small_kernel or the CSR build and
-    the row sums. The rule is csrc/segment.cu's ``k3_route``. Builds the
-    library."""
+    graph that one block holds), scatter_tile_kernel (a molecule-sized graph,
+    as K1's), scatter_small_kernel (another graph that one block holds) or
+    the CSR build and the row sums. The rule is csrc/segment.cu's
+    ``k3_route``. Builds the library."""
     return K3_ROUTES[_route(K3, b, e, n, f)]
 
 
@@ -148,9 +151,11 @@ def segment_sum_sorted(msgs: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor
     (the padding row N-1) goes to its whole block, which skips its masked
     edges a pass of 4096 at a time. Rows of one or two columns (``k1_route``)
     take the narrow kernel instead: a block per slice of a graph's rows keeps
-    their real edges in edge order and a thread adds each row. Every row is
-    summed in f32 in edge order, so the result equals the plain version's on
-    the CPU bit for bit.
+    their real edges in edge order and a thread adds each row. Wider rows of
+    a molecule-sized graph take the tile kernel: a block per (column slice,
+    row slice) stages the graph in its columns and a thread per (row,
+    columns) adds the row's real edges. Every row is summed in f32 in edge
+    order, so the result equals the plain version's on the CPU bit for bit.
 
     Replaces caster_dta_tpu/ops/pallas_segment.py::_segment_kernel_t
     (via pallas_segment_sum). Bound by memory bytes on the H100."""
@@ -345,12 +350,16 @@ def scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num_segments: int) -> to
     of the narrow kernel: a block per slice of a graph's rows lays each row's
     values out in edge order and a thread adds each row (an edge whose
     values are all +-0 is left out: it would not move the sum's bits).
-    Wider rows take one launch where a graph's rows, ids and CSR fit one
-    block's shared memory (the molecule graphs), else two: the stable CSR of
-    the ids (``scatter_csr``), then the row sums over it, a warp per row of
-    at most ``K3_LONG`` ids and a block per longer row. Every row is summed
-    in edge order, so the result equals the plain version's on the CPU bit
-    for bit.
+    Wider rows of a molecule-sized graph take one launch of the tile kernel
+    (a block per column slice and slice of at most 32 rows stages the
+    graph's ids and its columns of the rows, sorts the edges by (row, edge)
+    from bit words of each row's edges a chunk of 32, and a thread per (row,
+    columns) adds its row's run in order); other graphs one launch where a
+    graph's rows, ids and CSR fit one block's shared memory, else two: the
+    stable CSR of the ids (``scatter_csr``), then the row sums over it, a
+    warp per row of at most ``K3_LONG`` ids and a block per longer row.
+    Every row is summed in edge order, so the result equals the plain
+    version's on the CPU bit for bit.
 
     An id outside [0, N) raises IndexError on the CPU and stops the kernel on
     the card, as K2 does.
@@ -373,9 +382,11 @@ def scatter_rows(rows: torch.Tensor, ids: torch.Tensor, num_segments: int) -> to
     if out.numel() == 0:
         return out
     lib = load_library().lib
-    narrow = _route(K3, b, e, num_segments, f) == 0
-    # the narrow kernel needs no workspace
-    ws = torch.empty(0 if narrow else lib.k3_workspace_ints(b, e, num_segments),
+    route = K3_ROUTES[_route(K3, b, e, num_segments, f)]
+    narrow = route == "narrow"
+    # the narrow and tile kernels need no workspace
+    ws = torch.empty(0 if route in ("narrow", "tiles") else
+                     lib.k3_workspace_ints(b, e, num_segments),
                      dtype=torch.int32, device=rows.device)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream

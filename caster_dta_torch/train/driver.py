@@ -41,6 +41,7 @@ import numpy as np
 from caster_dta_torch.data.batching import BucketedLoader, dataset_budgets
 from caster_dta_torch.data.datasets import load_dataset
 from caster_dta_torch.data.pairs import ProteinMoleculeDataset
+from caster_dta_torch.device import pin_mkl_code_path
 from caster_dta_torch.inference.checkpoint import (build_model, load_model_from_checkpoint,
                                                    content_hash)
 from caster_dta_torch.train import checkpoints
@@ -381,4 +382,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    pin_mkl_code_path()
     main()

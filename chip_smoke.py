@@ -42,7 +42,10 @@ Phases, each printed before it starts and after it ends with its wall time:
    also at the model zoo's row widths (ZOO_WIDTHS: 1, 2, 21, 2 x 16,
    2 x 64) on the flagship protein graph and (ZOO_MOLECULE_WIDTHS: 1, 2,
    59) on its molecule graph, bit for bit as above (K1 and K3 at 1 and 2 on
-   their narrow kernels).
+   their narrow kernels). K1 also at the evaluate phase's molecule graphs
+   (``evaluate_molecule_cases``: EVAL_BATCH graphs of 48 and 128 rows, 51
+   and 16 columns), bit for bit the CPU's; the molecule graphs take K1's
+   and K3's tile kernels (``k1_route``, ``k3_route`` name them).
 4. serve: loads the trained ``runs/davis_seed9`` model onto the card, answers
    seeded synthetic requests at two buckets twice: eagerly
    (``predict(eager=True)``) and as CUDA-graph replays fed from a pinned
@@ -98,7 +101,8 @@ Phases, each printed before it starts and after it ends with its wall time:
    and bf16, and on edge cases (repeated ids, all ids on one row, empty rows,
    E and N off any block, N = 6000) and on segment_softmax's own cotangents
    (``softmax_cotangent_cases``: +-0 on the masked edges, which the narrow
-   kernel leaves out), within K3_RTOL/K3_ATOL and bit for bit;
+   kernel leaves out) and at the evaluate phase's molecule graphs
+   (``evaluate_molecule_cases``), within K3_RTOL/K3_ATOL and bit for bit;
    a second call must give the first call's bits, and K3's CSR launch alone
    (``scatter_csr``) must give ``scatter_csr_plain``'s row_ptr and perm.
 8. autograd: gather_nodes and segment_sum (ops/segment.py) at the flagship
@@ -161,7 +165,9 @@ Phases, each printed before it starts and after it ends with its wall time:
    device time, its scatter_reduce kernels (launches and time) and
    segment_softmax's pieces; bf16 Adam steps eager against graph replays
    from a store, bit for bit, and scatter_reduce's launches per step; the
-   replayed step's time; one f32 step's gradients card vs CPU;
+   replayed step's time; one f32 step's gradients card vs CPU (where a
+   gradient's sum cancels, against f64 with the CPU's f32 on MKL's native
+   code path as the yardstick: ``--native-mkl-grads`` children);
    zoo-lba-gps, and zoo-gatv2-gine with batch norm, served only, which the
    Trainer refuses; on zoo-cpd-gatv2 and zoo-lba-pna the explainer
    (replayed and eager bit for bit, the first batch against the CPU); on
@@ -187,7 +193,9 @@ Phases, each printed before it starts and after it ends with its wall time:
 14. times: first an empty kernel's replay time (the floor of one launch);
    then each kernel (K3 also at the large protein's merged backward; K1,
    K2 and K3 also at the zoo's row widths on the flagship graph, and K3 on
-   segment_softmax's own cotangents; each K1 and K3 line names its route,
+   segment_softmax's own cotangents; K1 on the flagship molecule graphs also
+   with bf16 messages, and K1 and K3 at the evaluate phase's molecule graphs,
+   f32 and bf16, label "evaluate"; each K1 and K3 line names its route,
    ``cuda_segment.k1_route`` / ``k3_route``), its
    plain version and the one PyTorch call that
    computes the same function, replayed from CUDA graphs and timed with CUDA
@@ -208,7 +216,9 @@ Phases, each printed before it starts and after it ends with its wall time:
 Every CPU reference that a card result is held against is computed twice
 and taken only when the two runs give the same bits (``cpu_reference``); when
 they differ, both answers go to a file in ``$CHIP_SMOKE_OUT`` (default
-``chip_smoke_out/``) and their first tensors to stderr.
+``chip_smoke_out/``) and their first tensors to stderr. The script pins
+MKL's code path (``MKL_CBWR=COMPATIBLE`` unless set) before its main and its
+rank children, as the port's entry points do.
 
 Any failure raises and the script exits non-zero. On success the line before
 the last is ``{"kernels": [...]}``, whose launch counts are each kernel's over
@@ -755,10 +765,11 @@ def event_times_ms(torch, fn, reps: int = 20, warmup: int = 3) -> list:
 
 
 KERNEL_GROUPS = (("K4 attention", "masked_mha"),
-                 ("K1 segment-sum", "segment_walk"), ("K1 segment-sum", "segment_small"),
+                 ("K1 segment-sum", "segment_walk"), ("K1 segment-sum", "segment_tile"),
                  ("K2 gather", "gather_rows"),
                  ("K3 scatter", "scatter_csr"), ("K3 scatter", "scatter_sum"),
-                 ("K3 scatter", "scatter_small"), ("K5 fwd", "message_fwd"),
+                 ("K3 scatter", "scatter_small"), ("K3 scatter", "scatter_tile"),
+                 ("K5 fwd", "message_fwd"),
                  ("K5 bwd", "message_bwd"), ("K5 bwd sum", "reduce_rows"),
                  ("K6 copy-cast", "cast_vec"), ("K6 copy-cast", "cast_copy"), ("matmul", "gemm"),
                  ("layernorm", "layer_norm"), ("concat", "CatArray"), ("softmax", "softmax"),
@@ -845,6 +856,32 @@ def edge_cases(torch, gen, dev="cuda"):
         mask[:, :e_real] = True
         msgs = torch.randn(b, e_pad, f, generator=gen, device=dev)
         out.append((f"B{b} N{n} E{e_pad} F{f}, {e_real} real edges", msgs, dst, mask, n))
+    return out
+
+
+# the molecule pads of the evaluate phase's batches (EVAL_DATA's molecules in
+# MOLECULE_NODE_LADDER's buckets), where the explainer's f32 backward runs K3
+EVAL_MOLECULE_PADS = ((48, 256), (128, 256))
+
+
+def evaluate_molecule_cases(torch, gen, dev="cuda"):
+    """K1 and K3 inputs at the evaluate phase's molecule graphs (EVAL_BATCH
+    graphs, EVAL_MOLECULE_PADS): the GINE aggregations and the x_j gathers'
+    cotangents at 51 and 16 columns -> {"K1": [...], "K3": [...]}, as
+    kernel_cases and k3_cases give them."""
+    from caster_dta_torch.data.batching import synthetic_pair_batch
+
+    out = {"K1": [], "K3": []}
+    for i, (n_m, e_m) in enumerate(EVAL_MOLECULE_PADS):
+        m = synthetic_pair_batch(EVAL_BATCH, 128, 1024, n_m, e_m, seed=90 + i).molecule.to(dev)
+        for f in (51, 16):
+            label = f"evaluate molecule N={n_m}"
+            out["K1"].append((f"{label} aggregation, F={f}",
+                              torch.randn(EVAL_BATCH, e_m, f, generator=gen, device=dev),
+                              m.edge_dst, m.edge_mask, n_m))
+            out["K3"].append((f"{label} backward, F={f}",
+                              torch.randn(EVAL_BATCH, e_m, f, generator=gen, device=dev),
+                              m.edge_src, n_m))
     return out
 
 
@@ -1400,7 +1437,59 @@ def check_records(tag: str, card: dict, cpu: dict, what: str,
         raise AssertionError(f"{tag}: card vs CPU beyond tolerance in {beyond}")
 
 
-def check_step_grads(torch, tag: str, make_model, batch, exact: bool = False) -> None:
+def step_gradients(torch, make_model, batch, dev, dtype=None):
+    """One step's gradients (``Trainer.loss``) of ``make_model(dev)`` on
+    ``batch`` in ``dtype`` (default f32), dropout off -> {name: gradient}."""
+    import dataclasses
+
+    from caster_dta_torch.data.graphs import GraphBatch
+    from caster_dta_torch.train.loop import Trainer, TrainConfig
+
+    dtype = dtype or torch.float32
+
+    def cast(x):
+        if isinstance(x, GraphBatch):
+            return GraphBatch(**{f.name: cast(getattr(x, f.name))
+                                 for f in dataclasses.fields(GraphBatch)})
+        return x.to(dtype) if x.is_floating_point() else x
+
+    m = make_model(dev).to(dtype)
+    params = dict(m.named_parameters())
+    b = dataclasses.replace(batch.to(dev), **{k: cast(getattr(batch.to(dev), k))
+                                              for k in ("protein", "molecule", "target",
+                                                        "weight")})
+    loss, _ = Trainer(m, TrainConfig(), device=dev).loss(b)
+    return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+
+def zoo_request(name: str, seed: int):
+    """The zoo phase's request of ``seed`` for configuration ``name``."""
+    from caster_dta_torch.data.batching import synthetic_pair_batch
+
+    scalar = isinstance(zoo_configs()[name]["protein_gnn_kwargs"]["in_channels"], int)
+    return synthetic_pair_batch(**FLAGSHIP, seed=seed, scalar_protein=scalar)
+
+
+def native_mkl_grads(torch, name: str, seed: int) -> dict:
+    """A zoo configuration's f32 step gradients on the CPU (``step_gradients``,
+    seeded init, ``zoo_request(name, seed)``) computed in a child process
+    (``chip_smoke.py --native-mkl-grads``) on MKL's own choice of code path:
+    this script pins MKL's path for its CPU references, and on a sum that
+    cancels the pinned path can land closer to f64 than f32 on MKL's native
+    path, the card's cuBLAS or the runs before the pin do."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "grads.pt")
+        env = {k: v for k, v in os.environ.items() if k != "MKL_CBWR"}
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--native-mkl-grads",
+                            name, str(seed), out], env=env, capture_output=True, text=True,
+                           timeout=MD_TIMEOUT_S)
+        if r.returncode != 0:
+            raise RuntimeError(f"native-MKL gradients of {name}: {r.stderr[-2000:]}")
+        return torch.load(out)
+
+
+def check_step_grads(torch, tag: str, make_model, batch, exact: bool = False,
+                     native=None) -> None:
     """One f32 step's gradients, card vs CPU, same weights and batch, dropout
     off (the two devices' generators differ): ``make_model(device)`` gives
     the model in eval mode. Each gradient is held to STEP_GRAD_RTOL of its
@@ -1408,26 +1497,11 @@ def check_step_grads(torch, tag: str, make_model, batch, exact: bool = False) ->
     ``exact``, a gradient beyond that is held instead against the same step
     in f64 on the CPU: the card may be no farther from it than the CPU's f32
     gradient is, plus the same bound (a sum that cancels leaves more f32
-    rounding than the bound on either device)."""
-    import dataclasses
-
-    from caster_dta_torch.data.graphs import GraphBatch
-    from caster_dta_torch.train.loop import Trainer, TrainConfig
-
-    def cast(x, dtype):
-        if isinstance(x, GraphBatch):
-            return GraphBatch(**{f.name: cast(getattr(x, f.name), dtype)
-                                 for f in dataclasses.fields(GraphBatch)})
-        return x.to(dtype) if x.is_floating_point() else x
-
-    def step_grads(dev, dtype=torch.float32):
-        m = make_model(dev).to(dtype)
-        params = dict(m.named_parameters())
-        b = dataclasses.replace(batch.to(dev), **{k: cast(getattr(batch.to(dev), k), dtype)
-                                                  for k in ("protein", "molecule", "target",
-                                                            "weight")})
-        loss, _ = Trainer(m, TrainConfig(), device=dev).loss(b)
-        return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    rounding than the bound on either device); ``native()`` gives that f32
+    gradient on MKL's native code path (``native_mkl_grads``), as the
+    reference of every run before this script pinned MKL's path."""
+    def step_grads(dev, dtype=None):
+        return step_gradients(torch, make_model, batch, dev, dtype)
 
     grads = {"cuda": step_grads("cuda"),
              "cpu": cpu_reference(torch, lambda: step_grads("cpu"),
@@ -1456,9 +1530,11 @@ def check_step_grads(torch, tag: str, make_model, batch, exact: bool = False) ->
     if over:
         f64 = cpu_reference(torch, lambda: step_grads("cpu", torch.float64),
                             f"{tag}f64 step gradients")
+        f32 = grads["cpu"] if native is None else cpu_reference(
+            torch, native, f"{tag}f32 step gradients on MKL's native path")
         for name, bound in over.items():
             card = (grads["cuda"][name].cpu().double() - f64[name]).abs().max().item()
-            cpu = (grads["cpu"][name].double() - f64[name]).abs().max().item()
+            cpu = (f32[name].double() - f64[name]).abs().max().item()
             scale = f64[name].abs().max().item()
             print(f"{tag}f32 gradient of {name} (max|g| {scale:.3e}): card vs CPU beyond "
                   f"{bound:.3e}; against the f64 step on the CPU: card max|d| {card:.3e}, CPU "
@@ -1744,8 +1820,7 @@ def zoo_phase(torch, train_launches: dict) -> None:
     for name, kw in configs.items():
         t0 = time.perf_counter()
         scalar = isinstance(kw["protein_gnn_kwargs"]["in_channels"], int)
-        reqs = [synthetic_pair_batch(**FLAGSHIP, seed=100 + i, scalar_protein=scalar)
-                for i in range(ZOO_REQUESTS)]
+        reqs = [zoo_request(name, 100 + i) for i in range(ZOO_REQUESTS)]
         run = serve(name, kw, reqs)
         device_shares(name, run, reqs[0], kw)
         if name == "zoo-lba-gps":
@@ -1757,7 +1832,7 @@ def zoo_phase(torch, train_launches: dict) -> None:
         mega = store_for(scalar)
         train(name, kw, mega, remat=name == "zoo-cpd-gatv2")
         check_step_grads(torch, f"{name} ", lambda dev: build_model(kw).to(dev).eval(), reqs[0],
-                         exact=True)
+                         exact=True, native=lambda: native_mkl_grads(torch, name, 100))
 
         if name in ("zoo-cpd-gatv2", "zoo-lba-pna"):
             # the explainer: each bucket and tower's 10-step loop one CUDA graph
@@ -2629,6 +2704,8 @@ def main() -> int:
     # case's inputs stay as they were before them
     zoo_gen = torch.Generator(device="cuda")
     zoo_gen.manual_seed(17)
+    eval_gen = torch.Generator(device="cuda")   # the evaluate batches' molecule cases
+    eval_gen.manual_seed(23)
     requests = [(f"flagship #{i}", synthetic_pair_batch(**FLAGSHIP, seed=i))
                 for i in range(N_REQUESTS_FLAGSHIP)]
     requests.append(("davis", synthetic_pair_batch(**DAVIS, seed=N_REQUESTS_FLAGSHIP)))
@@ -2717,6 +2794,17 @@ def main() -> int:
                       f"N={n}, longest dst range {longest_range(dst)}: bit for bit the CPU's "
                       f"plain version, the same bits twice; against the plain version on the "
                       f"card max_abs_err {card_err:.3e}")
+        # the explainer's evaluate batches: molecule graphs of 48 and 128
+        # rows, 8 a batch (a generator of their own: the phase's later draws
+        # stay as they were)
+        for name, msgs, dst, mask, n in evaluate_molecule_cases(torch, eval_gen)["K1"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                b, e, f = msgs.shape
+                _, card_err = check_k1(name, msgs.to(dtype), dst, mask, n)
+                print(f"K1 {name} {str(dtype)[6:]}: msgs {tuple(msgs.shape)} -> N={n}, route "
+                      f"{cs.k1_route(b, e, n, f)}: bit for bit the CPU's plain version, the "
+                      f"same bits twice; against the plain version on the card max_abs_err "
+                      f"{card_err:.3e}")
         for name, msgs, dst, mask, n in edge_cases(torch, gen):
             for dtype in (torch.float32, torch.bfloat16):
                 m = msgs.to(dtype)
@@ -3155,6 +3243,8 @@ def main() -> int:
             check_k3(f"{requests[0][0]} {name}", rows, ids, n)
         for name, rows, ids, n in softmax_cotangent_cases(torch, requests[0][1], zoo_gen):
             check_k3(f"{requests[0][0]} {name}", rows, ids, n)
+        for name, rows, ids, n in evaluate_molecule_cases(torch, eval_gen)["K3"]:
+            check_k3(name, rows, ids, n)
         for name, rows, ids, n in k3_edge_cases(torch, gen):
             check_k3(f"edge case {name}", rows, ids, n)
         print(f"K3 max_abs_err {max_err['K3']:.3e} against the plain version on the CPU "
@@ -3595,6 +3685,8 @@ def main() -> int:
                 rows[("K2", label, name)] = (ms, plain, lib, nbytes, 0, F32_OPS_PER_S)
             for name, msgs, dst, mask, n in cases["K1"]:
                 time_k1(label, name, msgs, dst, mask, n)
+                if batch is requests[0][1] and name.startswith("molecule"):   # the tile kernel
+                    time_k1(label, f"{name} bfloat16", msgs.to(torch.bfloat16), dst, mask, n)
             for name, r32, ids, n in k3_cases(torch, batch, gen) + cases.get("K3", []):
                 time_k3(label, name, r32, ids, n)
             if batch is requests[0][1]:
@@ -3688,6 +3780,13 @@ def main() -> int:
             # K8 at the protein aggregation, on masked messages
             time_k8(label, p)
         time_k3(large[0], *k3_cases(torch, large[1], gen)[0])   # its protein merged backward
+        # the molecule graphs of the explainer's evaluate batches (B=8)
+        evaluate = evaluate_molecule_cases(torch, eval_gen)
+        for name, msgs, dst, mask, n in evaluate["K1"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                time_k1("evaluate", f"{name} {str(dtype)[6:]}", msgs.to(dtype), dst, mask, n)
+        for name, r32, ids, n in evaluate["K3"]:
+            time_k3("evaluate", name, r32, ids, n)
         # K1 (f32 and bf16 messages) and K8 at the large protein's protein
         # aggregation, whose padding row holds ~30,000 edges a graph
         name, msgs, dst, mask, n = kernel_cases(torch, large[1], gen)["K1"][0]
@@ -3788,6 +3887,22 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # MKL picks its code path at its first GEMM; pinned, a process's first CPU
+    # forward gives its later forwards' bits (caster_dta_torch/device.py's
+    # pin_mkl_code_path, which the port's other entry points call). Here
+    # before main and each rank child; a caller's own setting stands.
+    if sys.argv[1:2] == ["--native-mkl-grads"]:   # NAME SEED OUT, on MKL's own code path
+        import torch
+
+        from caster_dta_torch.inference.checkpoint import build_model
+
+        name, seed, out = sys.argv[2], int(sys.argv[3]), sys.argv[4]
+        kw = zoo_configs()[name]
+        torch.save({k: v.detach() for k, v in step_gradients(
+            torch, lambda dev: build_model(kw).to(dev).eval(), zoo_request(name, seed),
+            "cpu").items()}, out)
+        sys.exit(0)
+    os.environ.setdefault("MKL_CBWR", "COMPATIBLE")
     if sys.argv[1:2] == ["--multidevice-child"]:
         multidevice_child(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)

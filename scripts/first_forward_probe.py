@@ -12,11 +12,20 @@ the two runs and whether its input already differed, and (with ``--ops N``) the 
 ops whose output differs (a float64 checksum of each op's output, taken by a
 dispatch mode).
 
-    python3 scripts/first_forward_probe.py --rounds 20 --processes 4
+    python3 scripts/first_forward_probe.py --rounds 20 --processes 4 [--pin]
     python3 scripts/first_forward_probe.py --rounds 20 --threads 1
+    python3 scripts/first_forward_probe.py --where
+    python3 scripts/first_forward_probe.py --time 20
 
 Each process runs on torch's default thread count unless ``--threads`` is
-given. One JSON line per process and round goes to ``--out`` (default
+given. With ``--pin`` each process pins MKL's code path as the port's entry
+points do (``caster_dta_torch.device.pin_mkl_code_path`` after ``import
+torch``, before the first forward); set nothing in the environment for that.
+``--where`` reads back the code path MKL took (``mkl_serv_cbwr_get``) in
+fresh processes where ``MKL_CBWR=COMPATIBLE`` is set before ``import torch``,
+after it, after a first GEMM, or not at all. ``--time N`` times N served
+forwards (after 2 warm-up forwards) in a fresh process with the pin and in
+one without it, in turns, and prints each median. One JSON line per process and round goes to ``--out`` (default
 chiprun_out/first_forward_probe.jsonl); the last line printed sums them up.
 Runs on the CPU only; nothing here touches a card.
 """
@@ -60,11 +69,15 @@ def _op_sums(torch, limit: int):
 
 
 def one_process(batch: str, seed: int, threads: int | None, hooks: bool,
-                ops: int = 0) -> dict:
+                ops: int = 0, pin: bool = False) -> dict:
     """Two forwards of one seeded batch in this fresh process -> the report."""
     sys.path.insert(0, HERE)
     import torch
 
+    if pin:
+        from caster_dta_torch.device import pin_mkl_code_path
+
+        pin_mkl_code_path()
     if threads:
         torch.set_num_threads(threads)
     from caster_dta_torch.data.batching import synthetic_pair_batch
@@ -104,7 +117,8 @@ def one_process(batch: str, seed: int, threads: int | None, hooks: bool,
     first, second = answers
     diff = (first - second).abs()
     rows = torch.nonzero(diff).flatten().tolist()
-    report = {"pid": os.getpid(), "threads": torch.get_num_threads(), "equal":
+    report = {"pid": os.getpid(), "threads": torch.get_num_threads(),
+              "mkl_cbwr": mkl_code_path(torch), "equal":
               bool(torch.equal(first, second)), "differing_pairs": rows,
               "max_abs_diff": float(diff.max()), "first_divergent_module": None}
     if hooks and rows:
@@ -127,6 +141,74 @@ def one_process(batch: str, seed: int, threads: int | None, hooks: bool,
     return report
 
 
+def mkl_code_path(torch) -> int:
+    """The code path MKL runs (``mkl_serv_cbwr_get(MKL_CBWR_BRANCH)``): 1
+    unpinned (``MKL_CBWR_BRANCH_OFF``), 3 COMPATIBLE. Torch links MKL into
+    ``libtorch_cpu``; the call starts MKL where it has not run yet."""
+    import ctypes
+
+    lib = ctypes.CDLL(os.path.join(os.path.dirname(torch.__file__), "lib", "libtorch_cpu.so"))
+    lib.mkl_serv_cbwr_get.restype = ctypes.c_int
+    return int(lib.mkl_serv_cbwr_get(ctypes.c_int(1)))
+
+
+WHERE = {"before import torch": "MKL_CBWR before the import",
+         "after import torch": "MKL_CBWR after the import, before any GEMM",
+         "after a first GEMM": "MKL_CBWR after one 64 x 64 matmul",
+         "not set": "no MKL_CBWR"}
+
+
+def where_child(where: str) -> dict:
+    """In this fresh process: set MKL_CBWR=COMPATIBLE at ``where``, run a
+    GEMM, read back the code path MKL took."""
+    if where == "before import torch":
+        os.environ["MKL_CBWR"] = "COMPATIBLE"
+    import torch
+
+    a = torch.randn(64, 64)
+    if where == "after import torch":
+        os.environ["MKL_CBWR"] = "COMPATIBLE"
+    if where == "after a first GEMM":
+        a @ a
+        os.environ["MKL_CBWR"] = "COMPATIBLE"
+    a @ a
+    return {"where": where, "mkl_cbwr": mkl_code_path(torch)}
+
+
+def time_child(batch: str, seed: int, n: int, pin: bool) -> dict:
+    """Host seconds of n served CPU forwards (after 2 warm-up forwards) in
+    this fresh process, pinned or not."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    if pin:
+        from caster_dta_torch.device import pin_mkl_code_path
+
+        pin_mkl_code_path()
+    from caster_dta_torch.data.batching import synthetic_pair_batch
+    from caster_dta_torch.inference.serve import load_run
+    from caster_dta_torch.nn.common import f32_precision
+
+    run = load_run(os.path.join(HERE, "runs", "davis_seed9"), device="cpu")
+    b = synthetic_pair_batch(**BATCHES[batch], seed=seed)
+    times = []
+    for i in range(n + 2):
+        t0 = time.perf_counter()
+        with torch.no_grad(), f32_precision():
+            run.model(b.protein, b.molecule, return_attention=False)
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+    return {"pin": pin, "mkl_cbwr": mkl_code_path(torch), "threads": torch.get_num_threads(),
+            "seconds": times}
+
+
+def _child(args_list: list) -> dict:
+    env = {k: v for k, v in os.environ.items() if k != "MKL_CBWR"}
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), *args_list], env=env,
+                         capture_output=True, text=True, check=True).stdout
+    return json.loads(out.strip().splitlines()[-1])
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--rounds", type=int, default=20)
@@ -142,16 +224,49 @@ def main() -> int:
                         "differs")
     p.add_argument("--out", default=os.path.join(HERE, "chiprun_out",
                                                  "first_forward_probe.jsonl"))
+    p.add_argument("--pin", action="store_true",
+                   help="pin MKL's code path in each process as the entry points do")
+    p.add_argument("--where", action="store_true",
+                   help="read back MKL's code path for each place of the pin")
+    p.add_argument("--time", type=int, default=0, metavar="N",
+                   help="time N forwards with the pin and N without, in turns")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--where-child", help=argparse.SUPPRESS)
+    p.add_argument("--time-child", type=int, default=0, help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.child:
         print(json.dumps(one_process(args.batch, args.seed, args.threads, args.hooks,
-                                     args.ops)))
+                                     args.ops, args.pin)))
+        return 0
+    if args.where_child:
+        print(json.dumps(where_child(args.where_child)))
+        return 0
+    if args.time_child:
+        print(json.dumps(time_child(args.batch, args.seed, args.time_child, args.pin)))
+        return 0
+    if args.where:
+        for where, what in WHERE.items():
+            print(f"{what}: MKL's code path {_child(['--where-child', where])['mkl_cbwr']} "
+                  f"(1 unpinned, 3 COMPATIBLE)")
+        return 0
+    if args.time:
+        import statistics
+
+        runs = {True: [], False: []}
+        for pin in (False, True, True, False):
+            rep = _child(["--time-child", str(args.time), "--batch", args.batch, "--seed",
+                          str(args.seed), *(["--pin"] if pin else [])])
+            runs[pin].append(statistics.median(rep["seconds"]))
+            print(json.dumps(rep), flush=True)
+        print(json.dumps({"batch": args.batch, "forwards a process": args.time,
+                          "median seconds, pinned": runs[True],
+                          "median seconds, not pinned": runs[False]}))
         return 0
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     cmd = [sys.executable, os.path.abspath(__file__), "--child", "--batch", args.batch,
            "--seed", str(args.seed)] + (["--threads", str(args.threads)] if args.threads else [])
     cmd += (["--hooks"] if args.hooks else []) + (["--ops", str(args.ops)] if args.ops else [])
+    cmd += ["--pin"] if args.pin else []
     total = differing = 0
     t0 = time.perf_counter()
     with open(args.out, "a") as log:
@@ -172,7 +287,8 @@ def main() -> int:
             print(f"round {r}: {args.processes} processes done", flush=True)
     print(json.dumps({"processes": total, "first_forward_differs": differing,
                       "rounds": args.rounds, "per_round": args.processes, "batch": args.batch,
-                      "threads": args.threads or "torch default",
+                      "threads": args.threads or "torch default", "pin": args.pin,
+                      "MKL_CBWR in the environment": os.environ.get("MKL_CBWR"),
                       "seconds": time.perf_counter() - t0}))
     return 0
 

@@ -3,7 +3,7 @@
 side, at every shape the port runs them at, on the card.
 
     python3 scripts/k1_k3_times.py --source A.cu --tag a --source B.cu --tag b \
-        [--set TAG:NAME=VALUE[,NAME=VALUE...]] [--rounds 2] [--only narrow|wide]
+        [--set TAG:NAME=VALUE[,NAME=VALUE...]] [--rounds 2] [--only narrow|wide|small]
 
 Builds each source with nvcc (all at once) into
 ``caster_dta_torch/_build/k1_k3/``; ``--set`` adds a copy of the repo's
@@ -21,11 +21,15 @@ Cases (``synthetic_pair_batch`` seed 0 at chip_smoke's buckets; N(0, 1)
 rows from a seeded card generator):
 
 - wide: K1 at the protein aggregation of the flagship (f32, bf16), Davis and
-  large-protein buckets (F=28) and the flagship molecule's (F=51, 16); K3 at
-  the merged src||dst backward of the three buckets (F=28, bf16 and f32 at
-  the flagship) and the molecule backward (F=51, 16); both at the zoo's
-  widths 32 and 128 on the flagship protein graph and F=59 on its molecule
-  graph (K1);
+  large-protein buckets (F=28); K3 at the merged src||dst backward of the
+  three buckets (F=28, bf16 and f32 at the flagship); both at the zoo's
+  widths 32 and 128 on the flagship protein graph;
+- small (the molecule graphs, the tile kernels' route): K1 at the flagship
+  molecule aggregations (F=16, 51) and the zoo's F=59, K3 at the molecule
+  gathers' backward by src (F=16, 51), f32 and bf16, at the flagship (B=32)
+  and at the evaluate phase's batches (``chip_smoke.EVAL_MOLECULE_PADS``,
+  B=8: 48 and 128 rows, 256 edges); K8 (f32, every edge counting) at the
+  flagship molecule graph, F=16 and 51, whose route K1's rule names;
 - narrow: both at F = 1, 2, 3 and 4 on the flagship protein graph (the zoo's
   graph) and its molecule graph, f32 and bf16, at B = 1 and 3 (its first
   graphs) and at the Davis protein graph; K3 also on segment_softmax's own
@@ -83,16 +87,20 @@ def load(item) -> ctypes.CDLL:
     for line in (r.stdout + r.stderr).splitlines():   # the narrow kernels' registers
         if "Compiling entry" in line:
             entry = line.split("'")[1] if "'" in line else line
-        elif "narrow" in entry and ("registers" in line or "spill" in line):
+        elif ("narrow" in entry or "tile" in entry) and ("registers" in line or "spill" in line):
             print(f"{tag} {entry}: {line.strip()}", flush=True)
     lib = ctypes.CDLL(stem + ".so")
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.k1_segment_sum_sorted.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
     lib.k3_workspace_ints.argtypes, lib.k3_workspace_ints.restype = [i, i, i], ctypes.c_int64
     lib.k3_scatter_rows.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
+    lib.k8_segment_sum_2d.argtypes = [vp, vp, vp, i, i, i, i, vp]
     for name in ("k1_route", "k3_route"):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = [i, i, i, i]
+    # a version without the tile kernels numbers its routes without them
+    lib.route_names = ((cs.K1_ROUTES, cs.K3_ROUTES) if "segment_tile_kernel" in open(source).read()
+                       else (("narrow", "small", "walk"), ("narrow", "small", "csr + sum")))
     return lib
 
 
@@ -124,23 +132,33 @@ def cases(only: str) -> list:
 
     f32, bf16 = torch.float32, torch.bfloat16
     p, m = flag.protein, flag.molecule
-    if only != "narrow":
+    if only in (None, "wide"):
         k1("flagship protein", p, 28, (f32, bf16))
         k1("davis protein", davis.protein, 28, (f32,))
         k1("large protein", large.protein, 28, (f32, bf16))
-        for f in (51, 16, 59):
-            k1("flagship molecule", m, f, (f32,))
         for f in (32, 128):
             k1("zoo protein", p, f, (f32,))
         for label, batch in (("flagship", flag), ("davis", davis), ("large protein", large)):
             merged = torch.cat([batch.protein.edge_src, batch.protein.edge_dst], 1).cuda()
             k3(f"{label} merged", merged, batch.protein.n_pad, 28,
                (bf16, f32) if label == "flagship" else (bf16,))
-        for f in (51, 16):
-            k3("flagship molecule", m.edge_src.cuda(), m.n_pad, f, (bf16,))
         for f in (32, 128):
             k3("zoo protein", p.edge_dst.cuda(), p.n_pad, f, (bf16,))
-    if only != "wide":
+    if only in (None, "small"):
+        evaluate = [(f"evaluate molecule N={n_m}", synthetic_pair_batch(
+            chip_smoke.EVAL_BATCH, 128, 1024, n_m, e_m, seed=90 + i).molecule)
+            for i, (n_m, e_m) in enumerate(chip_smoke.EVAL_MOLECULE_PADS)]
+        for label, g in [("flagship molecule", m)] + evaluate:
+            for f in (16, 51) + ((59,) if g is m else ()):
+                k1(label, g, f, (f32, bf16))
+            for f in (16, 51):
+                k3(label, g.edge_src.cuda(), g.n_pad, f, (f32, bf16))
+        for f in (16, 51):   # K8 (every edge counts) on the same tile kernel as K1
+            dst, mask = m.edge_dst.cuda(), m.edge_mask.cuda()
+            msgs = torch.randn(*dst.shape, f, generator=gen, device="cuda")
+            out.append(("K8", f"flagship molecule F={f} float32 B={dst.shape[0]}",
+                        (torch.where(mask[..., None], msgs, 0.0).contiguous(), dst), m.n_pad))
+    if only in (None, "narrow"):
         for f in NARROW_WIDTHS:
             k1("zoo protein", p, f, (f32, bf16))
             k1("zoo molecule", m, f, (f32, bf16))
@@ -165,7 +183,7 @@ def work_bytes(kernel, inputs, n) -> int:
         b, e, f = msgs.shape
         return (int(mask.sum()) * f * msgs.element_size() + dst.numel() * 4 + mask.numel()
                 + b * n * f * 4)
-    rows, ids = inputs
+    rows, ids = inputs   # K3 and K8: every row counts
     b, e, f = rows.shape
     return rows.numel() * rows.element_size() + ids.numel() * 4 + b * n * f * 4
 
@@ -176,7 +194,7 @@ def main() -> int:
     ap.add_argument("--tag", action="append", default=[])
     ap.add_argument("--set", action="append", default=[], metavar="TAG:NAME=VALUE,...")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--only", choices=("narrow", "wide"))
+    ap.add_argument("--only", choices=("narrow", "wide", "small"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k1_k3_times: needs an NVIDIA card", file=sys.stderr)
@@ -212,6 +230,17 @@ def main() -> int:
                 assert lib.k1_segment_sum_sorted(msgs.data_ptr(), dst.data_ptr(),
                                                  mask.data_ptr(), out.data_ptr(), b, e, n, f,
                                                  bf16, stream()) == 0
+        elif kernel == "K8":
+            msgs, dst = inputs
+            b, e, f = msgs.shape
+            out = torch.empty(b, n, f, device="cuda")
+            flat = msgs.reshape(b * e, f)
+            rows_i = (dst.long() + n * torch.arange(b, device="cuda")[:, None]).reshape(-1)
+            want = cs.segment_sum_2d_plain(msgs.cpu(), dst.cpu(), n)
+
+            def call(lib):
+                assert lib.k8_segment_sum_2d(msgs.data_ptr(), dst.data_ptr(), out.data_ptr(), b,
+                                             e, n, f, stream()) == 0
         else:
             rows, ids = inputs
             b, e, f = rows.shape
@@ -236,8 +265,8 @@ def main() -> int:
 
         routes, times = {}, {tag: [] for tag in libs}
         for tag, lib in libs.items():
-            rule = getattr(lib, f"{kernel.lower()}_route", None)
-            names = cs.K1_ROUTES if kernel == "K1" else cs.K3_ROUTES
+            rule = getattr(lib, f"{'k1' if kernel == 'K8' else kernel.lower()}_route", None)
+            names = lib.route_names[kernel == "K3"]
             routes[tag] = names[rule(b, e, n, f)] if rule is not None else "parent's"
             call(lib)
             torch.cuda.synchronize()

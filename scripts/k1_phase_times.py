@@ -11,16 +11,21 @@ thread 0 of every block writes at the phase boundaries of
 ``segment_walk_kernel`` (start; the warp's outer and inner searches of its
 rows' edge range; its short rows; the block's barrier; the long rows, which
 on the zoo's graphs are the padding row's masked passes, for the blocks
-that walked one and for the others), ``segment_small_kernel`` (stage; row
-bounds; sums) and, where the source has them, the narrow kernels
+that walked one and for the others), and, where the source has them,
+``segment_small_kernel`` (stage; row bounds; sums), the narrow kernels
 ``segment_narrow_kernel`` (loads and ballots; placing the kept edges; row
 starts; sums) and ``scatter_narrow_kernel`` (loads; count; column pass; row
-scan; row starts; place; sums). The last stamp of a kernel follows a
-barrier, so it waits for the block's slowest row. It builds the copies with
-nvcc and runs K1 on the flagship protein graph (the zoo's) at F = 1, 2 and
-32 and on its molecule graph at F = 1 (``synthetic_pair_batch``, seed 0;
-N(0, 1) messages), and K3 at F = 1 and 2 on both graphs, on random rows and
-on segment_softmax's cotangents (``chip_smoke.softmax_cotangent_cases``).
+scan; row starts; place; sums), and the tile kernels ``segment_tile_kernel``
+and ``scatter_tile_kernel`` (loads staged; row bits and the barrier; K3's
+row scan and places; sums).
+The last stamp of a kernel follows a barrier, so it waits for the block's
+slowest row. It builds the copies with nvcc and runs K1 on the flagship
+protein graph (the zoo's) at F = 1, 2 and 32 and on its molecule graph at
+F = 1, 16 and 51 (``synthetic_pair_batch``, seed 0; N(0, 1) messages), and
+K3 at F = 1 and 2 on both graphs, on random rows and on segment_softmax's
+cotangents (``chip_smoke.softmax_cotangent_cases``), and at F = 16 and 51
+on the molecule graph by src (random rows, f32 and bf16) where the source
+has the tile kernels.
 For each case and kernel it prints, in microseconds, the median and the
 largest duration of each phase over the blocks, the spread of the blocks'
 start times, the span from the first start to the last stamp, and the
@@ -55,7 +60,7 @@ __device__ __forceinline__ void stamp(int k) {
   if (threadIdx.x == 0) {
     unsigned long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    const unsigned blk = blockIdx.x + blockIdx.y * gridDim.x;
+    const unsigned blk = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
     if (blk < 8192) g_stamp[blk][k] = t;
   }
 }
@@ -107,20 +112,45 @@ K3_NARROW = ({1: "loads + zero (warp 0)", 2: "count", 3: "column pass (thread 0)
               ("      for (int f = 0; f < F; ++f) vals[p * F + f] = v[j][f];\n    }\n  }\n"
                "  __syncthreads();\n", 6)])
 SUMS_END = "  narrow_sums<F>(vals, start, nr, out + ((int64_t)b * N + r0) * F);\n"
+TILE = ({1: "loads staged", 2: "row bits + barrier", 3: "K3: row scan", 4: "K3: place", 9: "sums"},
+        [("  int q[PER];  // edge tid + k * nt's row in the tile, -1 outside it\n", 0),
+         ("  int d[PER], dp[PER];  // edge tid + k * nt's row and the previous edge's\n", 0),
+         ("  tile_stage<WIDE>(rows + (int64_t)b * E * F, E, F, u0, su, nu, "
+          "reinterpret_cast<float*>(vals));\n", 1),
+         ("  tile_stage<WIDE>(msgs + (int64_t)b * E * F, E, F, u0, su, nu, "
+          "reinterpret_cast<float*>(\n      tile_smem + vals_at));\n", 1),
+         ("  __syncthreads();\n  if (tid < 32) {", 2),
+         ("    if (lane == 31) start[nr] = inc;\n  }\n  __syncthreads();\n", 3),
+         ("  __syncthreads();\n\n  // a thread per (row, unit): the row's run of sorted units, "
+          "in order\n", 4),
+         ("  __syncthreads();\n\n  float* out_b = out + ((int64_t)b * N + r0) * F;\n", 2)])
+# the ends of the two tile kernels (K1's, K3's)
+TILE_ENDS = ["    tile_store<WIDE>(out_b + (int64_t)q * F, (u0 + u) * 4, F, acc);\n  }\n}\n",
+             "    tile_store<WIDE>(out_b + (int64_t)r * F, (u0 + u) * 4, F, acc);\n  }\n}\n"]
 
 
 def instrumented(source: str) -> tuple:
     """The source with stamps, and whether it has the narrow kernels."""
     src = open(source).read()
     narrow = "segment_narrow_kernel" in src
+    small = "segment_small_kernel" in src
+    tile = "segment_tile_kernel" in src
     src = src.replace("namespace {\n", "namespace {\n" + STAMP, 1)
-    # the small kernel's last anchor ends the kernel: its stamp goes before
-    # the closing brace, after a barrier
-    small_end = SMALL[1][-1][0]
-    if src.count(small_end) != 1:
-        raise SystemExit(f"{source} has {src.count(small_end)} copies of {small_end!r}")
-    src = src.replace(small_end, small_end[:-2] + "  __syncthreads();\n  stamp(3);\n}\n")
-    anchors = WALK[1] + SMALL[1][:-1] + (K1_NARROW[1] + K3_NARROW[1] if narrow else [])
+    anchors = WALK[1] + (K1_NARROW[1] + K3_NARROW[1] if narrow else []) + (
+        TILE[1] if tile else [])
+    if small:
+        # the small kernel's last anchor ends the kernel: its stamp goes
+        # before the closing brace, after a barrier
+        small_end = SMALL[1][-1][0]
+        if src.count(small_end) != 1:
+            raise SystemExit(f"{source} has {src.count(small_end)} copies of {small_end!r}")
+        src = src.replace(small_end, small_end[:-2] + "  __syncthreads();\n  stamp(3);\n}\n")
+        anchors += SMALL[1][:-1]
+    if tile:   # both tile kernels' ends, after a barrier
+        for line in TILE_ENDS:
+            if src.count(line) != 1:
+                raise SystemExit(f"{source} has {src.count(line)} copies of {line!r}")
+            src = src.replace(line, line[:-2] + "  __syncthreads();\n  stamp(9);\n}\n")
     for line, slot in anchors:
         if src.count(line) != 1:
             raise SystemExit(f"{source} has {src.count(line)} copies of {line!r}")
@@ -152,6 +182,7 @@ def load(item) -> tuple:
     for name in ("k1_route", "k3_route"):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = [i, i, i, i]
+    lib.tile = "segment_tile_kernel" in text
     return lib, narrow
 
 
@@ -214,7 +245,7 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     batch = synthetic_pair_batch(**chip_smoke.FLAGSHIP, seed=0)
     for what, g, widths in (("zoo protein", batch.protein, (1, 2, 32)),
-                            ("zoo molecule", batch.molecule, (1,))):
+                            ("zoo molecule", batch.molecule, (1, 16, 51))):
         dst, mask, n = g.edge_dst.cuda(), g.edge_mask.cuda(), g.n_pad
         b, e = dst.shape
         for f in widths:
@@ -222,8 +253,10 @@ def main() -> int:
             out = torch.empty(b, n, f, device="cuda")
             for tag, (lib, narrow) in libs.items():
                 route = lib.k1_route(b, e, n, f) if narrow else None
-                kernel = (K1_NARROW if route == 0 else SMALL if route == 1 or (
-                    route is None and e * f <= 16384 and e <= 512 and n <= 1024) else WALK)
+                small = route == 1 or (route is None and e * f <= 16384 and e <= 512
+                                       and n <= 1024)
+                kernel = (K1_NARROW if route == 0 else (TILE if lib.tile else SMALL) if small
+                          else WALK)
 
                 def call():
                     assert lib.k1_segment_sum_sorted(msgs.data_ptr(), dst.data_ptr(),
@@ -267,6 +300,28 @@ def main() -> int:
                         raise AssertionError(f"{tag} K3 {what} F={f} {kind}: not the plain bits")
                     report(f"{tag} K3 narrow {what} F={f} bf16 {kind} B={b} E={e} N={n}", t,
                            K3_NARROW[0])
+    # the tile kernel's K3: the molecule gathers' cotangents by src
+    ids, n = batch.molecule.edge_src.cuda(), batch.molecule.n_pad
+    b, e = ids.shape
+    for f in (16, 51):
+        rows32 = torch.randn(b, e, f, generator=gen, device="cuda")
+        for rows in (rows32, rows32.to(torch.bfloat16)):
+            out = torch.empty(b, n, f, device="cuda")
+            for tag, (lib, _) in libs.items():
+                if not lib.tile:
+                    continue
+                ws = torch.empty(1, dtype=torch.int32, device="cuda")
+
+                def call():
+                    assert lib.k3_scatter_rows(rows.data_ptr(), ids.data_ptr(), ws.data_ptr(),
+                                               out.data_ptr(), b, e, n, f,
+                                               int(rows.dtype == torch.bfloat16), stream) == 0
+
+                t = stamps(lib, call)
+                if not torch.equal(out.cpu(), cs.scatter_rows_plain(rows.cpu(), ids.cpu(), n)):
+                    raise AssertionError(f"{tag} K3 tile F={f}: not the plain bits")
+                report(f"{tag} K3 tile zoo molecule by src F={f} {str(rows.dtype)[6:]} B={b} "
+                       f"E={e} N={n}", t, TILE[0])
     return 0
 
 

@@ -78,13 +78,15 @@ def k1_route(b: int, e: int, n: int, f: int) -> str:
     """The name (cuda_segment.K1_ROUTES) of the kernel k1_route picks."""
     if 1 <= f <= K1_NARROW_F and narrow_fits(narrow_plan(b, e, n, f, False), e):
         return "narrow"
-    return "small" if walk_small_fits(e, n, f) else "walk"
+    return "tiles" if walk_small_fits(e, n, f) else "walk"
 
 
 def k3_route(b: int, e: int, n: int, f: int) -> str:
     """The name (cuda_segment.K3_ROUTES) of the kernel k3_route picks."""
     if 1 <= f <= K3_NARROW_F and narrow_fits(narrow_plan(b, e, n, f, True), e):
         return "narrow"
+    if walk_small_fits(e, n, f):
+        return "tiles"
     return "small" if k3_small_bytes(e, n, f) else "csr + sum"
 
 
@@ -187,8 +189,8 @@ TIMED_ROUTES = [
     ("K1", (32, 4096, 512, 3), "walk"), ("K1", (32, 4096, 512, 28), "walk"),
     ("K1", (32, 4096, 512, 32), "walk"), ("K1", (32, 4096, 512, 128), "walk"),
     ("K1", (32, 256, 64, 1), "narrow"), ("K1", (32, 256, 64, 2), "narrow"),
-    ("K1", (32, 256, 64, 3), "small"), ("K1", (32, 256, 64, 16), "small"),
-    ("K1", (32, 256, 64, 51), "small"), ("K1", (32, 256, 64, 59), "small"),
+    ("K1", (32, 256, 64, 3), "tiles"), ("K1", (32, 256, 64, 16), "tiles"),
+    ("K1", (32, 256, 64, 51), "tiles"), ("K1", (32, 256, 64, 59), "tiles"),
     ("K1", (128, 4096, 768, 28), "walk"), ("K1", (128, 4096, 768, 1), "narrow"),
     ("K1", (4, 65536, 4608, 28), "walk"), ("K1", (4, 65536, 4608, 1), "walk"),
     ("K1", (1, 4096, 512, 1), "narrow"), ("K1", (3, 4096, 512, 2), "narrow"),
@@ -196,8 +198,8 @@ TIMED_ROUTES = [
     ("K3", (32, 4096, 512, 3), "small"), ("K3", (32, 4096, 512, 32), "csr + sum"),
     ("K3", (32, 4096, 512, 128), "csr + sum"), ("K3", (32, 8192, 512, 28), "csr + sum"),
     ("K3", (32, 256, 64, 1), "narrow"), ("K3", (32, 256, 64, 2), "narrow"),
-    ("K3", (32, 256, 64, 3), "small"), ("K3", (32, 256, 64, 16), "small"),
-    ("K3", (32, 256, 64, 51), "small"), ("K3", (128, 8192, 768, 28), "csr + sum"),
+    ("K3", (32, 256, 64, 3), "tiles"), ("K3", (32, 256, 64, 16), "tiles"),
+    ("K3", (32, 256, 64, 51), "tiles"), ("K3", (128, 8192, 768, 28), "csr + sum"),
     ("K3", (128, 4096, 768, 1), "narrow"), ("K3", (4, 131072, 4608, 28), "csr + sum"),
     ("K3", (4, 65536, 4608, 1), "csr + sum"), ("K3", (1, 4096, 512, 1), "narrow"),
     ("K3", (3, 4096, 512, 2), "narrow"), ("K3", (2, 0, 30, 1), "narrow"),

@@ -2,9 +2,10 @@
 scatter-add), K4 (blockwise masked attention), K5 (fused GVP message MLP,
 forward and backward), K6 (copy-cast), K7 (windowed row gather) and K8
 (row-major segment-sum) of caster_dta_torch against their plain PyTorch
-versions (K1, K2 and K3 also at the model zoo's row widths, and on the narrow
+versions (K1, K2 and K3 also at the model zoo's row widths, on the narrow
 kernels of rows of one or two columns, whose route rule is held against its
-CPU mirror, tests/segment_narrow_mirror.py), and
+CPU mirror, tests/segment_narrow_mirror.py, and on the tile kernels of
+molecule-sized graphs, ``-k tile``, mirrored by tests/segment_tile_mirror.py), and
 the autograd Functions built on them, segment_max and segment_softmax against
 the same functions on the CPU, on the card.
 
@@ -207,6 +208,104 @@ def test_k3_narrow_edge_cases(cuda, dtype, case):
                   else torch.zeros(b, n, dtype=torch.long))
         assert torch.all(got[counts == 0] == 0)
         assert not torch.signbit(got[got == 0]).any()
+
+
+# the tile kernels' molecule graphs: (B, rows) of one graph, the explainer's
+# evaluate batches and the flagship (tests/segment_tile_mirror.py on the CPU)
+TILE_GRAPHS = [(1, 64), (8, 48), (8, 128), (32, 64)]
+
+
+def _molecules(b, n_m):
+    return synthetic_pair_batch(b=b, n_p=64, e_p=256, n_m=n_m, e_m=256, seed=b + n_m).molecule
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [16, 51, 59, 28])
+@pytest.mark.parametrize("b,n_m", TILE_GRAPHS)
+def test_tile_kernels_give_the_cpu_bits_on_molecule_graphs(cuda, b, n_m, f, dtype):
+    """K3 (by src and by dst), K1 and K8 (f32) on the tile kernels
+    (``k1_route``, ``k3_route`` name them), bit for bit their plain versions
+    on the CPU, one launch a call; F=16 also from tensors off 16-byte
+    alignment (a column a unit)."""
+    g = _molecules(b, n_m)
+    n, e = g.n_pad, g.e_pad
+    assert cs.k1_route(b, e, n, f) == cs.k3_route(b, e, n, f) == "tiles"
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(f)
+    storage = torch.randn(b * e * f + 1, generator=gen, device=cuda).to(dtype)
+    views = [storage[:-1].view(b, e, f)] + ([storage[1:].view(b, e, f)] if f == 16 else [])
+    src, dst, mask = (t.to(cuda) for t in (g.edge_src, g.edge_dst, g.edge_mask))
+    for rows in views:
+        cpu = rows.cpu()
+        before = (cs.LAUNCHES[cs.K1], cs.LAUNCHES[cs.K3])
+        for ids in (src, dst):
+            got = cs.scatter_rows(rows, ids, n).cpu()
+            assert torch.equal(got, cs.scatter_rows_plain(cpu, ids.cpu(), n))
+        got = cs.segment_sum_sorted(rows, dst, mask, n).cpu()
+        assert torch.equal(got, cs.segment_sum_sorted_plain(cpu, g.edge_dst, g.edge_mask, n))
+        assert (cs.LAUNCHES[cs.K1], cs.LAUNCHES[cs.K3]) == (before[0] + 1, before[1] + 2)
+        if dtype == torch.float32:
+            got = cs.segment_sum_2d(rows, dst, n).cpu()
+            assert torch.equal(got, cs.segment_sum_2d_plain(cpu, g.edge_dst, n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["E=0", "N=1", "padding row", "empty rows", "signed zeros"])
+def test_tile_kernels_edge_cases(cuda, dtype, case):
+    """No edges, one row, every id on the padding row (K1: every edge masked),
+    empty rows (0, never -0), rows of +-0: bit for bit the CPU's."""
+    gen = torch.Generator().manual_seed(14)
+    b, e, n = {"E=0": (2, 0, 9), "N=1": (3, 40, 1), "padding row": (2, 256, 48),
+               "empty rows": (3, 300, 200)}.get(case, (2, 256, 64))
+    if case == "padding row":
+        ids = torch.full((b, e), n - 1, dtype=torch.int32)
+    elif case == "empty rows":
+        ids = (torch.randint(0, n // 4, (b, e), generator=gen) * 2).to(torch.int32)
+    else:
+        ids = torch.randint(0, n, (b, e), generator=gen, dtype=torch.int32)
+    for f in (16, 51):
+        assert cs.k3_route(b, e, n, f) == cs.k1_route(b, e, n, f) == "tiles"
+        rows = (mirror.signed_zero_rows(ids, f) if case == "signed zeros"
+                else torch.randn(b, e, f, generator=gen)).to(dtype)
+        got, _ = _k3_against_plain(rows, ids, n, cuda)
+        counts = (torch.stack([torch.bincount(x.long(), minlength=n) for x in ids]) if e
+                  else torch.zeros(b, n, dtype=torch.long))
+        assert torch.all(got[counts == 0] == 0) and not torch.signbit(got[got == 0]).any()
+        dst = torch.sort(ids, dim=1).values.contiguous()
+        mask = (torch.zeros(b, e, dtype=torch.bool) if case == "padding row"
+                else torch.rand(b, e, generator=gen) < 0.7)
+        got = cs.segment_sum_sorted(rows.to(cuda), dst.to(cuda), mask.to(cuda), n).cpu()
+        assert torch.equal(got, cs.segment_sum_sorted_plain(rows, dst, mask, n))
+        assert not torch.signbit(got[got == 0]).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_kernels_at_the_clis_small_protein_graphs(cuda, dtype):
+    """The training CLI's synthetic proteins pad to 64 rows and 256 edges, 128
+    graphs a batch: K1 at 28 columns (7 units over 4 column slices, the last
+    of one unit) and K3 on the merged src||dst ids (512 edges) take the tile
+    kernels; bit for bit the CPU's, and no read past a row (the last graph's
+    last row ends the tensor)."""
+    p = synthetic_pair_batch(128, 64, 256, 48, 256, seed=3).protein
+    n, e = p.n_pad, p.e_pad
+    merged = torch.cat([p.edge_src, p.edge_dst], 1).to(torch.int32).contiguous()
+    assert cs.k1_route(128, e, n, 28) == cs.k3_route(128, 2 * e, n, 28) == "tiles"
+    gen = torch.Generator().manual_seed(15)
+    msgs = torch.randn(128, e, 28, generator=gen).to(dtype)
+    got = cs.segment_sum_sorted(msgs.to(cuda), p.edge_dst.to(cuda), p.edge_mask.to(cuda), n)
+    assert torch.equal(got.cpu(), cs.segment_sum_sorted_plain(msgs, p.edge_dst, p.edge_mask, n))
+    rows = torch.randn(128, 2 * e, 28, generator=gen).to(dtype)
+    _k3_against_plain(rows, merged, n, cuda)
+    torch.cuda.synchronize()
+
+
+def test_tile_and_small_k3_trap_on_an_id_out_of_range(cuda):
+    """The tile kernel (a molecule-sized graph) and scatter_small_kernel
+    (E = 600 ids over 3 columns: one block's shared memory, past the tile
+    kernels' 512 edges) stop on an id outside [0, N)."""
+    assert cs.k3_route(1, 4, 4, 3) == "tiles" and cs.k3_route(1, 600, 4, 3) == "small"
+    _trap_in_child("cs.scatter_rows(t, i, 4)")
+    _trap_in_child("cs.scatter_rows(t.repeat(1, 150, 1), i.repeat(1, 150), 4)")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
