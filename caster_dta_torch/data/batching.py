@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from caster_dta_torch.data.graphs import GraphBatch, pad_graph, stack_graphs
+from caster_dta_torch.utils.profiling import annotate
 
 
 @dataclass
@@ -234,8 +235,12 @@ class BucketedLoader:
                 yield b, q
 
     def __iter__(self) -> Iterator[PairBatch]:
+        """Each batch's assembly is a span ``loader.batch`` whose value is its
+        real pairs."""
         for b, q in self.iter_index_batches():
-            yield self._assemble(b, q)
+            with annotate("loader.batch", len(q)):
+                batch = self._assemble(b, q)
+            yield batch
 
     def __len__(self) -> int:
         return sum(-(-len(idxs) // self.bucket_batch_size(b))

@@ -15,6 +15,12 @@ and tower (inference/explain.py); ``eager=True`` runs both eagerly, as on the
 CPU. On the blockwise attention path (``use_pallas``) the model returns no
 attention maps: the six attention columns hold None there (the JAX package's
 function fails on that path), and the explainer refuses it.
+
+A batch's spans (utils/profiling.py), in turn: ``inference.forward``
+(replay.py's, or the eager forward here), ``inference.explain`` (one a
+tower, explain.py), ``inference.fetch`` (every output to the host: the
+first copy waits for the card) and ``inference.records`` (unscaling and the
+records; its value is the batch's real pairs).
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 from caster_dta_torch.data.batching import BucketedLoader
 from caster_dta_torch.inference import replay
 from caster_dta_torch.inference.explain import DTAModelExplainer
+from caster_dta_torch.utils.profiling import annotate
 
 COLUMNS = ("protein_id", "molecule_id", "affinity_score", "protein_attention",
            "molecule_attention", "max_protein_attention", "max_molecule_attention",
@@ -70,14 +77,18 @@ def evaluate_batches(model: torch.nn.Module, dataset, batches, do_explainer: boo
                 (score, w_rd, w_dr), (protein, molecule) = replay.replayed_forward(model)(
                     batch.protein, batch.molecule)
             else:
-                protein, molecule = batch.protein.to(device), batch.molecule.to(device)
-                score, w_rd, w_dr = replay.forward(model, protein, molecule)
+                with annotate("inference.forward"):
+                    protein, molecule = batch.protein.to(device), batch.molecule.to(device)
+                    score, w_rd, w_dr = replay.forward(model, protein, molecule)
             exp = None
             if explainer is not None:
-                exp = {k: _np(v) for k, v in
-                       explainer.explain_model(protein, molecule, eager=eager).items()}
-            _add_rows(rows, dataset, batch, dataset.unscale_target(_np(score)), _np(w_rd),
-                      _np(w_dr), exp)
+                exp = explainer.explain_model(protein, molecule, eager=eager)
+            with annotate("inference.fetch"):
+                score, w_rd, w_dr = _np(score), _np(w_rd), _np(w_dr)
+                if exp is not None:
+                    exp = {k: _np(v) for k, v in exp.items()}
+            with annotate("inference.records", int((batch.weight > 0).sum())):
+                _add_rows(rows, dataset, batch, dataset.unscale_target(score), w_rd, w_dr, exp)
     finally:
         model.train(was)
     order = np.argsort(np.asarray(rows["pair_idx"]), kind="stable")

@@ -16,7 +16,9 @@ loop, forward, backward and Adam for every step, as one CUDA graph (the
 counterpart of JAX's jitted ``lax.scan``), kept with the model for every
 explainer of it: its first batch runs eagerly on the capture stream and gives
 the answer, every later batch replays. ``eager=True``
-runs the loop eagerly on the card, as on the CPU.
+runs the loop eagerly on the card, as on the CPU. Each tower's loop is a
+span ``inference.explain`` whose value is the replayed graph's device
+operations (-1 where the loop ran eagerly).
 
 The blockwise attention path (``use_pallas``) has no gradient, in JAX as here
 (K4 is forward only): the explainer refuses such a model before any work.
@@ -36,6 +38,7 @@ from caster_dta_torch.inference import jax_random
 from caster_dta_torch.inference.replay import BatchLayout, model_path
 from caster_dta_torch.nn.common import f32_precision
 from caster_dta_torch.train.graphs import GraphCache
+from caster_dta_torch.utils.profiling import annotate
 
 # optax.adam's defaults
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
@@ -149,22 +152,24 @@ class DTAModelExplainer:
 
     # ------------------------------------------------------------- replays
     def _replayed(self, protein: GraphBatch, molecule: GraphBatch, side: str) -> tuple:
+        """-> (the masks, as ``_explain`` gives them; the replayed graph's
+        device operations, -1 for the bucket's first batch, run eagerly)."""
         layout = BatchLayout(protein, molecule)
         key = (side, layout.key, model_path(self.model), self.n_epochs, self.lr,
                self.coeff_size, self.coeff_ent, self.coeff_edge_size, self.coeff_edge_ent)
         step = self._graphs.get(key)
         if step is None:
-            with self._graphs.side_stream():
+            with annotate("graph.warmup"), self._graphs.side_stream():
                 out = self._explain(protein, molecule, side)
             graph = protein if side == "protein" else molecule
             keep = [self._initial_logits(tuple(m.shape), i)
                     for i, m in enumerate((graph.node_mask, graph.edge_mask))]
             self._graphs.capture(key, keep, layout.width,
                                  {True: lambda r: self._explain(*layout.views(r), side)})
-            return out
+            return out, -1
         layout.pack(step.row, protein, molecule)
         self.replays += 1
-        return tuple(t.clone() for t in step.replay())
+        return tuple(t.clone() for t in step.replay()), step.nodes[True]
 
     def explain_model(self, protein: GraphBatch, molecule: GraphBatch,
                       side: Literal["protein", "molecule", "both"] = "both",
@@ -176,10 +181,15 @@ class DTAModelExplainer:
                 "through masked_mha fails; serve the model dense to explain it")
         if side not in ("protein", "molecule", "both"):
             raise ValueError(f"side must be 'protein', 'molecule' or 'both', not {side!r}")
-        run = self._explain if self._graphs is None or eager else self._replayed
+        replayed = self._graphs is not None and not eager
         out = {}
         with _eval_mode(self.model):
             for name in ("protein", "molecule"):
                 if side in (name, "both"):
-                    out[name], out[f"{name}_edges"] = run(protein, molecule, name)
+                    with annotate("inference.explain") as span:
+                        if replayed:
+                            masks, span.value = self._replayed(protein, molecule, name)
+                        else:
+                            masks = self._explain(protein, molecule, name)
+                    out[name], out[f"{name}_edges"] = masks
         return out

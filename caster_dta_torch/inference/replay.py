@@ -12,8 +12,12 @@ K4's counter buffer, which a capture cannot make) and then captures it
 (train/graphs.py ``GraphCache``); every later request replays. Each answer
 is a copy of the graph's static outputs, so a later replay cannot overwrite
 an answer already given. Launch counts stay countable: a replay adds its
-capture's counts (ops/launches.py). Nothing falls back: a failed capture or
-replay raises.
+capture's counts (ops/launches.py). A request is two spans: ``inference.pack``
+(the layout, the wait for the buffer's last copy, the packing) and
+``inference.forward`` (the copy to the card, the replay, the answer's
+copies), whose value is the replayed graph's device operations (-1 where
+the forward ran eagerly). Nothing falls back: a failed capture or replay
+raises.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from caster_dta_torch.data.device_cache import FIELD_ALIGN
 from caster_dta_torch.data.graphs import GraphBatch
 from caster_dta_torch.nn.common import f32_precision
 from caster_dta_torch.train.graphs import GraphCache, model_path
+from caster_dta_torch.utils.profiling import annotate
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(GraphBatch))
 
@@ -90,27 +95,30 @@ class ReplayedForward:
         ``forward`` gives them, copied; the request's graphs on the card,
         views valid until the next call)."""
         model = self._model()
-        layout, key = self._key(protein, molecule)
-        if key not in self._staging:
-            pinned = torch.empty(layout.width, dtype=torch.int32, pin_memory=True)
-            self._staging[key] = (layout, pinned, torch.cuda.Event())
-        layout, pinned, copied = self._staging[key]
-        copied.synchronize()            # the last request's copy has left the buffer
-        layout.pack(pinned, protein, molecule)
+        with annotate("inference.pack"):
+            layout, key = self._key(protein, molecule)
+            if key not in self._staging:
+                pinned = torch.empty(layout.width, dtype=torch.int32, pin_memory=True)
+                self._staging[key] = (layout, pinned, torch.cuda.Event())
+            layout, pinned, copied = self._staging[key]
+            copied.synchronize()            # the last request's copy has left the buffer
+            layout.pack(pinned, protein, molecule)
         step = self.graphs.get(key)
-        if step is None:
-            row = pinned.to(self.device, non_blocking=True)
+        with annotate("inference.forward") as span:
+            if step is None:
+                row = pinned.to(self.device, non_blocking=True)
+                copied.record()
+                with annotate("graph.warmup"), self.graphs.side_stream():
+                    out = forward(model, *layout.views(row))
+                self.graphs.capture(key, None, layout.width,
+                                    {True: lambda r: forward(model, *layout.views(r))})
+                return out, layout.views(row)
+            span.value = step.nodes[True]
+            step.row.copy_(pinned, non_blocking=True)
             copied.record()
-            with self.graphs.side_stream():
-                out = forward(model, *layout.views(row))
-            self.graphs.capture(key, None, layout.width,
-                                {True: lambda r: forward(model, *layout.views(r))})
-            return out, layout.views(row)
-        step.row.copy_(pinned, non_blocking=True)
-        copied.record()
-        out = step.replay()
-        self.replays += 1
-        return tuple(None if t is None else t.clone() for t in out), layout.views(step.row)
+            out = step.replay()
+            self.replays += 1
+            return tuple(None if t is None else t.clone() for t in out), layout.views(step.row)
 
     def _key(self, protein: GraphBatch, molecule: GraphBatch) -> tuple:
         layout = BatchLayout(protein, molecule)

@@ -60,7 +60,7 @@ from caster_dta_torch.nn.norm import MaskedBatchNorm
 from caster_dta_torch.train import checkpoints, graphs, metrics as metrics_mod
 from caster_dta_torch.train.optim import (BATCH_SCHEDULERS, make_optimizer, make_scheduler,
                                           set_learning_rate)
-from caster_dta_torch.utils.profiling import ThroughputMeter
+from caster_dta_torch.utils.profiling import ThroughputMeter, annotate
 
 _COMPUTE_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16,
                    "bf16": torch.bfloat16}
@@ -457,8 +457,9 @@ class Trainer:
         mega = self._local(mega)
         k, b = mega.p_rows.shape
         divs, applies = zip(*(self._next_mini_step() for _ in range(k)))
-        packed = upload(graphs.pack_rows(mega.p_rows, mega.m_rows, mega.target, mega.weight,
-                                         lr=lrs, div=divs), self.device)
+        with annotate("train.upload", k):
+            packed = upload(graphs.pack_rows(mega.p_rows, mega.m_rows, mega.target, mega.weight,
+                                             lr=lrs, div=divs), self.device)
         self._set_mode(True)
 
         def body(row, apply):
@@ -479,17 +480,19 @@ class Trainer:
         a graph cache (the CPU, ``scan_steps=False``) eagerly; else eagerly on
         the capture stream while ``warming(steps warmed so far)`` holds and
         the bucket's step is not captured yet, then by replays of its
-        ``captured`` variants, captured once -> out."""
+        ``captured`` variants, captured once -> out. Each replay is a span
+        ``<kind>.replay`` whose value is its graph's device operations."""
         if self._graphs is None:
             for j, variant in enumerate(variants):
                 out[j] = body(packed[j], variant)
             return out
         key = self._graph_key(kind, mega)
+        span = kind + ".replay"
         warm = 0
         for j, variant in enumerate(variants):
             entry = self._graphs.get(key)
             if entry is None and warming(warm):
-                with self._graphs.side_stream():
+                with annotate("graph.warmup"), self._graphs.side_stream():
                     out[j] = body(packed[j], variant)
                 warm += 1
                 continue
@@ -498,7 +501,8 @@ class Trainer:
                     key, (mega.p_store, mega.m_store), packed.shape[1],
                     {v: (lambda row, v=v: body(row, v)) for v in captured},
                     generator=self.generator if kind == "train" else None)
-            out[j] = entry.run(packed[j], variant)
+            with annotate(span, entry.nodes[variant]):
+                out[j] = entry.run(packed[j], variant)
         return out
 
     def captured_step(self, kind: str, mega: MegaBatch) -> Optional[graphs.CapturedStep]:
@@ -540,8 +544,9 @@ class Trainer:
         replays of the bucket's captured forward, as ``train_megabatch``."""
         mega = self._local(mega)
         k, b = mega.p_rows.shape
-        packed = upload(graphs.pack_rows(mega.p_rows, mega.m_rows, mega.target, mega.weight),
-                        self.device)
+        with annotate("train.upload", k):
+            packed = upload(graphs.pack_rows(mega.p_rows, mega.m_rows, mega.target, mega.weight),
+                            self.device)
         self._set_mode(False)
 
         def body(row, _):
@@ -584,11 +589,12 @@ class Trainer:
     def _use_scan(self, loader) -> bool:
         return self.config.scan_steps and hasattr(loader, "iter_megabatches")
 
-    def _scan_epoch(self, loader, run):
+    def _scan_epoch(self, kind: str, loader, run):
         """``run(mega, edges) -> preds [k, B]`` over the loader's megabatches,
         each written into one [batches, widest B] device buffer that is
-        fetched once at the end (the JAX package's ``_acc_block``) -> (host
-        rows, (mask, target, pair_idx) of each batch)."""
+        fetched once at the end (the JAX package's ``_acc_block``; the span
+        ``<kind>.fetch``) -> (host rows, (mask, target, pair_idx) of each
+        batch)."""
         buf = torch.zeros(max(len(loader), 1), _max_batch_width(loader), device=self.device)
         k0, deferred = 0, []
         for mega, edges in loader.iter_megabatches():
@@ -597,7 +603,9 @@ class Trainer:
             k0 += mega.n_steps
             deferred += [(mega.weight[j] > 0, mega.target[j], mega.pair_idx[j])
                          for j in range(mega.n_steps)]
-        return buf.cpu().numpy(), deferred
+        with annotate(kind + ".fetch"):
+            rows = buf.cpu().numpy()
+        return rows, deferred
 
     def _train_epoch_scan(self, loader, lr, scheduler, epoch, total_train, unscale, meter):
         """One pass bucket by bucket (``train_megabatch``). Each megabatch's
@@ -623,7 +631,7 @@ class Trainer:
             n_steps += mega.n_steps
             return preds
 
-        rows, deferred = self._scan_epoch(loader, run)
+        rows, deferred = self._scan_epoch("train", loader, run)
         losses, sizes, _ = self._batch_losses(rows, deferred, unscale)
         return float(np.average(losses, weights=sizes)), lr
 
@@ -666,7 +674,8 @@ class Trainer:
         real pairs of ``loader`` (bucket by bucket with a device-resident
         loader and ``scan_steps``)."""
         if self._use_scan(loader):
-            rows, deferred = self._scan_epoch(loader, lambda mega, _: self.eval_megabatch(mega))
+            rows, deferred = self._scan_epoch("eval", loader,
+                                              lambda mega, _: self.eval_megabatch(mega))
         else:
             preds, deferred = [], []
             for batch in loader:
